@@ -6,26 +6,42 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It drives the port's main path, ``gramtools-tpu-torch genotype --engine
-device`` with the packed rank (``GRAMTOOLS_TPU_RANK=packed``), at the
-repository's M. tuberculosis-scale workload: a 4.4 Mb genome with
-100,000 biallelic SNP sites, 150 bp reads, k = 10 (the graph and read
-generators of bench.py, seeded). Phases, each printing one line:
+device`` with the packed rank (``GRAMTOOLS_TPU_RANK=packed``) and the
+fused device recorder (the default), at the repository's
+M. tuberculosis-scale workload: a 4.4 Mb genome with 100,000 biallelic
+SNP sites, 150 bp reads, k = 10 (the graph and read generators of
+bench.py, seeded). Phases, each printing one line or a few:
 
-  0. the card (nvidia-smi name and power limit), the kernel build;
-  1. the packed-rank CUDA kernel against its plain torch twin, on a
+  0. the card (nvidia-smi name and power limit), the build of the three
+     kernels (one nvcc each, all started together);
+  1. the packed-rank kernel (K1) against its plain torch twin, on a
      small FM index (every prefix length) and on the 4.4 Mb graph's
      records (524,288 random rows plus edge rows, also against the
      dense occ table), with CUDA-event timings;
+  1d. the path's own shapes: three 20,000-read buffers (R = 30,720
+     rows) through the fused engine on CUDA, timed per buffer on the
+     host clock; the second buffer's ``scan_submit`` runs under
+     ``torch.cuda.set_sync_debug_mode("error")`` (no host
+     synchronisation allowed) and its genealogy-replay (K7) and
+     per-base walk (K9) inputs are kept; the third runs under
+     ``torch.profiler`` (device busy time and kernel count). K7 and K9
+     are then held against their plain twins on those inputs, with
+     CUDA-event timings;
   2. scan parity on one 4,096-read buffer: the flat result of the scan
      on CUDA with the packed rank, on CUDA with the dense rank and on
      the CPU in plain torch must be equal;
+  2b. fused parity on one 4,096-read buffer: the fused program's flat
+     result and ``cov_diff`` on CUDA and on the CPU (plain torch, the
+     kernels' twins) must be equal;
   3. end to end: build the graph, then genotype 40,000 reads (two
-     20,000-read buffers, so submit and complete overlap); the
-     kernel's launch count is reset just before and read just after;
+     20,000-read buffers, so submit and complete overlap); the three
+     kernels' launch counts are reset just before and read just after,
+     and each must be above 0;
   4. output parity: on the first 4,000 reads, the port's device run
-     on CUDA and the JAX package's host engine must write byte-equal
-     VCF (without ##fileDate), jVCF, coverage dumps and personalised
-     reference.
+     on CUDA, with the fused recorder and with
+     ``GRAMTOOLS_TPU_DEVICE_RECORD=0``, and the JAX package's host
+     engine must write byte-equal VCF (without ##fileDate), jVCF,
+     coverage dumps and personalised reference.
 
 The second-to-last line is a JSON object with one entry per kernel of
 the path; the last is ``{"ok": true, "device": {...}}``. Any failed
@@ -47,6 +63,7 @@ from dataclasses import dataclass
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
+KERNELS = ("packed_rank", "replay", "walk")
 
 
 @dataclass
@@ -57,7 +74,7 @@ class SmokeConfig:
     kmer_size: int = 10
     e2e_reads: int = 40_000       # two 20,000-read device buffers
     parity_reads: int = 4_000
-    scan_reads: int = 4_096
+    scan_reads: int = 4_096       # phases 2 and 2b
     kernel_rows: int = 524_288
     timing_runs: int = 20
     seed: int = 42
@@ -295,25 +312,267 @@ def phase_scan(cfg: SmokeConfig, idx, kmer_index, reads, device):
         f"{dense_s:.3f} s dense, {cpu_s:.3f} s cpu")
 
 
+def _first_draws(cfg: SmokeConfig, n: int, salt: int):
+    """Selection seeds and mt19937 first draws of one buffer."""
+    import numpy as np
+
+    from gramtools_tpu.common.rng import RandomInclusiveInt, first_raw_draws
+
+    seeds = RandomInclusiveInt(cfg.seed + salt).raw_block(n)
+    return seeds, first_raw_draws(np.asarray(seeds, dtype=np.uint32))
+
+
+def _profile_device(fn):
+    """Runs fn under torch.profiler; returns (device busy ms, kernel
+    count) from the trace, or (None, None) when it shows no device
+    time."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy_us, kernels = 0.0, 0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(ev, "device_time", None)
+        if t is None:
+            t = getattr(ev, "cuda_time", 0.0)
+        busy_us += t
+        kernels += 1
+    return (busy_us / 1000.0, kernels) if busy_us > 0 else (None, None)
+
+
+def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device):
+    """Phase 1d: the fused engine at the path's shapes; K7 and K9 held
+    against their twins on the second buffer's own inputs. Returns the
+    kernels' JSON entries (without the launch counts)."""
+    import traceback
+
+    import numpy as np
+    import torch
+
+    from gramtools_tpu.mapping.coverage import Coverage
+    from gramtools_tpu.mapping.quasimap import (DEVICE_BUFFER_SIZE,
+                                                QuasimapStats, ReadBatch)
+    from gramtools_tpu_torch.mapping import record
+    from gramtools_tpu_torch.mapping.engine import LogBatchedEngine
+    from gramtools_tpu_torch.ops import replay, walk
+
+    os.environ["GRAMTOOLS_TPU_RANK"] = "packed"
+    B = DEVICE_BUFFER_SIZE
+    engine = LogBatchedEngine(idx, cfg.kmer_size, device=device)
+    assert engine.device_record
+    stats = QuasimapStats()
+    coverage = Coverage.empty(idx)
+    starts = [0, B, 0]          # the third buffer repeats the first's reads
+    captured = {}
+
+    def keep(name, fn):
+        def wrapper(*args, **kwargs):
+            captured[name] = (args, kwargs)
+            return fn(*args, **kwargs)
+        return wrapper
+
+    lines = []
+    for b, start in enumerate(starts):
+        batch = ReadBatch(np.ascontiguousarray(reads[start:start + B]))
+        sel_seeds, firsts = _first_draws(cfg, B, b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if b == 1:
+            record.replay, record.walk = (keep("replay", replay.replay),
+                                          keep("walk", walk.walk))
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                token = engine.scan_submit(batch, kmer_index, cfg.kmer_size,
+                                           stats, first_raws=firsts)
+            except RuntimeError:
+                say("[phase 1d] scan_submit synchronised under sync debug "
+                    "mode:\n" + traceback.format_exc())
+                raise
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                record.replay, record.walk = replay.replay, walk.walk
+            busy_ms = kernels = None
+        elif b == 2:
+            box = {}
+            busy_ms, kernels = _profile_device(lambda: box.setdefault(
+                "token", engine.scan_submit(batch, kmer_index, cfg.kmer_size,
+                                            stats, first_raws=firsts)))
+            token = box["token"]
+        else:
+            token = engine.scan_submit(batch, kmer_index, cfg.kmer_size,
+                                       stats, first_raws=firsts)
+            busy_ms = kernels = None
+        submit_s = time.perf_counter() - t0
+        assert token[2][0] == "record", "the fused program did not run"
+        R = token[2][2]
+        t0 = time.perf_counter()
+        token[2][1].get()
+        wait_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        engine.record_complete(token, sel_seeds, firsts, stats, coverage)
+        complete_s = time.perf_counter() - t0
+        lines.append(
+            f"buffer {b}: scan_submit {submit_s:.3f} s host, then waited "
+            f"{wait_s:.3f} s for the result, record_complete {complete_s:.3f}"
+            f" s host" + ("" if busy_ms is None else
+                          f"; profiled: device busy {busy_ms:.1f} ms over "
+                          f"{kernels} device events")
+            + (" [sync debug mode 'error': no synchronisation]"
+               if b == 1 else ""))
+    engine.flush_device_coverage()
+    say(f"[phase 1d] fused engine, R={R} rows a buffer, phases "
+        f"{sorted({s[1] for s in engine.dispatch_shapes})}: "
+        + "; ".join(lines) + f"; device_mapped {engine.device_mapped}, "
+        f"host_fallbacks {engine.host_fallbacks}, device_retried "
+        f"{engine.device_retried}, fallback_reasons "
+        f"{dict(engine.fallback_reasons)}")
+
+    entries = []
+    # K7: exact equality of every output
+    args, kwargs = captured["replay"]
+    got = replay.replay_cuda(*args, **kwargs)
+    want = replay.replay_torch(*args, **kwargs)
+    err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+              if g.numel() else 0 for g, w in zip(got, want))
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"replay kernel != twin (max abs err {err})")
+    ms = time_ms(lambda: replay.replay_cuda(*args, **kwargs), cfg.timing_runs)
+    plain = time_ms(lambda: replay.replay_torch(*args, **kwargs),
+                    cfg.timing_runs)
+    N = args[0].shape[0]
+    say(f"[phase 1d] K7 replay at N={N} pool states, log of "
+        f"{args[2].shape[0]} records: kernel == twin, {ms:.4f} ms kernel, "
+        f"{plain:.4f} ms twin (median of {cfg.timing_runs}); "
+        f"{int(args[1].sum())} live states, {int(got[4].sum())} bad")
+    entries.append({"name": "replay", "route": "cuda",
+                    "source": "gramtools_tpu_torch/csrc/replay.cu",
+                    "replaces": "gramtools_tpu/mapping/record_jax.py:251",
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain})
+    # K9: the emission multiset and the spill flag (order is the atomics')
+    args, kwargs = captured["walk"]
+    got, spill = walk.walk_cuda(*args, **kwargs)
+    want, want_spill = walk.walk_torch(*args, **kwargs)
+
+    def rows(e):
+        """The emissions in lexicographic row order."""
+        perm = torch.arange(e.shape[0], device=e.device)
+        for c in (3, 2, 1, 0):
+            perm = perm[torch.sort(e[perm, c], stable=True).indices]
+        return e[perm].to(torch.int64)
+
+    if bool(spill) != bool(want_spill):
+        raise AssertionError("walk kernel spill != twin spill")
+    err = 0 if bool(want_spill) else int(
+        (rows(got) - rows(want)).abs().max())
+    if err:
+        raise AssertionError(f"walk kernel != twin (max abs err {err})")
+    ms = time_ms(lambda: walk.walk_cuda(*args, **kwargs), cfg.timing_runs)
+    plain = time_ms(lambda: walk.walk_torch(*args, **kwargs),
+                    cfg.timing_runs)
+    n_emit = int((want[:, 0] < walk.BIG).sum())
+    valid, emitcap = args[2], args[11]
+    say(f"[phase 1d] K9 walk at {valid.shape[0]} lanes ({int(valid.sum())} "
+        f"live), emitcap {emitcap}: kernel == twin ({n_emit} emissions, spill {bool(spill)}), "
+        f"{ms:.4f} ms kernel, {plain:.4f} ms twin (median of "
+        f"{cfg.timing_runs})")
+    entries.append({"name": "walk", "route": "cuda",
+                    "source": "gramtools_tpu_torch/csrc/walk.cu",
+                    "replaces": "gramtools_tpu/mapping/record_jax.py:841",
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain})
+    return entries
+
+
+def phase_fused_parity(cfg: SmokeConfig, idx, kmer_index, reads, device):
+    """Phase 2b: one 4,096-read buffer's fused program on CUDA and on
+    the CPU (plain torch: the kernels' twins)."""
+    import numpy as np
+    import torch
+
+    from gramtools_tpu.mapping.quasimap import QuasimapStats, ReadBatch
+    from gramtools_tpu_torch.mapping import engine as engine_mod
+    from gramtools_tpu_torch.mapping.device_index import DeviceIndex
+    from gramtools_tpu_torch.mapping.record import RecordTables, SeedTables
+    from gramtools_tpu_torch.mapping.search_log import log_search_record
+
+    os.environ["GRAMTOOLS_TPU_RANK"] = "packed"
+    engine = engine_mod.LogBatchedEngine(idx, cfg.kmer_size, device=device)
+    captured = {}
+
+    def capture(*args, **kwargs):
+        captured["call"] = (args, kwargs)
+        return log_search_record(*args, **kwargs)
+
+    batch = ReadBatch(np.ascontiguousarray(reads[:cfg.scan_reads]))
+    _, firsts = _first_draws(cfg, cfg.scan_reads, 7)
+    engine_mod.log_search_record = capture
+    try:
+        t0 = time.perf_counter()
+        token = engine.scan_submit(batch, kmer_index, cfg.kmer_size,
+                                   QuasimapStats(), first_raws=firsts)
+        flat_cuda = token[2][1].get()
+        cuda_s = time.perf_counter() - t0
+    finally:
+        engine_mod.log_search_record = log_search_record
+    cov_cuda = engine.cov_diff.cpu()
+    (di, rt, st, *rest), kwargs = captured["call"]
+    cov_cpu = torch.zeros(rt.cov_size + 1, dtype=torch.int32)
+    t0 = time.perf_counter()
+    flat_cpu = log_search_record(
+        DeviceIndex.build(idx, engine.jt, "cpu"), RecordTables.build(idx, "cpu"),
+        SeedTables.build(kmer_index, "cpu"), *(a.cpu() for a in rest[:6]),
+        cov_cpu, *rest[7:], blocks=kwargs["blocks"].cpu(),
+        rank=kwargs["rank"]).numpy()
+    cpu_s = time.perf_counter() - t0
+    if not np.array_equal(flat_cuda, flat_cpu):
+        raise AssertionError(f"fused flat result: cuda != cpu "
+                             f"({int((flat_cuda != flat_cpu).sum())} words)")
+    if not torch.equal(cov_cuda, cov_cpu):
+        raise AssertionError("cov_diff: cuda != cpu")
+    R, trip_cap = rest[8], rest[9]
+    fb = flat_cuda[R:2 * R]
+    say(f"[phase 2b] fused program on {len(token[1])} rows (R={R}, "
+        f"trip_cap={trip_cap}): flat result ({flat_cuda.size} int32) and "
+        f"cov_diff ({cov_cpu.numel()} int32, {int((cov_cpu != 0).sum())} "
+        f"non-zero) equal on cuda and cpu; {int(flat_cuda[2 * R:3 * R].sum())}"
+        f" rows mapped, {int((fb != 0).sum())} flagged, "
+        f"{int((flat_cuda[3 * R:3 * R + trip_cap] < R).sum())} loci triples;"
+        f" {cuda_s:.3f} s cuda submit+wait, {cpu_s:.3f} s cpu")
+
+
 def genotype_args(gram: Path, out: Path, reads: Path, engine: str):
     return ["genotype", "--gram_dir", str(gram), "--genotype_dir", str(out),
             "--reads", str(reads), "--sample_id", "smoke", "--seed", "7",
             "--engine", engine, "--force"]
 
 
+def _counted():
+    """The three kernels' launch-counting wrappers, by name."""
+    from gramtools_tpu_torch.ops import rank, replay, walk
+
+    return {"packed_rank": rank.packed_rank, "replay": replay.replay,
+            "walk": walk.walk}
+
+
 def phase_e2e(cfg: SmokeConfig, work: Path):
-    """Phase 3: the main path. Returns the kernel's launch count."""
+    """Phase 3: the main path (fused recorder, the default). Returns the
+    kernels' launch counts."""
     from gramtools_tpu_torch.cli import run as torch_cli
-    from gramtools_tpu_torch.ops import rank
 
     os.environ["GRAMTOOLS_TPU_RANK"] = "packed"
-    rank.packed_rank.launches = 0
+    os.environ.pop("GRAMTOOLS_TPU_DEVICE_RECORD", None)
+    for fn in _counted().values():
+        fn.launches = 0
     t0 = time.perf_counter()
     if torch_cli(genotype_args(work / "gram", work / "e2e",
                                work / "reads.fq", "device")) != 0:
         raise RuntimeError("genotype failed")
     wall = time.perf_counter() - t0
-    launches = rank.packed_rank.launches
+    launches = {name: fn.launches for name, fn in _counted().items()}
     rep = json.loads((work / "e2e" / "genotype_report.json").read_text())
     proc = rep["processes"]["genotype"]
     eng = proc["engine"]
@@ -327,10 +586,10 @@ def phase_e2e(cfg: SmokeConfig, work: Path):
         f"phases {json.dumps({k: v['seconds'] for k, v in proc['phases'].items()})}; "
         f"device_mapped {eng['device_mapped']}, host_fallbacks "
         f"{eng['host_fallbacks']} ({100 * fallback_share:.2f}%), "
-        f"device_retried {eng['device_retried']}; packed_rank launches "
-        f"{launches}")
-    if launches <= 0:
-        raise AssertionError("the main path launched no packed_rank kernel")
+        f"device_retried {eng['device_retried']}; launches {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"the main path launched no {name} kernel")
     if eng["device_mapped"] <= 0:
         raise AssertionError("no row was mapped on the device")
     if fallback_share >= 0.05:
@@ -340,15 +599,23 @@ def phase_e2e(cfg: SmokeConfig, work: Path):
 
 
 def phase_parity(work: Path):
-    """Phase 4: device (CUDA) against the JAX package's host engine."""
+    """Phase 4: device (CUDA), with each recorder, against the JAX
+    package's host engine."""
     from gramtools_tpu.cli import run as tpu_cli
     from gramtools_tpu_torch.cli import run as torch_cli
 
-    t0 = time.perf_counter()
-    if torch_cli(genotype_args(work / "gram", work / "par_dev",
-                               work / "reads_parity.fq", "device")) != 0:
-        raise RuntimeError("port genotype failed")
-    dev_s = time.perf_counter() - t0
+    dev_s = {}
+    for record in ("1", "0"):
+        os.environ["GRAMTOOLS_TPU_DEVICE_RECORD"] = record
+        t0 = time.perf_counter()
+        try:
+            if torch_cli(genotype_args(work / "gram", work / f"par_dev{record}",
+                                       work / "reads_parity.fq",
+                                       "device")) != 0:
+                raise RuntimeError("port genotype failed")
+        finally:
+            os.environ.pop("GRAMTOOLS_TPU_DEVICE_RECORD", None)
+        dev_s[record] = time.perf_counter() - t0
     t0 = time.perf_counter()
     if tpu_cli(genotype_args(work / "gram", work / "par_host",
                              work / "reads_parity.fq", "host")) != 0:
@@ -367,23 +634,29 @@ def phase_parity(work: Path):
              "coverage/grouped_allele_counts_coverage.json",
              "coverage/allele_base_coverage.json",
              "genotype/personalised_reference.fasta")
-    for rel in files:
-        if read(work / "par_dev" / rel) != read(work / "par_host" / rel):
-            raise AssertionError(f"{rel}: device != host")
-    say(f"[phase 4] {len(files)} output files byte-equal, port device vs "
-        f"host engine ({dev_s:.1f} s device run, {host_s:.1f} s host run)")
+    for record in dev_s:
+        for rel in files:
+            if read(work / f"par_dev{record}" / rel) != read(
+                    work / "par_host" / rel):
+                raise AssertionError(f"{rel}: device (DEVICE_RECORD="
+                                     f"{record}) != host")
+    say(f"[phase 4] {len(files)} output files byte-equal, port device "
+        f"(fused recorder: {dev_s['1']:.1f} s run; host recorder, "
+        f"GRAMTOOLS_TPU_DEVICE_RECORD=0: {dev_s['0']:.1f} s run) vs host "
+        f"engine ({host_s:.1f} s run)")
 
 
 def run(cfg: SmokeConfig, device) -> dict:
     import torch
 
-    from gramtools_tpu_torch.ops import _build, rank
+    from gramtools_tpu_torch.ops import _build, rank, replay, walk
 
     t0 = time.perf_counter()
-    if device.type == "cuda":
-        rank._kernel_lib()
-    say(f"[phase 0] packed_rank kernel built in "
-        f"{_build.build_seconds.get('packed_rank', 0.0):.2f} s "
+    _build.build_all(KERNELS)
+    for mod in (rank, replay, walk):
+        mod._kernel_lib()
+    say(f"[phase 0] kernels {', '.join(KERNELS)} built together in "
+        f"{_build.build_seconds[KERNELS[0]]:.2f} s "
         f"({time.perf_counter() - t0:.2f} s with loading)")
     os.environ["GRAMTOOLS_TORCH_DEVICE"] = str(device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -392,17 +665,20 @@ def run(cfg: SmokeConfig, device) -> dict:
         from gramtools_tpu.mapping.jump_table import build_jump_table
 
         b_outcomes = build_jump_table(idx).max_outcomes
-        entry = phase_kernel(cfg, idx, device, b_outcomes,
-                             warm_hit_budget(cfg, kmer_index, reads))
+        entries = [phase_kernel(cfg, idx, device, b_outcomes,
+                                warm_hit_budget(cfg, kmer_index, reads))]
+        entries += phase_path(cfg, idx, kmer_index, reads, device)
         phase_scan(cfg, idx, kmer_index, reads, device)
+        phase_fused_parity(cfg, idx, kmer_index, reads, device)
         del idx, kmer_index
-        entry["launches"] = phase_e2e(cfg, work)
+        launches = phase_e2e(cfg, work)
+        for entry in entries:
+            entry["launches"] = launches[entry["name"]]
         phase_parity(work)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    return {"kernels": [entry]}
+    torch.cuda.synchronize()
+    return {"kernels": entries}
 
 
 def main() -> int:

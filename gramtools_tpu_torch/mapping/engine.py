@@ -1,25 +1,38 @@
 """The genealogy-log mapping engine on one torch device.
 
 Port of gramtools_tpu/mapping/search_jax_log.py ``LogBatchedEngine``,
-single device, non-fused mode (the JAX engine with
-``GRAMTOOLS_TPU_DEVICE_RECORD=0``): the host screens kmers and places
-the seed states, the device runs the phased scan
-(search_log.log_search_packed), and the host replays the genealogy log
-and records coverage with the reference's numpy recorder
-(``coverage_fast.select_and_record``).
+single device. The host screens kmers and places the seed states; then
+one of two device programs runs:
 
-``scan_submit`` enqueues the scan and, on a GPU, the copy of its flat
-result into pinned host memory, and returns without waiting; the
-caller's ``record_complete`` of the previous buffer then overlaps the
-device's work. ``scan_complete`` waits on the copy's event: that wait
-is the fetch. The JAX engine's mesh sharding, eager-fetch thread and
-fused device recorder are not part of this port yet.
+  * fused (the default, as in the JAX engine): the scan, the genealogy
+    replay, the mapping-instance selection and the per-base coverage
+    walk all run on the device (search_log.log_search_record,
+    mapping/record.py); the per-base counts accumulate in a device diff
+    array (``cov_diff``, folded into the graph once per run by
+    ``flush_device_coverage``) and only per-row flags and selected-loci
+    triples come home;
+  * non-fused (``GRAMTOOLS_TPU_DEVICE_RECORD=0``, or a kmer index that
+    is not array-backed): the device runs the scan
+    (search_log.log_search_packed), and the host replays the log and
+    records coverage with the reference's numpy recorder
+    (``coverage_fast.select_and_record``).
+
+Rows the device cannot finish (unseeded, overflowed twice, or flagged
+by the recorder) are re-mapped and recorded exactly on the host.
+
+``scan_submit`` enqueues the device program and, on a GPU, the copy of
+its flat result into pinned host memory, and returns without waiting;
+the caller's ``record_complete`` of the previous buffer then overlaps
+the device's work. The completion waits on the copy's event: that wait
+is the fetch. The JAX engine's mesh sharding and eager-fetch thread are
+not part of this port.
 
 The environment knobs are the JAX engine's, with the same defaults
 (``GRAMTOOLS_TPU_POOL``, ``_HITS``, ``_RANK``, ``_RETRY_MIN``,
-``_MAX_HITS_BOOST``; the phase plan reads ``_NARROW``, ``_LOCK_AFTER``
-and ``_TAIL_HITS_DIV``), so one environment gives both engines the same
-phase plan, budgets and overflows.
+``_MAX_HITS_BOOST``, ``_DEVICE_RECORD``; the phase plan reads
+``_NARROW``, ``_LOCK_AFTER`` and ``_TAIL_HITS_DIV``), so one environment
+gives both engines the same programs, phase plan, budgets and
+overflows.
 """
 from __future__ import annotations
 
@@ -38,9 +51,12 @@ from gramtools_tpu.mapping.search import PrgIndex, SearchState
 from ..common.device import get_device
 from ..ops.rank import blocks_tensor, build_packed_occ
 from .device_index import DeviceIndex, _round_up
-from .search_log import log_search_packed
-from .search_log_host import (LogConfig, PathReplayer, _filter_buffer_rows,
-                              _row_capacity, _unpack_result, auto_phases,
+from .record import RecordTables, SeedTables
+from .search_log import log_search_packed, log_search_record
+from .search_log_host import (FB_NAMES, LogConfig, PathReplayer,
+                              _filter_buffer_rows, _pack_reads2,
+                              _row_capacity, _unpack_record_result,
+                              _unpack_result, auto_phases, finalise_cov_diff,
                               replay_paths_vectorised)
 
 log = logging.getLogger("gramtools_tpu")
@@ -70,7 +86,7 @@ class _Pending:
 class LogBatchedEngine:
     """Mapping engine for quasimap_reads: search_buffer (scan + host
     replay, the oracle-comparison contract) and the pipelined
-    scan_submit / record_complete pair."""
+    scan_submit / record_complete pair (fused or non-fused)."""
 
     def __init__(self, idx: PrgIndex, kmer_size: int,
                  cfg: Optional[LogConfig] = None, device=None):
@@ -100,6 +116,14 @@ class LogBatchedEngine:
         self.replayer = PathReplayer(self.jt, self.di.n_outcomes)
         self._site_meta = None
         self._last_kmer_index = None
+        # device-side selection + coverage recording (mapping/record.py);
+        # GRAMTOOLS_TPU_DEVICE_RECORD=0 reverts to the numpy recorder
+        self.device_record = os.environ.get(
+            "GRAMTOOLS_TPU_DEVICE_RECORD", "1") == "1"
+        self.rt = None               # RecordTables, built lazily
+        self.st = None               # resident SeedTables (record mode)
+        self._st_for = None          # kmer index the SeedTables were built for
+        self.cov_diff = None         # persistent device per-base diff array
         self.host_fallbacks = 0
         self.device_mapped = 0
         self.device_retried = 0
@@ -133,19 +157,19 @@ class LogBatchedEngine:
         spilled = np.unique(owner_rows[~keep])
         return slot, keep, spilled
 
+    def _put(self, a: np.ndarray) -> torch.Tensor:
+        """Host array -> device tensor: through pinned memory and an
+        asynchronous copy on a GPU (a pageable copy would synchronise)."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.clone()
+
     def _run_packed(self, reads_T, carry, phases, R) -> _Pending:
         """Enqueue the scan+pack on the device; returns without waiting."""
-        dev = self.device
-
-        def put(a):
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            if dev.type == "cuda":
-                return t.pin_memory().to(dev, non_blocking=True)
-            return t.clone()
-
-        flat = log_search_packed(self.di, put(reads_T),
-                                 tuple(put(a) for a in carry), phases, R,
-                                 blocks=self.blocks, rank=self.rank)
+        flat = log_search_packed(self.di, self._put(reads_T),
+                                 tuple(self._put(a) for a in carry), phases,
+                                 R, blocks=self.blocks, rank=self.rank)
         return _Pending(flat)
 
     def _scan_rows(self, buffer, kmer_index, kmer_size, stats):
@@ -156,11 +180,16 @@ class LogBatchedEngine:
 
     def scan_submit(self, buffer, kmer_index, kmer_size, stats,
                     first_raws=None):
-        """Host filter + seeding, then the device scan, enqueued without
-        waiting: returns a pending token for scan_complete, so the
-        device scans this buffer while the host finishes the previous
-        one. first_raws is accepted for quasimap_reads' interface; the
-        non-fused engine selects on the host in record_complete."""
+        """Host filter + seeding, then the device program, enqueued
+        without waiting: returns a pending token, so the device works on
+        this buffer while the host finishes the previous one.
+
+        With first_raws (per-read precomputed mt19937 first draws), an
+        array-backed kmer index and device_record on, the program is the
+        fused scan+select+record (search_log.log_search_record): only
+        the placed seed-state indices and the 2-bit reads go to the
+        device, and only flags + loci triples come back. Otherwise it is
+        the scan alone, for scan_complete."""
         k = kmer_size
         self._last_kmer_index = kmer_index
         results, rows, rows_mat = _filter_buffer_rows(buffer, kmer_index, k,
@@ -181,6 +210,10 @@ class LogBatchedEngine:
         seed_fn = getattr(kmer_index, "seed_batch", None)
         arr_index = (seed_fn is not None
                      and getattr(kmer_index, "trav", None) is not None)
+        # record mode: fused scan+select+record with RESIDENT seed
+        # tables -- the host ships only placed state indices
+        record_mode = (self.device_record and first_raws is not None
+                       and arr_index)
         if arr_index:
             # vectorised seeding from the array-backed kmer index
             if rows_mat is not None:
@@ -193,9 +226,13 @@ class LogBatchedEngine:
                     last_kmers[row] = read[read.size - k:]
                     body = read[: read.size - k][::-1]
                     reads_T[: body.size, row] = body
-            (owner, s_lo, s_hi, s_trav, s_nt, s_ing, s_ni,
-             _sidx) = seed_fn(last_kmers)
-            seeds = (s_trav, s_nt, s_ing, s_ni)
+            if record_mode:
+                owner, sidx = kmer_index.seed_batch_indices(last_kmers)
+                seeds = None
+            else:
+                (owner, s_lo, s_hi, s_trav, s_nt, s_ing, s_ni,
+                 _sidx) = seed_fn(last_kmers)
+                seeds = (s_trav, s_nt, s_ing, s_ni)
         else:
             owner_l: list = []
             lo_l: list = []
@@ -251,6 +288,18 @@ class LogBatchedEngine:
             seeded = np.zeros(n, dtype=bool)
             seeded[owner[keep]] = True
             host_rows.update(int(r) for r in np.flatnonzero(~seeded))
+            if record_mode:
+                self._ensure_seed_tables(kmer_index)
+                slot_sidx = np.full(pool0, -1, np.int32)
+                slot_row = np.full(pool0, -1, np.int32)
+                slot_sidx[placed] = sidx[keep].astype(np.int32)
+                slot_row[placed] = owner[keep].astype(np.int32)
+                reads_p = _pack_reads2(reads_T)
+                device_out = self._dispatch_record(
+                    rows, reads_p, slot_sidx, slot_row, host_rows,
+                    first_raws, phases, R)
+                return (results, rows, device_out, None, host_rows,
+                        (slot_sidx, slot_row), reads_p)
             carry = (np.full(pool0, -1, np.int32),
                      np.zeros(pool0, np.int32),
                      np.zeros(pool0, np.int32),
@@ -275,6 +324,55 @@ class LogBatchedEngine:
             carry = None
             device_out = None
         return (results, rows, device_out, seeds, host_rows, carry, reads_T)
+
+    def _ensure_record_tables(self):
+        if self.rt is None:
+            self.rt = RecordTables.build(self.idx, self.device)
+        if self.cov_diff is None:
+            self.cov_diff = torch.zeros(self.rt.cov_size + 1,
+                                        dtype=torch.int32, device=self.device)
+
+    def _ensure_seed_tables(self, kmer_index):
+        """Upload the kmer index's seed-state payloads ONCE
+        (record.SeedTables); per buffer only placed indices ship."""
+        if self.st is None or self._st_for is not kmer_index:
+            self.st = SeedTables.build(kmer_index, self.device)
+            self._st_for = kmer_index
+
+    def _dispatch_record(self, rows, reads_p, slot_sidx, slot_row, host_rows,
+                         first_raws, phases, R, row_map=None):
+        """Enqueue the fused scan+record program for one (sub)buffer.
+
+        row_map: optional original-row ids (retry pass); None = identity.
+        Returns the "record"-tagged token entry."""
+        self._ensure_record_tables()
+        nrows = len(rows) if row_map is None else row_map.size
+        row_ok = np.ones(R, dtype=bool)
+        if host_rows:
+            row_ok[np.fromiter(host_rows, dtype=np.int64,
+                               count=len(host_rows))] = False
+        # the mt19937 first draws are uint32; the device reads int64
+        row_first = np.zeros(R, dtype=np.int64)
+        row_len = np.zeros(R, dtype=np.int32)
+        src = rows if row_map is None else [rows[int(o)] for o in row_map]
+        if src:
+            owners = np.fromiter((i for i, _ in src), dtype=np.int64,
+                                 count=len(src))
+            lens = np.fromiter((r.size for _, r in src), dtype=np.int64,
+                               count=len(src))
+            row_first[:nrows] = np.asarray(first_raws)[owners]
+            row_len[:nrows] = lens
+        # 4R, not the recorder's 16R default: the JAX engine's budget
+        trip_cap = 4 * R
+        self.dispatch_shapes.add(
+            ("record", phases, R, trip_cap, reads_p.shape))
+        put = self._put
+        flat = log_search_record(
+            self.di, self.rt, self.st, put(reads_p), put(slot_sidx),
+            put(slot_row), put(row_ok), put(row_first), put(row_len),
+            self.cov_diff, phases, R, trip_cap, self.kmer_size,
+            blocks=self.blocks, rank=self.rank)
+        return ("record", _Pending(flat), R, trip_cap, phases)
 
     def _empty_carry_np(self, nrows: int):
         """Stand-in when nothing was dispatched."""
@@ -344,6 +442,41 @@ class LogBatchedEngine:
         reads_T2 = np.zeros((reads_T.shape[0], R), dtype=reads_T.dtype)
         reads_T2[:, :ovf_rows.size] = reads_T[:, ovf_rows]
         return carry2, reads_T2, phases, R, ovf_rows
+
+    def _relayout_retry_record(self, slot_sidx, slot_row, ovf_rows, reads_p,
+                               nrows, phases, R):
+        """Record-path twin of _relayout_retry: rebuilds the slot ->
+        (seed state, row) maps and the packed read matrix with only the
+        overflowed rows live, for a re-dispatch of the SAME (phases, R)
+        program. Returns (slot_sidx2, slot_row2, reads_p2, retried_rows)
+        or None."""
+        pool0 = phases[0][1]
+        ovf_rows = ovf_rows[:R]
+        g_row = np.where(slot_sidx >= 0, slot_row, -1)
+        for _ in range(2):
+            row_map = np.full(nrows, -1, dtype=np.int32)
+            row_map[ovf_rows] = np.arange(ovf_rows.size, dtype=np.int32)
+            sel = np.flatnonzero((slot_sidx >= 0)
+                                 & np.isin(g_row, ovf_rows))
+            retry_rows = row_map[g_row[sel]]
+            slot, keep, spilled = self._place_states(retry_rows, pool0)
+            if not spilled.size:
+                break
+            drop_mask = np.zeros(ovf_rows.size, dtype=bool)
+            drop_mask[spilled] = True
+            ovf_rows = ovf_rows[~drop_mask]
+            if ovf_rows.size == 0:
+                return None
+        else:
+            return None
+        slot_sidx2 = np.full(pool0, -1, np.int32)
+        slot_row2 = np.full(pool0, -1, np.int32)
+        placed = slot[keep]
+        slot_sidx2[placed] = slot_sidx[sel[keep]]
+        slot_row2[placed] = retry_rows[keep].astype(np.int32)
+        reads_p2 = np.zeros_like(reads_p)
+        reads_p2[:, :ovf_rows.size] = reads_p[:, ovf_rows]
+        return slot_sidx2, slot_row2, reads_p2, ovf_rows
 
     def _retry_overflow(self, carry_np, log_parent, log_event, init_carry,
                         reads_T, nrows, phases, R, host_rows=()):
@@ -453,22 +586,122 @@ class LogBatchedEngine:
                              coverage, kmer_index, kmer_size)
 
     def flush_device_coverage(self):
-        """Coverage is recorded on the host in this engine: nothing is
-        held on the device to fold in."""
+        """Fold the device-resident per-base diff array into the graph's
+        coverage (called once per run, after the last buffer), then drop
+        it."""
+        if self.cov_diff is None:
+            return
+        counts = finalise_cov_diff(self.cov_diff.cpu().numpy())
+        g = self.idx.graph
+        if g.coverage.size:
+            merged = g.coverage.astype(np.int64) + counts
+            np.minimum(merged, np.iinfo(np.uint16).max, out=merged)
+            g.coverage[:] = merged.astype(np.uint16)
+        self.cov_diff = None
+
+    def _record_complete_device(self, token, selection_seeds, first_raws,
+                                stats, coverage, kmer_index, kmer_size):
+        """Completion for the fused scan+record dispatch: fetch flags +
+        triples, retry overflowed rows with a full-budget second pass
+        (recorded on the device too), fold triples, host-record fallback
+        rows exactly."""
+        from gramtools_tpu.mapping.coverage import record_search_states
+        from gramtools_tpu.mapping.coverage_fast import fold_loci_rows
+        from gramtools_tpu.mapping.search import search_read_backwards
+
+        (results, rows, device_out, _seeds, host_rows, slots, reads_p) = token
+        slot_sidx, slot_row = slots
+        _, pending, R, trip_cap, phases = device_out
+        k = kmer_size if kmer_size is not None else self.kmer_size
+        if kmer_index is None:
+            kmer_index = self._last_kmer_index
+        ovf, fallback, mapped, loci_rows = _unpack_record_result(
+            pending.get(), R, trip_cap)
+        nrows = len(rows)
+        fold_loci_rows(coverage, loci_rows)
+        for bit, name in FB_NAMES.items():
+            n_bit = int(((fallback[:nrows] & bit) != 0).sum())
+            if n_bit:
+                self.fallback_reasons[f"record:{name}"] += n_bit
+
+        # full-budget retry pass for rows the phased budgets overflowed.
+        # Rows already bound for the exact host path must NOT be retried:
+        # the retry records on the device, and the host loop below
+        # re-maps host_rows regardless -- retrying them would count their
+        # coverage twice (a host_rows row can carry an overflow flag when
+        # part of its seed states were placed and the pool dropped them).
+        ovf_flags = ovf[:nrows].copy()
+        for r in host_rows:
+            ovf_flags[r] = False
+        ovf_rows = np.flatnonzero(ovf_flags)
+        if ovf_rows.size > max(0.02 * nrows, 8):
+            self.hits_boost = min(self.hits_boost * 2, self.max_hits_boost)
+        if ovf_rows.size >= self.retry_min and reads_p.shape[0] > 0:
+            relayout = self._relayout_retry_record(
+                slot_sidx, slot_row, ovf_rows, reads_p, nrows, phases, R)
+            if relayout is not None:
+                slot_sidx2, slot_row2, reads_p2, ovf_rows = relayout
+                _, pending2, _, tc2, _ = self._dispatch_record(
+                    rows, reads_p2, slot_sidx2, slot_row2, set(),
+                    first_raws, phases, R, row_map=ovf_rows)
+                ovf2, fb2, mapped2, loci2 = _unpack_record_result(
+                    pending2.get(), R, tc2)
+                if loci2.shape[0]:
+                    loci2[:, 0] = ovf_rows[loci2[:, 0]]
+                    fold_loci_rows(coverage, loci2)
+                ovf[ovf_rows] = ovf2[:ovf_rows.size]
+                fallback[ovf_rows] = fb2[:ovf_rows.size]
+                mapped[ovf_rows] = mapped2[:ovf_rows.size]
+                self.device_retried += int(ovf_rows.size)
+
+        # exact host path for unseeded / still-overflowed / flagged rows;
+        # device rows are tallied vectorised
+        host_mask = np.zeros(nrows, dtype=bool)
+        for r in host_rows:
+            host_mask[r] = True
+        need_host = host_mask | ovf[:nrows] | (fallback[:nrows] != 0)
+        for row in np.flatnonzero(need_host):
+            i, read = rows[row]
+            self.fallback_reasons[
+                "unseeded" if host_mask[row] else
+                "overflow" if ovf[row] else "record_flagged"] += 1
+            self.host_fallbacks += 1
+            seed = read[read.size - k:].astype(np.uint8).tobytes()
+            seed_states = kmer_index.get(seed, [])
+            states = (search_read_backwards(read, seed_states, k, self.idx)
+                      if seed_states else [])
+            if not states:
+                stats.no_extension_reads_count += 1
+                continue
+            stats.exact_mapped_reads_count += 1
+            record_search_states(coverage, states, int(read.size),
+                                 self.idx, selection_seeds[i],
+                                 int(first_raws[i]))
+        dev_rows = ~need_host
+        n_dev = int(dev_rows.sum())
+        n_mapped = int((mapped[:nrows] & dev_rows).sum())
+        self.device_mapped += n_dev
+        stats.exact_mapped_reads_count += n_mapped
+        stats.no_extension_reads_count += n_dev - n_mapped
 
     def record_complete(self, token, selection_seeds, first_raws, stats,
                         coverage, kmer_index=None, kmer_size=None):
         """Second half of the pipelined record path: waits for the
-        device scan of ``token`` (submitted by scan_submit), then runs
-        vectorised selection + recording. Hard cases (overflow,
-        unseeded, recorder edge features) re-map and record through the
-        exact scalar path."""
+        device program of ``token`` (submitted by scan_submit). A fused
+        token folds the device's loci triples (_record_complete_device);
+        a scan token runs the host replay + vectorised selection and
+        recording. Hard cases (overflow, unseeded, recorder edge
+        features) re-map and record through the exact scalar path."""
         from gramtools_tpu.mapping.coverage import record_search_states
         from gramtools_tpu.mapping.coverage_fast import (SiteMeta,
                                                          select_and_record)
         from gramtools_tpu.mapping.search import (
             handle_allele_encapsulated_states, search_read_backwards)
 
+        if isinstance(token[2], tuple) and token[2][0] == "record":
+            return self._record_complete_device(
+                token, selection_seeds, first_raws, stats, coverage,
+                kmer_index, kmer_size)
         if kmer_index is None:
             kmer_index = self._last_kmer_index
         k = self.kmer_size if kmer_size is None else kmer_size

@@ -14,8 +14,10 @@ for the algorithm. What differs from JAX, and why:
   * Duplicate scatter indices land only on dump slots or write the same
     value, so CUDA's arbitrary choice among duplicate writers is safe.
   * Every gather index is clamped explicitly, as in the JAX code.
-  * No step reads a value back to the host: launches stay
-    asynchronous. The steps never write into their inputs.
+  * No step reads a value back to the host or copies one from it:
+    launches stay asynchronous (no ``torch.tensor`` on the device, no
+    scalar assigned through an index tensor). The steps never write
+    into their inputs.
 """
 from __future__ import annotations
 
@@ -45,10 +47,10 @@ def _scatter_rows(fill: torch.Tensor, dest: torch.Tensor,
 
 
 def _set_flags(flags: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """flags.at[idx].set(True) on a fresh copy of ``flags``."""
-    out = flags.clone()
-    out[idx] = True
-    return out
+    """flags.at[idx].set(True) on a fresh copy of ``flags``
+    (``index_fill_`` takes the value as a kernel argument; ``out[idx] =
+    True`` would copy a host scalar to the device, a synchronisation)."""
+    return flags.clone().index_fill_(0, idx.to(torch.int64), True)
 
 
 class _Consts:
@@ -153,7 +155,8 @@ def build_log_step(di, cfg, num_reads: int, occ_rows=None):
     mrl = di.marker_rank_locus
     n_mrl = mrl.shape[0]
     k = _Consts(di, N, G)
-    fills = torch.tensor([-1, 0, 0, 0], dtype=I32, device=di.device)
+    fills = torch.zeros(4, dtype=I32, device=di.device)
+    fills[:1].fill_(-1)
 
     def hit_field_of(hit_cols, hit_pos):
         return mrl[hit_pos.clamp(0, n_mrl - 1)]

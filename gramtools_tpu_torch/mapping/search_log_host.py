@@ -1,10 +1,11 @@
 """Numpy helpers of the genealogy-log engine, copied unchanged.
 
-These sit in gramtools_tpu/mapping/search_jax_log.py, which imports
-``jax`` at the top, so the port carries its own copy of each (only the
-package-relative imports became absolute). They decide the phase plan,
-the row padding and the budgets -- and so which rows overflow -- and
-turn the scan's flat result back into states and paths on the host.
+These sit in gramtools_tpu/mapping/search_jax_log.py and record_jax.py,
+which import ``jax`` at the top, so the port carries its own copy of
+each (only the package-relative imports became absolute). They decide
+the phase plan, the row padding and the budgets -- and so which rows
+overflow -- and turn the device's flat results back into states, paths,
+flags and loci on the host.
 """
 from __future__ import annotations
 
@@ -98,6 +99,114 @@ def _unpack_result(flat: np.ndarray, phases, num_reads: int,
         lp[s * L:(s + 1) * L] = lps
         le[s * L:(s + 1) * L] = lseg[L:]
     return (rid, lo, hi, pref, ovf), lp, le
+
+
+# --------------------------------------------------------------------------
+# fused record path (copied from record_jax.py and search_jax_log.py)
+# --------------------------------------------------------------------------
+
+# static budgets (overflow -> per-row host fallback). Per-state caps:
+MAX_CHAIN = 32       # genealogy chain depth (events per state)
+TCAP = 16            # traversed/traversing loci per state
+KCAP = 12            # base (level-1) sites per state
+# per-buffer expansion budgets, scaled with the row count R
+ECAP_BASE = 4096     # encapsulated-split occurrence expansion slots
+TRCAP_BASE = 4096    # traversing-state occurrence expansion slots
+WCAP_BASE = 8192     # per-base walk lanes (selected-state occurrences)
+EMITCAP_BASE = 32768  # per-base walk emissions per buffer
+LCAP_BASE = 61440    # compacted traversed-loci lanes
+
+
+def buffer_caps(R: int):
+    """(ecap, trcap, wcap, emitcap, lcap) for an R-row buffer: the
+    constants at R<=10240, scaled linearly above."""
+    s = max(R, 10240)
+    return (max(ECAP_BASE, (ECAP_BASE * s) // 10240),
+            max(TRCAP_BASE, (TRCAP_BASE * s) // 10240),
+            max(WCAP_BASE, (WCAP_BASE * s) // 10240),
+            max(EMITCAP_BASE, (EMITCAP_BASE * s) // 10240),
+            max(LCAP_BASE, (LCAP_BASE * s) // 10240))
+
+
+# fallback reason bits (per-row int32 mask; 0 = no fallback)
+FB_CHAIN = 1        # genealogy chain deeper than MAX_CHAIN / TCAP paths
+FB_ENC = 2          # encapsulated-split expansion spilled ecap
+FB_DUP_SITE = 4     # duplicate site in one state's own path
+FB_TRAV = 8         # traversing-state expansion spilled trcap
+FB_KCAP = 16        # more base sites per state than KCAP
+FB_CONFLICT = 32    # same (state, site) with conflicting alleles
+FB_RNG = 64         # mt19937 uniform_int rejection branch
+FB_TRIPS = 128      # selected loci spilled trip_cap
+FB_WALK = 256       # per-base walk lanes spilled wcap
+FB_EMIT = 512       # per-base emissions spilled emitcap
+FB_LOCI = 1024      # compacted traversed-loci lanes spilled lcap
+FB_NAMES = {FB_CHAIN: "chain_depth", FB_ENC: "encapsulated_spill",
+            FB_DUP_SITE: "dup_site", FB_TRAV: "traversing_spill",
+            FB_KCAP: "kcap", FB_CONFLICT: "allele_conflict",
+            FB_RNG: "rng_rejection", FB_TRIPS: "trip_spill",
+            FB_WALK: "walk_spill", FB_EMIT: "emit_spill",
+            FB_LOCI: "loci_spill"}
+
+
+def finalise_cov_diff(cov_diff: np.ndarray) -> np.ndarray:
+    """Prefix-sum the diff array into per-base counts (uint16 range,
+    saturated -- equivalent to per-increment saturation for +1 ranges)."""
+    counts = np.cumsum(cov_diff[:-1].astype(np.int64))
+    return np.minimum(counts, np.iinfo(np.uint16).max).astype(np.uint16)
+
+
+def _pack_reads2(reads_T: np.ndarray) -> np.ndarray:
+    """(steps, SR) uint8 base codes 0..4 -> (steps/4, SR) uint8 packed
+    2-bit codes (code = base-1 mod 4; zero-pads become 3 and are masked
+    on device by row_len -- see search_log.unpack_reads2)."""
+    steps = reads_T.shape[0]
+    assert steps % 4 == 0, steps
+    pr = (reads_T - np.uint8(1)) & np.uint8(3)
+    return (pr[0::4] | (pr[1::4] << 2) | (pr[2::4] << 4)
+            | (pr[3::4] << 6)).astype(np.uint8)
+
+
+def _unpack_record_result(flat: np.ndarray, num_reads: int, trip_cap: int,
+                          n_shards: int = 1):
+    """Host-side split of the fused record output into GLOBAL row space.
+
+    For n_shards > 1 the flat array is the shard-order concatenation of
+    per-shard blocks [ovf | fallback | mapped | t_row | t_site |
+    t_allele]; flag bits land at their global rows (local * S + shard)
+    and the triples' local rows globalise likewise. Returns (overflow,
+    fallback, mapped, loci_rows) with loci_rows the neighbour-deduped
+    (row, site, allele) triples."""
+    S = n_shards
+    R = num_reads
+    block = 3 * R + 3 * trip_cap
+    assert flat.size == S * block, (flat.size, S, block)
+    ovf = np.zeros(S * R, dtype=bool)
+    fallback = np.zeros(S * R, dtype=np.int32)   # reason bitmask, 0 = ok
+    mapped = np.zeros(S * R, dtype=bool)
+    loci_parts = []
+    for s in range(S):
+        seg = flat[s * block:(s + 1) * block]
+        rows_g = (np.arange(R) * S + s) if S > 1 else np.arange(R)
+        ovf[rows_g] = seg[:R].astype(bool)
+        fallback[rows_g] = seg[R:2 * R]
+        mapped[rows_g] = seg[2 * R:3 * R].astype(bool)
+        t = seg[3 * R:]
+        t_row = t[:trip_cap]
+        t_site = t[trip_cap:2 * trip_cap]
+        t_allele = t[2 * trip_cap:3 * trip_cap]
+        valid = t_row < R
+        uniq = np.ones(trip_cap, dtype=bool)
+        if trip_cap > 1:
+            uniq[1:] = ((t_row[1:] != t_row[:-1])
+                        | (t_site[1:] != t_site[:-1])
+                        | (t_allele[1:] != t_allele[:-1]))
+        keep = valid & uniq
+        g_row = t_row[keep] * S + s if S > 1 else t_row[keep]
+        loci_parts.append(np.stack(
+            [g_row, t_site[keep], t_allele[keep]], axis=1).astype(np.int64))
+    loci_rows = (np.concatenate(loci_parts) if len(loci_parts) > 1
+                 else loci_parts[0])
+    return ovf, fallback, mapped, loci_rows
 
 
 def auto_phases(steps: int, num_reads: int, cfg: LogConfig,

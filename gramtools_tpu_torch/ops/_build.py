@@ -48,6 +48,47 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
+def _start(name: str):
+    """Start nvcc for ``name`` unless its library is built; returns
+    (process, temporary output, final output) or None."""
+    out = library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    return (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True), tmp, out)
+
+
+def _finish(name: str, job) -> None:
+    proc, tmp, out = job
+    _, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu "
+                           f"(exit {proc.returncode}):\n{err}")
+    os.replace(tmp, out)
+
+
+def build_all(names) -> None:
+    """Compile every named kernel that is not built yet, one nvcc
+    process each, all started together; ``build_seconds`` gets the wall
+    time of the whole build for each of them."""
+    t0 = time.perf_counter()
+    jobs = {name: _start(name) for name in names if name not in _LIBS}
+    try:
+        for name, job in jobs.items():
+            if job is not None:
+                _finish(name, job)
+    finally:
+        for job in jobs.values():
+            if job is not None and job[0].poll() is None:
+                job[0].kill()
+                job[0].wait()
+    for name in jobs:
+        build_seconds[name] = time.perf_counter() - t0
+
+
 def load(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if needed and return the loaded
     library. The build seconds are kept in ``build_seconds[name]``
@@ -55,19 +96,11 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    out = library_path(name)
     t0 = time.perf_counter()
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = ([_nvcc()] + NVCC_FLAGS
-               + ["-o", str(tmp), str(CSRC_DIR / f"{name}.cu")])
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu "
-                               f"(exit {proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, out)
-    build_seconds[name] = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(out))
+    job = _start(name)
+    if job is not None:
+        _finish(name, job)
+    build_seconds.setdefault(name, time.perf_counter() - t0)
+    lib = ctypes.CDLL(str(library_path(name)))
     _LIBS[name] = lib
     return lib

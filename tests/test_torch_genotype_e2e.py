@@ -3,9 +3,12 @@
 On a generated reference + VCF + 2,000 reads, the port's genotype run
 (``GRAMTOOLS_TORCH_DEVICE=cpu``, packed rank) must write the same
 files, byte for byte, as the JAX package's device engine in the same
-configuration (``GRAMTOOLS_TPU_DEVICE_RECORD=0``, packed rank, the jnp
-rank twin on the CPU) and as the scalar host engine; and its engine
-counters must equal the JAX engine's. Exact equality throughout.
+configuration (packed rank, the jnp rank twin on the CPU) and as the
+scalar host engine; and its engine counters must equal the JAX
+engine's. Both engine configurations are held so: the fused device
+recorder (the default, ``GRAMTOOLS_TPU_DEVICE_RECORD=1``; the ``_fused``
+tests) and the host recorder (``GRAMTOOLS_TPU_DEVICE_RECORD=0``). Exact
+equality throughout.
 """
 import gzip
 import json
@@ -66,32 +69,54 @@ def _write_workload(root):
             fh.write(f"@r{i}\n{h[s:s + READ_LEN]}\n+\n{'I' * READ_LEN}\n")
 
 
+def _genotype(root, cli, name, engine, device_record):
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setenv("GRAMTOOLS_TORCH_DEVICE", "cpu")
+        mp.setenv("GRAMTOOLS_TPU_RANK", "packed")
+        mp.setenv("GRAMTOOLS_TPU_DEVICE_RECORD", device_record)
+        assert cli(["genotype", "--gram_dir", str(root / "gram"),
+                    "--genotype_dir", str(root / name),
+                    "--reads", str(root / "reads.fastq"),
+                    "--sample_id", "s", "--seed", SEED,
+                    "--engine", engine, "--force"]) == 0
+    finally:
+        mp.undo()
+
+
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def workload(tmp_path_factory):
+    """The built graph and the host engine's run (the oracle)."""
     root = tmp_path_factory.mktemp("torch_e2e")
     _write_workload(root)
     assert run_jax_cli(["build", "--gram_dir", str(root / "gram"),
                         "--vcf", str(root / "vars.vcf"),
                         "--ref", str(root / "ref.fa"),
                         "--kmer_size", str(KMER), "--force"]) == 0
-    mp = pytest.MonkeyPatch()
-    try:
-        mp.setenv("GRAMTOOLS_TORCH_DEVICE", "cpu")
-        mp.setenv("GRAMTOOLS_TPU_RANK", "packed")
-        mp.setenv("GRAMTOOLS_TPU_DEVICE_RECORD", "0")
+    _genotype(root, run_jax_cli, "host", "host", "0")
+    return root
 
-        def genotype(cli, name, engine):
-            assert cli(["genotype", "--gram_dir", str(root / "gram"),
-                        "--genotype_dir", str(root / name),
-                        "--reads", str(root / "reads.fastq"),
-                        "--sample_id", "s", "--seed", SEED,
-                        "--engine", engine, "--force"]) == 0
 
-        genotype(run_torch_cli, "torch_device", "device")
-        genotype(run_jax_cli, "jax_device", "device")
-        genotype(run_jax_cli, "host", "host")
-    finally:
-        mp.undo()
+@pytest.fixture(scope="module")
+def runs(workload):
+    """Both device engines with the host recorder."""
+    _genotype(workload, run_torch_cli, "torch_device", "device", "0")
+    _genotype(workload, run_jax_cli, "jax_device", "device", "0")
+    return workload
+
+
+@pytest.fixture(scope="module")
+def runs_fused(workload):
+    """Both device engines with the fused device recorder (the
+    default); their directories are named like ``runs``' under
+    ``fused/``, beside a link to the host run."""
+    root = workload / "fused"
+    root.mkdir()
+    (root / "gram").symlink_to(workload / "gram")
+    (root / "host").symlink_to(workload / "host")
+    (root / "reads.fastq").symlink_to(workload / "reads.fastq")
+    _genotype(root, run_torch_cli, "torch_device", "device", "1")
+    _genotype(root, run_jax_cli, "jax_device", "device", "1")
     return root
 
 
@@ -129,6 +154,33 @@ def test_engine_counters_equal_jax(runs):
     got = _engine_report(runs, "torch_device")
     assert got == _engine_report(runs, "jax_device")
     assert got["device_mapped"] > 0
+
+
+@pytest.mark.parametrize("other", ["jax_device", "host"])
+@pytest.mark.parametrize("rel", OUTPUT_FILES)
+def test_output_files_equal_fused(runs_fused, other, rel):
+    assert _read(runs_fused / "torch_device" / rel) == _read(
+        runs_fused / other / rel)
+
+
+@pytest.mark.parametrize("other", ["jax_device", "host"])
+def test_vcf_equal_fused(runs_fused, other):
+    rel = "genotype/genotyped.vcf.gz"
+    assert _vcf_body(runs_fused / "torch_device" / rel) == _vcf_body(
+        runs_fused / other / rel)
+
+
+def test_engine_counters_equal_jax_fused(runs_fused):
+    got = _engine_report(runs_fused, "torch_device")
+    assert got == _engine_report(runs_fused, "jax_device")
+    assert got["device_mapped"] > 0
+
+
+def test_fused_and_host_recorder_outputs_equal(runs, runs_fused):
+    """The two recorders of the port write the same files."""
+    for rel in OUTPUT_FILES:
+        assert _read(runs / "torch_device" / rel) == _read(
+            runs_fused / "torch_device" / rel), rel
 
 
 def test_device_engine_refuses_worker_pool(runs, monkeypatch):

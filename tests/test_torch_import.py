@@ -1,4 +1,5 @@
-"""The torch port imports no JAX, and asks for its device explicitly."""
+"""The torch port imports no JAX, builds no kernel when imported, and
+asks for its device explicitly."""
 import pkgutil
 import subprocess
 import sys
@@ -22,19 +23,27 @@ def test_port_modules_listed():
     mods = _port_modules()
     for name in ("gramtools_tpu_torch.cli",
                  "gramtools_tpu_torch.ops.rank",
+                 "gramtools_tpu_torch.ops.replay",
+                 "gramtools_tpu_torch.ops.walk",
+                 "gramtools_tpu_torch.mapping.record",
+                 "gramtools_tpu_torch.mapping.search_log",
                  "gramtools_tpu_torch.mapping.engine",
                  "gramtools_tpu_torch.commands.genotype_command"):
         assert name in mods
 
 
 def test_importing_every_module_leaves_jax_out():
+    """No jax, and no kernel built or loaded (nvcc runs at first launch
+    only)."""
     code = ("import importlib, sys\n"
             f"for m in {['gramtools_tpu_torch'] + _port_modules()!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
-            "print(bad)\n"
-            "sys.exit(1 if bad else 0)\n")
+            "from gramtools_tpu_torch.ops import _build\n"
+            "built = sorted(_build._LIBS) + sorted(_build.build_seconds)\n"
+            "print(bad, built)\n"
+            "sys.exit(1 if bad or built else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
