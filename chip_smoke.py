@@ -10,7 +10,8 @@ device`` with the packed rank (``GRAMTOOLS_TPU_RANK=packed``) and the
 fused device recorder (the default), at the repository's
 M. tuberculosis-scale workload: a 4.4 Mb genome with 100,000 biallelic
 SNP sites, 150 bp reads, k = 10 (the graph and read generators of
-bench.py, seeded). Phases, each printing one line or a few:
+bench.py, seeded; gramtools_tpu_torch/common/workload.py). Phases, in
+this order, each printing one line or a few:
 
   0. the card (nvidia-smi name and power limit), the build of the three
      kernels (one nvcc each, all started together);
@@ -23,9 +24,11 @@ bench.py, seeded). Phases, each printing one line or a few:
      host clock; the second buffer's ``scan_submit`` runs under
      ``torch.cuda.set_sync_debug_mode("error")`` (no host
      synchronisation allowed) and its genealogy-replay (K7) and
-     per-base walk (K9) inputs are kept; the third runs under
-     ``torch.profiler`` (device busy time and kernel count). K7 and K9
-     are then held against their plain twins on those inputs, with
+     per-base walk (K9) inputs are kept; the third runs inside
+     ``gramtools_tpu_torch.common.timers.device_trace`` (a
+     ``torch.profiler`` Chrome trace: device busy time, device event
+     count, and the device time split by kernel name). K7 and K9 are
+     then held against their plain twins on those inputs, with
      CUDA-event timings;
   2. scan parity on one 4,096-read buffer: the flat result of the scan
      on CUDA with the packed rank, on CUDA with the dense rank and on
@@ -41,7 +44,23 @@ bench.py, seeded). Phases, each printing one line or a few:
      on CUDA, with the fused recorder and with
      ``GRAMTOOLS_TPU_DEVICE_RECORD=0``, and the JAX package's host
      engine must write byte-equal VCF (without ##fileDate), jVCF,
-     coverage dumps and personalised reference.
+     coverage dumps and personalised reference;
+  5a. the mesh on the card: the 40,000 reads through the port's
+     ``quasimap_reads`` with a ``MeshLogEngine`` of two shards on the
+     one card (``make_mesh(devices=[cuda, cuda])``), rank packed, fused
+     recorder; stats, allele-sum, grouped counts and per-base coverage
+     must equal a 1-shard run's, and the counts of the 2-shard run
+     (reset just before it) must show K1, K7 and K9 launched; per-buffer
+     host seconds of ``scan_submit`` and ``record_complete`` and the
+     fallback share are printed (this one card cannot show copies
+     between cards);
+  5b. the SA-range-sharded index: one 4,096-read buffer's scan with the
+     whole index split over 4 "idx" shards on the card (dense rank)
+     must equal the replicated scan and the engine's flat result; both
+     timed in turns;
+  5c. ``genotype --engine device --max_threads 2`` on the 4,000 parity
+     reads (spawned workers, since CUDA is initialised) must write files
+     byte-equal to phase 4's host engine run.
 
 The second-to-last line is a JSON object with one entry per kernel of
 the path; the last is ``{"ok": true, "device": {...}}``. Any failed
@@ -84,30 +103,6 @@ def say(msg: str):
     print(msg, flush=True)
 
 
-def reference_sequence(prg_ints):
-    """Reference-allele sequence of a non-nested linear PRG: the DNA
-    outside sites plus the first allele of every site."""
-    import numpy as np
-
-    ints = np.asarray(prg_ints, dtype=np.int64)
-    mpos = np.flatnonzero(ints > 4)
-    parts = []
-    prev = 0
-    j = 0
-    while j < mpos.size:
-        entry = mpos[j]
-        m = ints[entry]
-        parts.append(ints[prev:entry])
-        parts.append(ints[entry + 1:mpos[j + 1]])      # first allele
-        j += 1
-        while j + 1 < mpos.size and ints[mpos[j + 1]] == m + 1:
-            j += 1                                     # to the site's end
-        prev = mpos[j] + 1
-        j += 1
-    parts.append(ints[prev:])
-    return "".join(np.array(list("NACGT"))[np.concatenate(parts)])
-
-
 def time_ms(fn, runs: int) -> float:
     """Median milliseconds of ``fn`` on the card over ``runs`` calls,
     after one warm-up call, timed with CUDA events."""
@@ -128,44 +123,17 @@ def time_ms(fn, runs: int) -> float:
 
 
 def make_workload(cfg: SmokeConfig, work: Path):
-    """Graph, reference, reads (bench.py's generators, seeded) and the
-    built index. Returns (idx, kmer_index, reads)."""
-    import numpy as np
-
+    """Graph, reference, reads and the built index
+    (gramtools_tpu_torch.common.workload), plus the parity reads.
+    Returns (idx, kmer_index, reads)."""
     import bench
-    from gramtools_tpu.cli import run as tpu_cli
-    from gramtools_tpu.index.build import load_all
-    from gramtools_tpu.prg.linearise import PrgString
+    from gramtools_tpu_torch.common.workload import make_workload as make
 
-    t0 = time.perf_counter()
-    rng = np.random.RandomState(cfg.seed)
-    prg_ints = bench.build_synthetic_mtb_graph(rng, cfg.genome_len,
-                                               cfg.num_sites)
-    prg = PrgString(prg_ints)
-    prg.write(work / "prg.bin")
-    ref = reference_sequence(prg_ints)
-    with open(work / "ref.fa", "w") as fh:
-        fh.write(">ref\n")
-        for i in range(0, len(ref), 60):
-            fh.write(ref[i:i + 60] + "\n")
-    paths = bench.sample_haplotypes(prg_ints, dict(prg.end_positions), rng,
-                                    n_paths=8)
-    reads = bench.sample_reads(rng, paths, cfg.e2e_reads, cfg.read_len)
-    bench.write_fastq(work / "reads.fq", reads)
+    idx, kmer_index, reads, summary = make(
+        work, cfg.genome_len, cfg.num_sites, cfg.e2e_reads, cfg.read_len,
+        cfg.kmer_size, cfg.seed)
     bench.write_fastq(work / "reads_parity.fq", reads[:cfg.parity_reads])
-    gen_s = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    if tpu_cli(["build", "--gram_dir", str(work / "gram"),
-                "--prg", str(work / "prg.bin"), "--ref", str(work / "ref.fa"),
-                "--kmer_size", str(cfg.kmer_size), "--force"]) != 0:
-        raise RuntimeError("build failed")
-    build_s = time.perf_counter() - t0
-    idx, kmer_index = load_all(work / "gram")
-    say(f"[workload] {cfg.genome_len} bp genome, {cfg.num_sites} sites, "
-        f"fm size {idx.fm.size}, {cfg.e2e_reads} reads of {cfg.read_len} bp;"
-        f" generated in {gen_s:.1f} s, index built (k={cfg.kmer_size}) in "
-        f"{build_s:.1f} s")
+    say(f"[workload] {summary}")
     return idx, kmer_index, reads
 
 
@@ -322,17 +290,20 @@ def _first_draws(cfg: SmokeConfig, n: int, salt: int):
     return seeds, first_raw_draws(np.asarray(seeds, dtype=np.uint32))
 
 
-def _profile_device(fn):
-    """Runs fn under torch.profiler; returns (device busy ms, kernel
-    count) from the trace, or (None, None) when it shows no device
-    time."""
+def _profile_device(fn, trace_dir: Path):
+    """Runs fn inside gramtools_tpu_torch.common.timers.device_trace
+    (a torch.profiler Chrome trace into trace_dir). Returns (device busy
+    ms, device event count, [(kernel name, device ms, launches)] by
+    device time), or (None, None, []) when it shows no device time."""
+    import collections
+
     import torch
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    from gramtools_tpu_torch.common.timers import device_trace
+
+    with device_trace(trace_dir) as prof:
         fn()
-        torch.cuda.synchronize()
+    by_name = collections.defaultdict(lambda: [0.0, 0])
     busy_us, kernels = 0.0, 0
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -342,13 +313,21 @@ def _profile_device(fn):
             t = getattr(ev, "cuda_time", 0.0)
         busy_us += t
         kernels += 1
-    return (busy_us / 1000.0, kernels) if busy_us > 0 else (None, None)
+        by_name[ev.name][0] += t
+        by_name[ev.name][1] += 1
+    top = sorted(((name, us / 1000.0, n) for name, (us, n)
+                  in by_name.items()), key=lambda e: -e[1])
+    if busy_us <= 0:
+        return None, None, []
+    return busy_us / 1000.0, kernels, top
 
 
-def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device):
+def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
+               work: Path):
     """Phase 1d: the fused engine at the path's shapes; K7 and K9 held
-    against their twins on the second buffer's own inputs. Returns the
-    kernels' JSON entries (without the launch counts)."""
+    against their twins on the second buffer's own inputs; the third
+    buffer inside device_trace, its device time split by kernel name.
+    Returns the kernels' JSON entries (without the launch counts)."""
     import traceback
 
     import numpy as np
@@ -399,9 +378,10 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device):
             busy_ms = kernels = None
         elif b == 2:
             box = {}
-            busy_ms, kernels = _profile_device(lambda: box.setdefault(
-                "token", engine.scan_submit(batch, kmer_index, cfg.kmer_size,
-                                            stats, first_raws=firsts)))
+            busy_ms, kernels, top = _profile_device(
+                lambda: box.setdefault("token", engine.scan_submit(
+                    batch, kmer_index, cfg.kmer_size, stats,
+                    first_raws=firsts)), work / "trace")
             token = box["token"]
         else:
             token = engine.scan_submit(batch, kmer_index, cfg.kmer_size,
@@ -431,6 +411,24 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device):
         f"host_fallbacks {engine.host_fallbacks}, device_retried "
         f"{engine.device_retried}, fallback_reasons "
         f"{dict(engine.fallback_reasons)}")
+    if busy_ms is None:
+        say("[phase 1d] trace: the profiler showed no device time")
+    else:
+        # names read "(anonymous namespace)::packed_rank_kernel(...)"
+        ours = {k: sum(ms for name, ms, _ in top if f"::{k}(" in name)
+                for k in ("packed_rank_kernel", "replay_kernel",
+                          "walk_kernel")}
+        say(f"[phase 1d] trace of buffer 2 (device_trace, Chrome trace): "
+            f"{busy_ms:.2f} ms device busy over {kernels} device events "
+            f"({len(top)} kernel names); "
+            f"K1 {ours['packed_rank_kernel']:.3f} ms, K7 "
+            f"{ours['replay_kernel']:.3f} ms, K9 {ours['walk_kernel']:.3f} "
+            f"ms; top kernels by device time: " + "; ".join(
+                f"{name[:60]} {ms:.3f} ms x{n}" for name, ms, n in top[:12]))
+        if not all(ours.values()):
+            say("[phase 1d] trace: names outside at::native: " + "; ".join(
+                f"{name[:80]} {ms:.3f} ms x{n}" for name, ms, n in top
+                if "at::native" not in name)[:2000])
 
     entries = []
     # K7: exact equality of every output
@@ -518,7 +516,7 @@ def phase_fused_parity(cfg: SmokeConfig, idx, kmer_index, reads, device):
         cuda_s = time.perf_counter() - t0
     finally:
         engine_mod.log_search_record = log_search_record
-    cov_cuda = engine.cov_diff.cpu()
+    cov_cuda = engine.cov_diff[0].cpu()
     (di, rt, st, *rest), kwargs = captured["call"]
     cov_cpu = torch.zeros(rt.cov_size + 1, dtype=torch.int32)
     t0 = time.perf_counter()
@@ -598,6 +596,21 @@ def phase_e2e(cfg: SmokeConfig, work: Path):
     return launches
 
 
+PARITY_FILES = ("genotype/genotyped.vcf.gz", "genotype/genotyped.json",
+                "coverage/allele_sum_coverage",
+                "coverage/grouped_allele_counts_coverage.json",
+                "coverage/allele_base_coverage.json",
+                "genotype/personalised_reference.fasta")
+
+
+def _read_output(path: Path) -> bytes:
+    """An output file's bytes (a gzipped VCF without ##fileDate)."""
+    if path.suffix == ".gz":
+        with gzip.open(path, "rb") as fh:
+            return b"".join(l for l in fh if not l.startswith(b"##fileDate"))
+    return path.read_bytes()
+
+
 def phase_parity(work: Path):
     """Phase 4: device (CUDA), with each recorder, against the JAX
     package's host engine."""
@@ -622,28 +635,180 @@ def phase_parity(work: Path):
         raise RuntimeError("host genotype failed")
     host_s = time.perf_counter() - t0
 
-    def read(path: Path):
-        if path.suffix == ".gz":
-            with gzip.open(path, "rb") as fh:
-                return b"".join(l for l in fh
-                                if not l.startswith(b"##fileDate"))
-        return path.read_bytes()
-
-    files = ("genotype/genotyped.vcf.gz", "genotype/genotyped.json",
-             "coverage/allele_sum_coverage",
-             "coverage/grouped_allele_counts_coverage.json",
-             "coverage/allele_base_coverage.json",
-             "genotype/personalised_reference.fasta")
     for record in dev_s:
-        for rel in files:
-            if read(work / f"par_dev{record}" / rel) != read(
+        for rel in PARITY_FILES:
+            if _read_output(work / f"par_dev{record}" / rel) != _read_output(
                     work / "par_host" / rel):
                 raise AssertionError(f"{rel}: device (DEVICE_RECORD="
                                      f"{record}) != host")
-    say(f"[phase 4] {len(files)} output files byte-equal, port device "
+    say(f"[phase 4] {len(PARITY_FILES)} output files byte-equal, port device "
         f"(fused recorder: {dev_s['1']:.1f} s run; host recorder, "
         f"GRAMTOOLS_TPU_DEVICE_RECORD=0: {dev_s['0']:.1f} s run) vs host "
         f"engine ({host_s:.1f} s run)")
+
+
+def _timed(times: list, fn):
+    """fn, with the host seconds of each call appended to times."""
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            times.append(time.perf_counter() - t0)
+    return wrapper
+
+
+def phase_mesh(cfg: SmokeConfig, idx, kmer_index, work: Path, device):
+    """Phase 5a: the e2e reads through the port's quasimap_reads with a
+    MeshLogEngine of 2 shards on one card (the device listed twice),
+    against a 1-shard run of the same reads and seed. Returns the 2-shard
+    run's launch counts."""
+    import numpy as np
+    import torch
+
+    from gramtools_tpu.mapping.quasimap import DEVICE_BUFFER_SIZE
+    from gramtools_tpu_torch.mapping.quasimap import quasimap_reads
+    from gramtools_tpu_torch.parallel.mesh import MeshLogEngine, make_mesh
+
+    os.environ["GRAMTOOLS_TPU_RANK"] = "packed"
+    os.environ.pop("GRAMTOOLS_TPU_DEVICE_RECORD", None)
+    runs, lines = {}, []
+    for S in (1, 2):
+        idx.graph.coverage[:] = 0
+        engine = MeshLogEngine(idx, cfg.kmer_size,
+                               mesh=make_mesh(devices=[device] * S))
+        submit_s, complete_s = [], []
+        engine.scan_submit = _timed(submit_s, engine.scan_submit)
+        engine.record_complete = _timed(complete_s, engine.record_complete)
+        if S == 2:
+            for fn in _counted().values():
+                fn.launches = 0
+        t0 = time.perf_counter()
+        stats, cov = quasimap_reads([str(work / "reads.fq")], kmer_index,
+                                    idx, cfg.kmer_size, seed=cfg.seed,
+                                    engine=engine,
+                                    buffer_size=DEVICE_BUFFER_SIZE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if S == 2:
+            launches = {name: fn.launches for name, fn in _counted().items()}
+        share = engine.host_fallbacks / max(
+            engine.device_mapped + engine.host_fallbacks, 1)
+        runs[S] = (stats.as_dict(), cov.allele_sum, cov.grouped_counts,
+                   idx.graph.coverage.copy())
+        lines.append(
+            f"{S} shard{'s' if S > 1 else ''}: {wall:.2f} s quasimap = "
+            f"{cfg.e2e_reads / wall:.0f} reads/s, scan_submit s "
+            f"{[round(t, 3) for t in submit_s]}, record_complete s "
+            f"{[round(t, 3) for t in complete_s]}, device_mapped "
+            f"{engine.device_mapped}, host_fallbacks {engine.host_fallbacks}"
+            f" ({100 * share:.3f}%), device_retried {engine.device_retried}")
+        if engine.device_mapped <= 0:
+            raise AssertionError(f"{S}-shard run mapped no row on the device")
+        if share >= 0.05:
+            raise AssertionError(f"{S}-shard host fallbacks "
+                                 f"{100 * share:.2f}% >= 5%")
+        del engine
+    one, two = runs[1], runs[2]
+    for i, what in enumerate(("stats", "allele-sum", "grouped counts")):
+        if one[i] != two[i]:
+            raise AssertionError(f"2-shard {what} != 1-shard {what}")
+    if not np.array_equal(one[3], two[3]):
+        raise AssertionError("2-shard per-base coverage != 1-shard")
+    say(f"[phase 5a] mesh of 2 shards on {device} (one card listed twice), "
+        f"{cfg.e2e_reads} reads in {DEVICE_BUFFER_SIZE}-read buffers: stats, "
+        f"allele-sum, grouped counts and per-base coverage equal to 1 shard; "
+        + "; ".join(lines) + f"; 2-shard launches {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"the 2-shard run launched no {name} kernel")
+    return launches
+
+
+def phase_index_sharded(cfg: SmokeConfig, idx, kmer_index, reads, device):
+    """Phase 5b: one buffer's scan with the whole index split over 4
+    SA-range shards on the card (dense rank), against the replicated
+    scan's flat result."""
+    import numpy as np
+    import torch
+
+    from gramtools_tpu.mapping.quasimap import QuasimapStats, ReadBatch
+    from gramtools_tpu_torch.mapping.engine import LogBatchedEngine
+    from gramtools_tpu_torch.mapping.search_log import log_search_phases
+    from gramtools_tpu_torch.parallel.mesh import Mesh
+    from gramtools_tpu_torch.parallel.sharded_index import \
+        make_index_sharded_log_search
+
+    os.environ["GRAMTOOLS_TPU_RANK"] = "dense"
+    try:
+        engine = LogBatchedEngine(idx, cfg.kmer_size, device=device)
+    finally:
+        os.environ["GRAMTOOLS_TPU_RANK"] = "packed"
+    batch = ReadBatch(np.ascontiguousarray(reads[:cfg.scan_reads]))
+    token = engine.scan_submit(batch, kmer_index, cfg.kmer_size,
+                               QuasimapStats())
+    (pending, phases, R), carry, reads_T = token[2], token[5], token[6]
+    engine_flat = pending.get()
+    n_idx = 4
+    sharded = make_index_sharded_log_search(
+        Mesh([device] * n_idx, ("idx",)), engine.di, engine.cfg, R,
+        phases=phases)
+    replicated = lambda rt, c: log_search_phases(engine.di, rt, c, phases, R)
+    flats, secs = {}, {}
+    for name, run in (("replicated", replicated), ("sharded", sharded),
+                      ("sharded again", sharded),
+                      ("replicated again", replicated)):
+        args = (torch.from_numpy(reads_T).to(device),
+                tuple(torch.from_numpy(a).to(device) for a in carry))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (rid, lo, hi, pref, ovf), (lp, le) = run(*args)
+        flats[name] = torch.cat([rid, lo, hi, pref, ovf.to(torch.int32), lp,
+                                 le]).cpu().numpy()
+        secs[name] = time.perf_counter() - t0
+    for name, flat in flats.items():
+        if not np.array_equal(flat, engine_flat):
+            raise AssertionError(f"{name} scan != the engine's flat result "
+                                 f"({int((flat != engine_flat).sum())} words)")
+    say(f"[phase 5b] index of {engine.di.size} rows in {n_idx} SA-range "
+        f"shards on {device}, dense rank: flat result of {len(token[1])} rows"
+        f" (R={R}, {engine_flat.size} int32) equal to the replicated scan's "
+        f"and the engine's; scan + fetch, host clock, s: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
+
+
+def phase_pool(work: Path):
+    """Phase 5c: genotype --engine device --max_threads 2 on the parity
+    reads, byte-equal to phase 4's host engine run."""
+    import torch
+
+    from gramtools_tpu_torch.cli import run as torch_cli
+    from gramtools_tpu_torch.mapping.quasimap import _pool_start_method
+
+    os.environ["GRAMTOOLS_TPU_RANK"] = "packed"
+    method = _pool_start_method()
+    if method != "spawn" or not torch.cuda.is_initialized():
+        raise AssertionError(f"pool start method {method} beside CUDA")
+    launches_before = _counted()["packed_rank"].launches
+    t0 = time.perf_counter()
+    if torch_cli(genotype_args(work / "gram", work / "par_pool",
+                               work / "reads_parity.fq", "device")
+                 + ["--max_threads", "2"]) != 0:
+        raise RuntimeError("genotype --max_threads 2 failed")
+    wall = time.perf_counter() - t0
+    rep = json.loads((work / "par_pool" / "genotype_report.json").read_text())
+    eng = rep["processes"]["genotype"]["engine"]
+    for rel in PARITY_FILES:
+        if _read_output(work / "par_pool" / rel) != _read_output(
+                work / "par_host" / rel):
+            raise AssertionError(f"{rel}: device with a pool != host")
+    if eng["device_mapped"] <= 0:
+        raise AssertionError("the pool run mapped no row on the device")
+    say(f"[phase 5c] genotype --engine device --max_threads 2 ({method} "
+        f"workers): {len(PARITY_FILES)} output files byte-equal to the host "
+        f"engine's; {wall:.1f} s run, device_mapped {eng['device_mapped']}, "
+        f"host_fallbacks {eng['host_fallbacks']}, K1 launches "
+        f"{_counted()['packed_rank'].launches - launches_before}")
 
 
 def run(cfg: SmokeConfig, device) -> dict:
@@ -667,14 +832,17 @@ def run(cfg: SmokeConfig, device) -> dict:
         b_outcomes = build_jump_table(idx).max_outcomes
         entries = [phase_kernel(cfg, idx, device, b_outcomes,
                                 warm_hit_budget(cfg, kmer_index, reads))]
-        entries += phase_path(cfg, idx, kmer_index, reads, device)
+        entries += phase_path(cfg, idx, kmer_index, reads, device, work)
         phase_scan(cfg, idx, kmer_index, reads, device)
         phase_fused_parity(cfg, idx, kmer_index, reads, device)
-        del idx, kmer_index
         launches = phase_e2e(cfg, work)
+        phase_parity(work)
+        mesh_launches = phase_mesh(cfg, idx, kmer_index, work, device)
+        phase_index_sharded(cfg, idx, kmer_index, reads, device)
         for entry in entries:
             entry["launches"] = launches[entry["name"]]
-        phase_parity(work)
+            entry["launches_mesh"] = mesh_launches[entry["name"]]
+        phase_pool(work)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     torch.cuda.synchronize()

@@ -5,11 +5,20 @@ Port of gramtools_tpu/commands/genotype_command.py: the same pipeline
 reference, VCF, rebasing map) and report, with the engine choice made
 for torch. ``--engine auto`` means the device engine when
 ``torch.cuda.is_available()``, the host engine otherwise.
+``GRAMTOOLS_TPU_MESH_DEVICES=n`` (n > 1) runs the device engine over a
+mesh of the first n CUDA devices, and raises where fewer exist. The
+mesh is slower than one card for now: one host thread enqueues every
+shard's launches (some 30,000 a buffer each), so the host's enqueue
+grows with n while each card idles (PERF.md; ROADMAP Queue 1 item 8
+tracks one host thread per card or a captured step loop).
+``--max_threads N`` records with N worker processes beside any engine
+(mapping/quasimap.py: spawned once CUDA is initialised).
 """
 from __future__ import annotations
 
 import collections
 import logging
+import os
 
 from gramtools_tpu.commands import report
 from gramtools_tpu.commands.genotype_command import (
@@ -23,8 +32,10 @@ from gramtools_tpu.infer.runner import LevelGenotyper
 from gramtools_tpu.infer.segment_tracker import SegmentTracker
 from gramtools_tpu.infer.vcf_write import write_vcf
 from gramtools_tpu.mapping.coverage import dump_all
-from gramtools_tpu.mapping.quasimap import DEVICE_BUFFER_SIZE, quasimap_reads
+from gramtools_tpu.mapping.quasimap import DEVICE_BUFFER_SIZE
 from gramtools_tpu.mapping.read_stats import ReadStats
+
+from ..mapping.quasimap import quasimap_reads
 
 log = logging.getLogger("gramtools_tpu")
 
@@ -71,11 +82,6 @@ def _execute_genotype(geno_report, action, geno_paths, args, kmer_size):
 
     engine = None
     engine_choice = resolve_engine(getattr(args, "engine", "auto"))
-    max_threads = getattr(args, "max_threads", 1)
-    if engine_choice == "device" and max_threads > 1:
-        # the worker pool would fork a process holding a live CUDA
-        # context (quasimap._pool_start_method only knows JAX)
-        raise ValueError("--engine device runs with --max_threads 1 only")
 
     log.info("Loading PRG and kmer index data")
     with timer.phase("Load data"):
@@ -84,8 +90,18 @@ def _execute_genotype(geno_report, action, geno_paths, args, kmer_size):
     if engine_choice == "device":
         from ..mapping.engine import LogBatchedEngine
 
-        engine = LogBatchedEngine(idx, kmer_size)
-        log.info("Using the torch mapping engine on %s", engine.device)
+        mesh = None
+        n_mesh = int(os.environ.get("GRAMTOOLS_TPU_MESH_DEVICES", "0"))
+        if n_mesh > 1:
+            from ..parallel.mesh import make_mesh
+
+            # the first n_mesh CUDA devices; raises where fewer exist
+            mesh = make_mesh(n_mesh)
+            log.info("Using the torch mesh mapping engine (%d shards)",
+                     n_mesh)
+        engine = LogBatchedEngine(idx, kmer_size, mesh=mesh)
+        log.info("Using the torch mapping engine on %s",
+                 ", ".join(map(str, engine.shard_devices)))
 
     log.info("Running quasimap")
     # device engines run throughput-mode buffers; the host engine keeps
@@ -95,7 +111,7 @@ def _execute_genotype(geno_report, action, geno_paths, args, kmer_size):
     with timer.phase("Quasimap"):
         stats, coverage = quasimap_reads(read_files, kmer_index, idx, kmer_size,
                                          seed=args.seed, engine=engine,
-                                         max_threads=max_threads,
+                                         max_threads=getattr(args, "max_threads", 1),
                                          buffer_size=buffer_size)
         read_stats.compute_coverage_depth(coverage, idx)
     read_stats.serialise(geno_paths.read_stats)

@@ -1,8 +1,8 @@
-"""The genealogy-log mapping engine on one torch device.
+"""The genealogy-log mapping engine on one torch device or a mesh.
 
-Port of gramtools_tpu/mapping/search_jax_log.py ``LogBatchedEngine``,
-single device. The host screens kmers and places the seed states; then
-one of two device programs runs:
+Port of gramtools_tpu/mapping/search_jax_log.py ``LogBatchedEngine``.
+The host screens kmers and places the seed states; then one of two
+device programs runs:
 
   * fused (the default, as in the JAX engine): the scan, the genealogy
     replay, the mapping-instance selection and the per-base coverage
@@ -24,8 +24,21 @@ by the recorder) are re-mapped and recorded exactly on the host.
 its flat result into pinned host memory, and returns without waiting;
 the caller's ``record_complete`` of the previous buffer then overlaps
 the device's work. The completion waits on the copy's event: that wait
-is the fetch. The JAX engine's mesh sharding and eager-fetch thread are
-not part of this port.
+is the fetch. The JAX engine's eager-fetch thread is not part of this
+port (it exists for a remote TPU runtime).
+
+With a mesh (parallel/mesh.py) the buffer's rows round-robin over S
+shards: global row r is shard r % S's local row r // S. Shard s runs the
+single-device program on its own column and pool-slot ranges on
+``mesh.devices[s]``, enqueued without waiting, so shards on distinct
+cards overlap; where JAX runs one ``shard_map`` program, this is a loop
+over shards. The index and record tables are resident once per distinct
+device. The shards' flat results land in shard order in one host
+buffer, the layout the unpackers read with ``n_shards=S``, and each
+shard adds into its own ``cov_diff`` row on its device, the rows summed
+at flush. The per-read seeded selection RNG makes every result
+independent of S. Without a mesh, S = 1 and the same loop runs the one
+shard on full, contiguous views: no slice copy and no concat.
 
 The environment knobs are the JAX engine's, with the same defaults
 (``GRAMTOOLS_TPU_POOL``, ``_HITS``, ``_RANK``, ``_RETRY_MIN``,
@@ -37,6 +50,7 @@ overflows.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import logging
 import os
@@ -63,24 +77,55 @@ log = logging.getLogger("gramtools_tpu")
 
 
 class _Pending:
-    """A dispatched scan's flat result on its way to the host."""
+    """A dispatched program's flat result on its way to the host: the
+    shards' tensors land in shard order in one host buffer (pinned on a
+    GPU, one event per device)."""
 
-    def __init__(self, flat: torch.Tensor):
-        if flat.device.type == "cuda":
-            host = torch.empty(flat.shape, dtype=flat.dtype,
-                               pin_memory=True)
-            host.copy_(flat, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
-            self._host = host
-        else:
-            self._event = None
-            self._host = flat
+    def __init__(self, flats: list):
+        self._events = []
+        if all(f.device.type == "cpu" for f in flats):
+            self._host = flats[0] if len(flats) == 1 else torch.cat(flats)
+            return
+        host = torch.empty(sum(f.numel() for f in flats),
+                           dtype=flats[0].dtype, pin_memory=True)
+        off = 0
+        for f in flats:
+            with torch.cuda.device(f.device):
+                host[off:off + f.numel()].copy_(f, non_blocking=True)
+            off += f.numel()
+        for dev in dict.fromkeys(f.device for f in flats):
+            with torch.cuda.device(dev):
+                event = torch.cuda.Event()
+                event.record()
+            self._events.append(event)
+        self._host = host
 
     def get(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
+        for event in self._events:
+            event.synchronize()
         return self._host.numpy()
+
+
+def _on_card(dev: torch.device):
+    """Makes ``dev`` the current CUDA device for a shard's launches (the
+    hand kernels launch on the current one); nothing on the CPU."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
+def _to_device(obj, dev: torch.device):
+    """A copy of a dataclass of tensors (nested dataclasses and named
+    tuples included) with every tensor on ``dev``."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(dev)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: _to_device(getattr(obj, f.name), dev)
+            for f in dataclasses.fields(obj)})
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(_to_device(v, dev) for v in obj))
+    return obj
 
 
 class LogBatchedEngine:
@@ -89,10 +134,22 @@ class LogBatchedEngine:
     scan_submit / record_complete pair (fused or non-fused)."""
 
     def __init__(self, idx: PrgIndex, kmer_size: int,
-                 cfg: Optional[LogConfig] = None, device=None):
+                 cfg: Optional[LogConfig] = None, device=None, mesh=None):
         self.idx = idx
         self.kmer_size = kmer_size
-        self.device = get_device(device)
+        # mesh=None: one device, S = 1, the shard layout is the identity.
+        # Otherwise shard s runs on mesh.devices.flat[s]; self.device is
+        # shard 0's, where the primary tables live.
+        self.mesh = mesh
+        if mesh is None:
+            self.shard_devices = [get_device(device)]
+        else:
+            if device is not None:
+                raise ValueError("pass the devices in the mesh, not device=")
+            self.shard_devices = [get_device(d) for d in mesh.devices.flat]
+        self.S = len(self.shard_devices)
+        self.device = self.shard_devices[0]
+        self._replicas: dict = {}    # (name, device) -> (table, its copy)
         self.jt = build_jump_table(idx)
         self.di = DeviceIndex.build(idx, self.jt, self.device)
         idx.graph.node_tables()  # pre-build for the batched coverage recorder
@@ -123,7 +180,8 @@ class LogBatchedEngine:
         self.rt = None               # RecordTables, built lazily
         self.st = None               # resident SeedTables (record mode)
         self._st_for = None          # kmer index the SeedTables were built for
-        self.cov_diff = None         # persistent device per-base diff array
+        # persistent per-base diff arrays: one per shard, on its device
+        self.cov_diff = None
         self.host_fallbacks = 0
         self.device_mapped = 0
         self.device_retried = 0
@@ -147,30 +205,76 @@ class LogBatchedEngine:
         # observability: one entry per distinct dispatched scan shape
         self.dispatch_shapes = set()
 
+    # ---- shard layout ----------------------------------------------------
+    # Global row r lives in shard r % S at local column r // S
+    # (round-robin keeps shards balanced for partial buffers); a device
+    # column c = s*R + local therefore maps back to row local*S + s.
+    # For S == 1 both maps are the identity.
+
+    def _cols_of(self, rows_idx, R: int):
+        rows_idx = np.asarray(rows_idx)
+        return (rows_idx % self.S) * R + rows_idx // self.S
+
     def _place_states(self, owner_rows: np.ndarray, pool: int):
-        """Front-pack states into the pool. Returns (slot (m,), keep
-        (m,), spilled_rows): states ranked past the pool spill their row
-        to the host engine."""
-        rank = np.arange(owner_rows.size, dtype=np.int64)
+        """Distribute states into per-shard pools (front-packed).
+
+        Returns (slot (m,), keep (m,), spilled_rows): slot = shard*pool +
+        per-shard rank; states ranked past the pool spill their row to
+        the host engine. For S == 1 this is the sequential fill."""
+        m = owner_rows.size
+        shard = owner_rows % self.S
+        order = np.argsort(shard, kind="stable")
+        cnt = np.bincount(shard, minlength=self.S)
+        start = np.zeros(self.S, np.int64)
+        start[1:] = np.cumsum(cnt)[:-1]
+        rank = np.empty(m, np.int64)
+        rank[order] = np.arange(m) - start[shard[order]]
         keep = rank < pool
-        slot = np.minimum(rank, pool - 1)
+        slot = shard * pool + np.minimum(rank, pool - 1)
         spilled = np.unique(owner_rows[~keep])
         return slot, keep, spilled
 
-    def _put(self, a: np.ndarray) -> torch.Tensor:
+    def _put(self, a: np.ndarray, device=None) -> torch.Tensor:
         """Host array -> device tensor: through pinned memory and an
         asynchronous copy on a GPU (a pageable copy would synchronise)."""
+        device = self.device if device is None else device
         t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
         return t.clone()
 
+    def _local(self, name: str, dev: torch.device):
+        """The engine's table ``name`` (di, blocks, rt, st) resident on
+        ``dev``: shard 0's own, else a copy made once per distinct device
+        (and again only when the table itself is replaced)."""
+        table = getattr(self, name)
+        if dev == self.device or table is None:
+            return table
+        entry = self._replicas.get((name, dev))
+        if entry is None or entry[0] is not table:
+            entry = (table, _to_device(table, dev))
+            self._replicas[(name, dev)] = entry
+        return entry[1]
+
+    def _shards(self, R: int, pool0: int):
+        """(shard, device, column slice, pool-slot slice) per shard."""
+        for s, dev in enumerate(self.shard_devices):
+            yield (s, dev, slice(s * R, (s + 1) * R),
+                   slice(s * pool0, (s + 1) * pool0))
+
     def _run_packed(self, reads_T, carry, phases, R) -> _Pending:
-        """Enqueue the scan+pack on the device; returns without waiting."""
-        flat = log_search_packed(self.di, self._put(reads_T),
-                                 tuple(self._put(a) for a in carry), phases,
-                                 R, blocks=self.blocks, rank=self.rank)
-        return _Pending(flat)
+        """Enqueue the scan+pack on the device(s); returns without
+        waiting."""
+        flats = []
+        for _, dev, cols, slots in self._shards(R, phases[0][1]):
+            put = lambda a: self._put(a, dev)
+            with _on_card(dev):
+                flats.append(log_search_packed(
+                    self._local("di", dev), put(reads_T[:, cols]),
+                    tuple(put(a[slots]) for a in carry[:4])
+                    + (put(carry[4][cols]),), phases, R,
+                    blocks=self._local("blocks", dev), rank=self.rank))
+        return _Pending(flats)
 
     def _scan_rows(self, buffer, kmer_index, kmer_size, stats):
         """Kmer filter + seed + device scan. Returns (results_skeleton,
@@ -198,13 +302,15 @@ class LogBatchedEngine:
             return (results, [], None, None, set(), None, None)
 
         n = len(rows)
-        self._sticky_R = max(self._sticky_R, _row_capacity(n))
-        R = self._sticky_R
+        S = self.S
+        self._sticky_R = max(self._sticky_R, _row_capacity(-(-n // S)))
+        R = self._sticky_R                # rows per shard
         max_len = max(r.size for _, r in rows)
         self._sticky_steps = max(self._sticky_steps,
                                  _round_up(max(max_len - k, 0), 16))
         steps = self._sticky_steps
-        reads_T = np.zeros((steps, R), dtype=np.uint8)
+        reads_T = np.zeros((steps, S * R), dtype=np.uint8)
+        cols = self._cols_of(np.arange(n), R)
         host_rows = set()
 
         seed_fn = getattr(kmer_index, "seed_batch", None)
@@ -219,13 +325,13 @@ class LogBatchedEngine:
             if rows_mat is not None:
                 L = rows_mat.shape[1]
                 last_kmers = rows_mat[:, L - k:]
-                reads_T[: L - k, :n] = rows_mat[:, : L - k][:, ::-1].T
+                reads_T[: L - k, cols] = rows_mat[:, : L - k][:, ::-1].T
             else:
                 last_kmers = np.zeros((n, k), dtype=np.uint8)
                 for row, (i, read) in enumerate(rows):
                     last_kmers[row] = read[read.size - k:]
                     body = read[: read.size - k][::-1]
-                    reads_T[: body.size, row] = body
+                    reads_T[: body.size, cols[row]] = body
             if record_mode:
                 owner, sidx = kmer_index.seed_batch_indices(last_kmers)
                 seeds = None
@@ -234,6 +340,11 @@ class LogBatchedEngine:
                  _sidx) = seed_fn(last_kmers)
                 seeds = (s_trav, s_nt, s_ing, s_ni)
         else:
+            if S > 1:
+                raise TypeError(
+                    "mesh mapping needs the array-backed kmer index "
+                    "(index.kmer_index_vec.build_kmer_index_vectorised); "
+                    "the dict oracle index has no seed_batch")
             owner_l: list = []
             lo_l: list = []
             hi_l: list = []
@@ -278,7 +389,8 @@ class LogBatchedEngine:
             cfg_eff = LogConfig(
                 pool=self.cfg.pool,
                 hits=self.cfg.hits * max(1, R // 4096) * self.hits_boost)
-            self._sticky_seeds = max(self._sticky_seeds, n_states)
+            per_shard = int(np.bincount(owner % S, minlength=S).max())
+            self._sticky_seeds = max(self._sticky_seeds, per_shard)
             phases = auto_phases(steps, R, cfg_eff,
                                  n_seed_states=self._sticky_seeds)
             pool0 = phases[0][1]
@@ -290,23 +402,24 @@ class LogBatchedEngine:
             host_rows.update(int(r) for r in np.flatnonzero(~seeded))
             if record_mode:
                 self._ensure_seed_tables(kmer_index)
-                slot_sidx = np.full(pool0, -1, np.int32)
-                slot_row = np.full(pool0, -1, np.int32)
+                slot_sidx = np.full(S * pool0, -1, np.int32)
+                slot_row = np.full(S * pool0, -1, np.int32)
                 slot_sidx[placed] = sidx[keep].astype(np.int32)
-                slot_row[placed] = owner[keep].astype(np.int32)
+                # the carry holds shard-local read ids
+                slot_row[placed] = (owner[keep] // S).astype(np.int32)
                 reads_p = _pack_reads2(reads_T)
                 device_out = self._dispatch_record(
                     rows, reads_p, slot_sidx, slot_row, host_rows,
                     first_raws, phases, R)
                 return (results, rows, device_out, None, host_rows,
                         (slot_sidx, slot_row), reads_p)
-            carry = (np.full(pool0, -1, np.int32),
-                     np.zeros(pool0, np.int32),
-                     np.zeros(pool0, np.int32),
-                     np.zeros(pool0, np.int32),
-                     np.zeros(R, bool))
+            carry = (np.full(S * pool0, -1, np.int32),
+                     np.zeros(S * pool0, np.int32),
+                     np.zeros(S * pool0, np.int32),
+                     np.zeros(S * pool0, np.int32),
+                     np.zeros(S * R, bool))
             rid_c, lo_c, hi_c, pref_c = carry[0], carry[1], carry[2], carry[3]
-            rid_c[placed] = owner[keep].astype(np.int32)
+            rid_c[placed] = (owner[keep] // S).astype(np.int32)
             lo_c[placed] = s_lo[keep]
             hi_c[placed] = s_hi[keep]
             # seed prefs reference the seed list by ORIGINAL index,
@@ -329,8 +442,9 @@ class LogBatchedEngine:
         if self.rt is None:
             self.rt = RecordTables.build(self.idx, self.device)
         if self.cov_diff is None:
-            self.cov_diff = torch.zeros(self.rt.cov_size + 1,
-                                        dtype=torch.int32, device=self.device)
+            self.cov_diff = [torch.zeros(self.rt.cov_size + 1,
+                                         dtype=torch.int32, device=dev)
+                             for dev in self.shard_devices]
 
     def _ensure_seed_tables(self, kmer_index):
         """Upload the kmer index's seed-state payloads ONCE
@@ -344,35 +458,44 @@ class LogBatchedEngine:
         """Enqueue the fused scan+record program for one (sub)buffer.
 
         row_map: optional original-row ids (retry pass); None = identity.
-        Returns the "record"-tagged token entry."""
+        Per-row arrays are laid out in shard-major column space
+        (self._cols_of). Returns the "record"-tagged token entry."""
         self._ensure_record_tables()
+        S = self.S
         nrows = len(rows) if row_map is None else row_map.size
-        row_ok = np.ones(R, dtype=bool)
+        row_ok = np.ones(S * R, dtype=bool)
         if host_rows:
-            row_ok[np.fromiter(host_rows, dtype=np.int64,
-                               count=len(host_rows))] = False
+            row_ok[self._cols_of(np.fromiter(host_rows, dtype=np.int64,
+                                             count=len(host_rows)), R)] = False
         # the mt19937 first draws are uint32; the device reads int64
-        row_first = np.zeros(R, dtype=np.int64)
-        row_len = np.zeros(R, dtype=np.int32)
+        row_first = np.zeros(S * R, dtype=np.int64)
+        row_len = np.zeros(S * R, dtype=np.int32)
+        cols = self._cols_of(np.arange(nrows), R)
         src = rows if row_map is None else [rows[int(o)] for o in row_map]
         if src:
             owners = np.fromiter((i for i, _ in src), dtype=np.int64,
                                  count=len(src))
             lens = np.fromiter((r.size for _, r in src), dtype=np.int64,
                                count=len(src))
-            row_first[:nrows] = np.asarray(first_raws)[owners]
-            row_len[:nrows] = lens
+            row_first[cols] = np.asarray(first_raws)[owners]
+            row_len[cols] = lens
         # 4R, not the recorder's 16R default: the JAX engine's budget
         trip_cap = 4 * R
         self.dispatch_shapes.add(
             ("record", phases, R, trip_cap, reads_p.shape))
-        put = self._put
-        flat = log_search_record(
-            self.di, self.rt, self.st, put(reads_p), put(slot_sidx),
-            put(slot_row), put(row_ok), put(row_first), put(row_len),
-            self.cov_diff, phases, R, trip_cap, self.kmer_size,
-            blocks=self.blocks, rank=self.rank)
-        return ("record", _Pending(flat), R, trip_cap, phases)
+        flats = []
+        for s, dev, cols, slots in self._shards(R, phases[0][1]):
+            put = lambda a: self._put(a, dev)
+            local = lambda name: self._local(name, dev)
+            with _on_card(dev):
+                flats.append(log_search_record(
+                    local("di"), local("rt"), local("st"),
+                    put(reads_p[:, cols]), put(slot_sidx[slots]),
+                    put(slot_row[slots]), put(row_ok[cols]),
+                    put(row_first[cols]), put(row_len[cols]),
+                    self.cov_diff[s], phases, R, trip_cap, self.kmer_size,
+                    blocks=local("blocks"), rank=self.rank))
+        return ("record", _Pending(flats), R, trip_cap, phases)
 
     def _empty_carry_np(self, nrows: int):
         """Stand-in when nothing was dispatched."""
@@ -382,12 +505,14 @@ class LogBatchedEngine:
 
     def scan_complete(self, token):
         """Waits for a scan_submit token; returns (results_skeleton,
-        rows, carry_np, log_parent, log_event, seed arrays, host_rows)."""
+        rows, carry_np, log_parent, log_event, seed arrays, host_rows)
+        with carry/overflow in global row space."""
         results, rows, device_out, seeds, host_rows, carry, reads_T = token
         if device_out is not None:
             pending, phases, R = device_out
             carry_np, log_parent, log_event = _unpack_result(
-                pending.get(), phases, R, self.di.n_outcomes)
+                pending.get(), phases, R, self.di.n_outcomes,
+                n_shards=self.S)
             carry_np, log_parent, log_event = self._retry_overflow(
                 carry_np, log_parent, log_event, carry, reads_T, len(rows),
                 phases, R, host_rows=host_rows)
@@ -397,26 +522,36 @@ class LogBatchedEngine:
         return (results, rows, carry_np, log_parent, log_event, seeds,
                 host_rows)
 
+    def _globalise_init_rid(self, init_read_id):
+        """Init-carry read ids are per-shard local: map to global rows."""
+        pool0 = init_read_id.size // self.S
+        shard = np.arange(init_read_id.size) // pool0
+        return np.where(init_read_id >= 0,
+                        init_read_id * self.S + shard, -1)
+
     def _relayout_retry(self, init_carry, ovf_rows, reads_T, nrows, phases,
                         R):
         """Build the retry pass's carry/read matrix: the overflowed rows
-        re-numbered 0..n_ovf-1, their pass-1 seed states replayed from
-        the init carry (same seed list / log references). The retry
-        runs the SAME (phases, R) scan as the main pass: with only the
-        overflowed rows live it has the whole hit budget and pool to
-        itself. Rows whose seed states spill the pool are dropped from
-        the retried set (flag survives -> host re-map). Returns
-        (carry2, reads_T2, phases, R, retried_rows) or None."""
+        re-numbered 0..n_ovf-1 and redistributed over shards, their
+        pass-1 seed states replayed from the init carry (same seed list /
+        log references). The retry runs the SAME (phases, R) scan as the
+        main pass: with only the overflowed rows live it has the whole
+        hit budget and pool to itself. Rows whose seed states spill the
+        pool are dropped from the retried set (flag survives -> host
+        re-map). Returns (carry2, reads_T2, phases, R, retried_rows) or
+        None."""
+        S = self.S
         pool0 = phases[0][1]
-        ovf_rows = ovf_rows[:R]
+        ovf_rows = ovf_rows[:S * R]
         init_read_id, init_lo, init_hi, init_pref = init_carry[:4]
+        init_rid_g = self._globalise_init_rid(init_read_id)
         for _ in range(2):
             row_map = np.full(nrows, -1, dtype=np.int32)
             row_map[ovf_rows] = np.arange(ovf_rows.size, dtype=np.int32)
             sel = np.flatnonzero(
-                (init_read_id >= 0)
-                & np.isin(init_read_id, ovf_rows, assume_unique=False))
-            retry_rows = row_map[init_read_id[sel]]
+                (init_rid_g >= 0)
+                & np.isin(init_rid_g, ovf_rows, assume_unique=False))
+            retry_rows = row_map[init_rid_g[sel]]
             slot, keep, spilled = self._place_states(retry_rows, pool0)
             if not spilled.size:
                 break
@@ -430,17 +565,19 @@ class LogBatchedEngine:
                 return None
         else:
             return None   # still spilling after one re-number: host path
-        carry2 = (np.full(pool0, -1, np.int32),
-                  np.zeros(pool0, np.int32),
-                  np.zeros(pool0, np.int32),
-                  np.zeros(pool0, np.int32),
-                  np.zeros(R, dtype=bool))
-        carry2[0][slot] = retry_rows.astype(np.int32)
+        carry2 = (np.full(S * pool0, -1, np.int32),
+                  np.zeros(S * pool0, np.int32),
+                  np.zeros(S * pool0, np.int32),
+                  np.zeros(S * pool0, np.int32),
+                  np.zeros(S * R, dtype=bool))
+        carry2[0][slot] = (retry_rows // S).astype(np.int32)
         carry2[1][slot] = init_lo[sel]
         carry2[2][slot] = init_hi[sel]
         carry2[3][slot] = init_pref[sel]     # same seed list / pass-1 log
-        reads_T2 = np.zeros((reads_T.shape[0], R), dtype=reads_T.dtype)
-        reads_T2[:, :ovf_rows.size] = reads_T[:, ovf_rows]
+        reads_T2 = np.zeros((reads_T.shape[0], S * R), dtype=reads_T.dtype)
+        cols_src = self._cols_of(ovf_rows, reads_T.shape[1] // S)
+        cols_dst = self._cols_of(np.arange(ovf_rows.size), R)
+        reads_T2[:, cols_dst] = reads_T[:, cols_src]
         return carry2, reads_T2, phases, R, ovf_rows
 
     def _relayout_retry_record(self, slot_sidx, slot_row, ovf_rows, reads_p,
@@ -450,9 +587,11 @@ class LogBatchedEngine:
         overflowed rows live, for a re-dispatch of the SAME (phases, R)
         program. Returns (slot_sidx2, slot_row2, reads_p2, retried_rows)
         or None."""
+        S = self.S
         pool0 = phases[0][1]
-        ovf_rows = ovf_rows[:R]
-        g_row = np.where(slot_sidx >= 0, slot_row, -1)
+        ovf_rows = ovf_rows[:S * R]
+        shard_of = np.arange(slot_sidx.size) // pool0
+        g_row = np.where(slot_sidx >= 0, slot_row * S + shard_of, -1)
         for _ in range(2):
             row_map = np.full(nrows, -1, dtype=np.int32)
             row_map[ovf_rows] = np.arange(ovf_rows.size, dtype=np.int32)
@@ -469,13 +608,15 @@ class LogBatchedEngine:
                 return None
         else:
             return None
-        slot_sidx2 = np.full(pool0, -1, np.int32)
-        slot_row2 = np.full(pool0, -1, np.int32)
+        slot_sidx2 = np.full(S * pool0, -1, np.int32)
+        slot_row2 = np.full(S * pool0, -1, np.int32)
         placed = slot[keep]
         slot_sidx2[placed] = slot_sidx[sel[keep]]
-        slot_row2[placed] = retry_rows[keep].astype(np.int32)
+        slot_row2[placed] = (retry_rows[keep] // S).astype(np.int32)
         reads_p2 = np.zeros_like(reads_p)
-        reads_p2[:, :ovf_rows.size] = reads_p[:, ovf_rows]
+        cols_src = self._cols_of(ovf_rows, reads_p.shape[1] // S)
+        cols_dst = self._cols_of(np.arange(ovf_rows.size), R)
+        reads_p2[:, cols_dst] = reads_p[:, cols_src]
         return slot_sidx2, slot_row2, reads_p2, ovf_rows
 
     def _retry_overflow(self, carry_np, log_parent, log_event, init_carry,
@@ -505,7 +646,8 @@ class LogBatchedEngine:
         self.dispatch_shapes.add(("packed", p2, R2, reads_T2.shape,
                                   tuple(a.shape for a in carry2)))
         flat2 = self._run_packed(reads_T2, carry2, p2, R2).get()
-        c2, lp2, le2 = _unpack_result(flat2, p2, R2, self.di.n_outcomes)
+        c2, lp2, le2 = _unpack_result(flat2, p2, R2, self.di.n_outcomes,
+                                      n_shards=self.S)
         lp2 = lp2.copy()
         L1 = log_parent.size
         lp2[lp2 >= 0] += L1
@@ -588,10 +730,11 @@ class LogBatchedEngine:
     def flush_device_coverage(self):
         """Fold the device-resident per-base diff array into the graph's
         coverage (called once per run, after the last buffer), then drop
-        it."""
+        it. The shards' rows are summed first."""
         if self.cov_diff is None:
             return
-        counts = finalise_cov_diff(self.cov_diff.cpu().numpy())
+        counts = finalise_cov_diff(
+            sum(row.cpu().numpy() for row in self.cov_diff))
         g = self.idx.graph
         if g.coverage.size:
             merged = g.coverage.astype(np.int64) + counts
@@ -616,7 +759,7 @@ class LogBatchedEngine:
         if kmer_index is None:
             kmer_index = self._last_kmer_index
         ovf, fallback, mapped, loci_rows = _unpack_record_result(
-            pending.get(), R, trip_cap)
+            pending.get(), R, trip_cap, n_shards=self.S)
         nrows = len(rows)
         fold_loci_rows(coverage, loci_rows)
         for bit, name in FB_NAMES.items():
@@ -645,7 +788,7 @@ class LogBatchedEngine:
                     rows, reads_p2, slot_sidx2, slot_row2, set(),
                     first_raws, phases, R, row_map=ovf_rows)
                 ovf2, fb2, mapped2, loci2 = _unpack_record_result(
-                    pending2.get(), R, tc2)
+                    pending2.get(), R, tc2, n_shards=self.S)
                 if loci2.shape[0]:
                     loci2[:, 0] = ovf_rows[loci2[:, 0]]
                     fold_loci_rows(coverage, loci2)

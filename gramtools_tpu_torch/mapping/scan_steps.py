@@ -205,11 +205,13 @@ def build_log_step(di, cfg, num_reads: int, occ_rows=None):
 
 
 def build_narrow_step(di, cfg, num_reads: int, wide_budget: int,
-                      occ_rows=None, locked: bool = False):
+                      occ_rows=None, locked: bool = False, narrow_rows=None):
     """Narrow-interval step (port of _build_narrow_step): one packed
     narrow_tab gather per singleton state, the classic sub-path for up
     to ``wide_budget`` wide states. locked=False hole-allocates the
-    pool; locked=True pins slot i to read i (pool == num_reads)."""
+    pool; locked=True pins slot i to read i (pool == num_reads).
+    narrow_rows: (rows) -> packed narrow_tab entries; default the
+    di.narrow_tab gather (the SA-range-sharded index injects its own)."""
     B = di.n_outcomes
     N = cfg.pool
     G = cfg.hits
@@ -217,6 +219,8 @@ def build_narrow_step(di, cfg, num_reads: int, wide_budget: int,
     n = di.size
     if occ_rows is None:
         occ_rows = dense_occ_rows(di)
+    if narrow_rows is None:
+        narrow_rows = lambda rows: di.narrow_tab[rows.clamp(0, n - 1)]
     mrl = di.marker_rank_locus
     n_mrl = mrl.shape[0]
     HB = G * B
@@ -253,7 +257,7 @@ def build_narrow_step(di, cfg, num_reads: int, wide_budget: int,
         single = lo == hi
 
         # 1. narrow path: ONE packed int32 gather per state
-        t = di.narrow_tab[lo.clamp(0, n - 1)]
+        t = narrow_rows(lo)
         sym = t >> 24                 # 0 sentinel, 1-4 DNA, 5 marker
         val = t & 0xFFFFFF            # LF destination / jump locus
 

@@ -38,11 +38,13 @@ def occ_rows_for(di, blocks, rank: str):
 
 
 def _scan_phases(di, reads, carry, phases, num_reads: int, occ_rows,
-                 lp: torch.Tensor, le: torch.Tensor):
+                 lp: torch.Tensor, le: torch.Tensor, narrow_rows=None):
     """The phase loop (port of _log_search_phases): runs every step of
     every phase on int32 reads (steps, num_reads), writes each step's
     genealogy records into their place in lp/le (preallocated, steps·G·B
-    each), and returns the final carry with its (num_reads,) overflow."""
+    each), and returns the final carry with its (num_reads,) overflow.
+    occ_rows / narrow_rows: the occ and narrow_tab gathers (None = the
+    dense tables in di)."""
     dev = di.device
     B = di.n_outcomes
     read_id, lo, hi, pref, overflow = carry
@@ -55,15 +57,18 @@ def _scan_phases(di, reads, carry, phases, num_reads: int, occ_rows,
     for entry in phases:
         n_steps, pool, hits, narrow_w, kind = _phase4(entry)
         cfg = LogConfig(pool=pool, hits=hits)
-        narrow_ok = narrow_w > 0 and di.narrow_tab.shape[0] == di.size
+        narrow_ok = narrow_w > 0 and (
+            narrow_rows is not None or di.narrow_tab.shape[0] == di.size)
         if kind == "locked" and narrow_ok:
             carry = lock_pool(carry, pool, num_reads)
             step = build_narrow_step(di, cfg, num_reads, narrow_w,
-                                     occ_rows=occ_rows, locked=True)
+                                     occ_rows=occ_rows, locked=True,
+                                     narrow_rows=narrow_rows)
         elif narrow_ok:
             carry = resize_pool(carry, pool, num_reads)
             step = build_narrow_step(di, cfg, num_reads, narrow_w,
-                                     occ_rows=occ_rows)
+                                     occ_rows=occ_rows,
+                                     narrow_rows=narrow_rows)
         else:
             carry = resize_pool(carry, pool, num_reads)
             step = build_log_step(di, cfg, num_reads, occ_rows=occ_rows)
@@ -81,6 +86,20 @@ def _scan_phases(di, reads, carry, phases, num_reads: int, occ_rows,
 
 def _log_length(di, phases) -> int:
     return sum(_phase4(e)[0] * _phase4(e)[2] for e in phases) * di.n_outcomes
+
+
+def log_search_phases(di, reads_T: torch.Tensor, carry, phases,
+                      num_reads: int, occ_rows=None, narrow_rows=None):
+    """The phased scan with its log returned (port of
+    _log_search_phases): reads_T (steps, num_reads) base codes; carry
+    (read_id, lo, hi, pref, overflow (num_reads,)). Returns (final
+    carry, (log_parent, log_event)). The data- and index-sharded scans
+    (parallel/) run it per shard with their own gathers."""
+    L = _log_length(di, phases)
+    log = torch.empty(2 * L, dtype=I32, device=di.device)
+    final = _scan_phases(di, reads_T.to(I32), carry, phases, num_reads,
+                         occ_rows, log[:L], log[L:], narrow_rows=narrow_rows)
+    return final, (log[:L], log[L:])
 
 
 def log_search_packed(di, reads_T: torch.Tensor, carry, phases,

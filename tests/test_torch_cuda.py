@@ -1,8 +1,11 @@
 """The port on a CUDA device: the packed-rank (K1), genealogy-replay
 (K7) and per-base walk (K9) kernels against their plain torch twins,
-the scan and the fused record program on CUDA against the CPU, and the
-engine against the host oracle. Every test is marked ``cuda`` and skips
-without a GPU.
+the scan and the fused record program on CUDA against the CPU, the
+engine against the host oracle, the mesh engine and the index-sharded
+scan on one card and, where the machine has two cards or more, across
+cards (with an NCCL all-reduce between processes). Every test is
+marked ``cuda`` and skips without a GPU (the across-card ones also
+with one card).
 
 This file imports no JAX (the GPU machine has none), so it also runs
 there on its own:
@@ -330,7 +333,7 @@ def _fused_engine(device, monkeypatch):
 def test_fused_record_flat_result_equal_on_cuda_and_cpu(cuda, monkeypatch):
     engine, token, cap, kmer_index = _fused_engine(cuda, monkeypatch)
     got = token[2][1].get()
-    got_cov = engine.cov_diff.cpu()
+    got_cov = engine.cov_diff[0].cpu()
     (di, rt, st, *rest), kw = cap["args"], cap["kwargs"]
     idx = engine.idx
     cov = torch.zeros(rt.cov_size + 1, dtype=torch.int32)
@@ -396,3 +399,176 @@ def test_fused_scan_submit_does_not_synchronise(cuda, monkeypatch):
         torch.cuda.set_sync_debug_mode("default")
     assert token[2][0] == "record"
     token[2][1].get()
+
+
+# --------------------------------------------------------------------------
+# the mesh and the index-sharded scan on the card
+# --------------------------------------------------------------------------
+
+def _mesh_quasimap(devices, tmp_path, name):
+    from gramtools_tpu_torch.mapping.quasimap import quasimap_reads as port_qm
+    from gramtools_tpu_torch.parallel.mesh import MeshLogEngine, make_mesh
+
+    idx, reads = _haplotype_reads(np.random.RandomState(4), 400)
+    k = 7
+    lut = np.array(list("NACGT"))
+    fq = tmp_path / f"{name}.fastq"
+    with open(fq, "w") as fh:
+        for i, r in enumerate(reads):
+            fh.write(f"@r{i}\n{''.join(lut[r])}\n+\n{'I' * r.size}\n")
+    engine = MeshLogEngine(idx, k, mesh=make_mesh(devices=devices),
+                           cfg=LogConfig(pool=4096, hits=16))
+    stats, cov = port_qm([str(fq)], build_kmer_index_vectorised(idx, k), idx,
+                         k, seed=1, engine=engine, buffer_size=100)
+    return stats, cov, idx.graph.coverage.copy(), engine
+
+
+def test_mesh_engine_on_cuda_matches_cpu_mesh(cuda, monkeypatch, tmp_path):
+    """Two shards on the card (one device listed twice) give the CPU
+    2-shard engine's stats and coverage, retries included, and K1, K7
+    and K9 launch."""
+    monkeypatch.setenv("GRAMTOOLS_TPU_RANK", "packed")
+    monkeypatch.setenv("GRAMTOOLS_TPU_RETRY_MIN", "1")
+    before = (rank.packed_rank.launches, replay.replay.launches,
+              walk.walk.launches)
+    got = _mesh_quasimap([cuda, cuda], tmp_path, "cuda")
+    after = (rank.packed_rank.launches, replay.replay.launches,
+             walk.walk.launches)
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+    want = _mesh_quasimap(["cpu", "cpu"], tmp_path, "cpu")
+    assert got[0].as_dict() == want[0].as_dict()
+    assert got[1].allele_sum == want[1].allele_sum
+    assert got[1].grouped_counts == want[1].grouped_counts
+    np.testing.assert_array_equal(got[2], want[2])
+    assert got[3].S == 2 and got[3].device_mapped > 0
+    for name in ("device_mapped", "host_fallbacks", "device_retried",
+                 "fallback_reasons"):
+        assert getattr(got[3], name) == getattr(want[3], name), name
+
+
+def test_index_sharded_scan_on_cuda_equals_replicated(cuda):
+    from gramtools_tpu_torch.mapping.search_log import log_search_phases
+    from gramtools_tpu_torch.mapping.search_log_host import auto_phases
+    from gramtools_tpu_torch.parallel.dryrun import _seeded_scan_inputs
+    from gramtools_tpu_torch.parallel.mesh import Mesh
+    from gramtools_tpu_torch.parallel.sharded_index import \
+        make_index_sharded_log_search
+
+    idx = _idx()
+    di = DeviceIndex.build(idx, device=cuda)
+    cfg = LogConfig(pool=256, hits=64)
+    R = 64
+    reads_T, carry = _seeded_scan_inputs(idx, np.random.RandomState(0), R,
+                                         32, cfg.pool)
+    args = (torch.from_numpy(reads_T).to(cuda),
+            tuple(torch.from_numpy(a).to(cuda) for a in carry))
+    got = make_index_sharded_log_search(Mesh([cuda] * 4, ("idx",)), di, cfg,
+                                        R)(*args)
+    want = log_search_phases(di, *args, auto_phases(32, R, cfg, narrow=True),
+                             R)
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        assert g.device.type == "cuda" and torch.equal(g, w)
+    assert (want[1][0] >= 0).any()
+
+
+def test_mesh_scan_submit_does_not_synchronise(cuda, monkeypatch):
+    """A warm 2-shard fused scan_submit on the card enqueues both shards
+    without one host synchronisation."""
+    from gramtools_tpu_torch.parallel.mesh import MeshLogEngine, make_mesh
+
+    monkeypatch.setenv("GRAMTOOLS_TPU_RANK", "packed")
+    idx, reads = _haplotype_reads(np.random.RandomState(9), 300)
+    k = 7
+    kmer_index = build_kmer_index_vectorised(idx, k)
+    engine = MeshLogEngine(idx, k, mesh=make_mesh(devices=[cuda, cuda]))
+
+    def submit(rs, seed):
+        first = first_raw_draws(np.asarray(RandomInclusiveInt(seed).raw_block(
+            len(rs)), dtype=np.uint32))
+        return engine.scan_submit(rs, kmer_index, k, QuasimapStats(),
+                                  first_raws=first)
+
+    submit(reads, 3)[2][1].get()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        token = submit(reads[::-1], 4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert token[2][0] == "record" and engine.S == 2
+    token[2][1].get()
+    assert [tuple(r.shape) for r in engine.cov_diff] == [
+        (engine.rt.cov_size + 1,)] * 2
+
+
+# --------------------------------------------------------------------------
+# across cards: skipped on a machine with one
+# --------------------------------------------------------------------------
+
+def _cards(n_min: int):
+    n = torch.cuda.device_count()
+    if n < n_min:
+        pytest.skip(f"needs {n_min} CUDA devices, {n} here")
+    return [torch.device("cuda", i) for i in range(min(n, 4))]
+
+
+def test_mesh_engine_across_cards_matches_one_card(cuda, monkeypatch,
+                                                  tmp_path):
+    """One shard per card: the 1-card engine's stats and coverage, the
+    tables resident once on every other card, and K1, K7 and K9 launched
+    on them."""
+    cards = _cards(2)
+    monkeypatch.setenv("GRAMTOOLS_TPU_RANK", "packed")
+    monkeypatch.setenv("GRAMTOOLS_TPU_RETRY_MIN", "1")
+    before = (rank.packed_rank.launches, replay.replay.launches,
+              walk.walk.launches)
+    got = _mesh_quasimap(cards, tmp_path, "cards")
+    after = (rank.packed_rank.launches, replay.replay.launches,
+             walk.walk.launches)
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+    want = _mesh_quasimap([cuda], tmp_path, "one")
+    assert got[0].as_dict() == want[0].as_dict()
+    assert got[1].allele_sum == want[1].allele_sum
+    assert got[1].grouped_counts == want[1].grouped_counts
+    np.testing.assert_array_equal(got[2], want[2])
+    engine = got[3]
+    assert engine.S == len(cards) and engine.device_mapped > 0
+    assert {dev for _, dev in engine._replicas} == set(cards[1:])
+    assert {name for name, _ in engine._replicas} == {"di", "blocks", "rt",
+                                                      "st"}
+
+
+def test_index_sharded_scan_across_cards_equals_replicated(cuda):
+    from gramtools_tpu_torch.mapping.search_log import log_search_phases
+    from gramtools_tpu_torch.mapping.search_log_host import auto_phases
+    from gramtools_tpu_torch.parallel.dryrun import _seeded_scan_inputs
+    from gramtools_tpu_torch.parallel.mesh import Mesh
+    from gramtools_tpu_torch.parallel.sharded_index import \
+        make_index_sharded_log_search
+
+    cards = _cards(2)
+    idx = _idx()
+    di = DeviceIndex.build(idx, device=cuda)
+    cfg = LogConfig(pool=256, hits=64)
+    R = 64
+    reads_T, carry = _seeded_scan_inputs(idx, np.random.RandomState(0), R,
+                                         32, cfg.pool)
+    args = (torch.from_numpy(reads_T).to(cuda),
+            tuple(torch.from_numpy(a).to(cuda) for a in carry))
+    got = make_index_sharded_log_search(Mesh(cards, ("idx",)), di, cfg,
+                                        R)(*args)
+    want = log_search_phases(di, *args, auto_phases(32, R, cfg, narrow=True),
+                             R)
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        assert g.device == cards[0] and torch.equal(g, w)
+
+
+def test_nccl_all_reduce_across_cards():
+    """One process per card: init_distributed picks nccl for a CUDA
+    engine device, and the ranks all-reduce on their cards."""
+    from test_torch_distributed import run_ranks
+
+    cards = _cards(2)
+    for r, (rc, out, err) in enumerate(run_ranks([str(c) for c in cards])):
+        assert rc == 0, (r, out, err)
+        assert f"RANK-OK {r} nccl cuda:{r}" in out

@@ -184,17 +184,22 @@ def test_fused_and_host_recorder_outputs_equal(runs, runs_fused):
 
 
 def test_device_engine_refuses_worker_pool(runs, monkeypatch):
+    """The device engine no longer refuses a worker pool: with
+    ``--max_threads 2`` it runs (mapping/quasimap.py) and writes the
+    host engine's files (tests/test_torch_pool.py holds it to the JAX
+    package as well)."""
     monkeypatch.setenv("GRAMTOOLS_TORCH_DEVICE", "cpu")
-    with pytest.raises(SystemExit):
-        run_torch_cli(["genotype", "--gram_dir", str(runs / "gram"),
-                       "--genotype_dir", str(runs / "pool"),
-                       "--reads", str(runs / "reads.fastq"),
-                       "--sample_id", "s", "--engine", "device",
-                       "--max_threads", "2", "--force"])
+    assert run_torch_cli(["genotype", "--gram_dir", str(runs / "gram"),
+                          "--genotype_dir", str(runs / "pool"),
+                          "--reads", str(runs / "reads.fastq"),
+                          "--sample_id", "s", "--seed", SEED,
+                          "--engine", "device", "--max_threads", "2",
+                          "--force"]) == 0
     rep = json.loads((runs / "pool" / "genotype_report.json").read_text())
-    assert not rep["success"]
-    assert "max_threads" in "\n".join(
-        rep["processes"]["genotype"]["traceback"])
+    assert rep["success"]
+    assert rep["processes"]["genotype"]["engine"]["device_mapped"] > 0
+    for rel in OUTPUT_FILES:
+        assert _read(runs / "pool" / rel) == _read(runs / "host" / rel), rel
 
 
 def test_auto_engine_follows_cuda(monkeypatch):

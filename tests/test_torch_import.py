@@ -28,6 +28,14 @@ def test_port_modules_listed():
                  "gramtools_tpu_torch.mapping.record",
                  "gramtools_tpu_torch.mapping.search_log",
                  "gramtools_tpu_torch.mapping.engine",
+                 "gramtools_tpu_torch.mapping.quasimap",
+                 "gramtools_tpu_torch.parallel.mesh",
+                 "gramtools_tpu_torch.parallel.sharded_index",
+                 "gramtools_tpu_torch.parallel.distributed",
+                 "gramtools_tpu_torch.parallel.dryrun",
+                 "gramtools_tpu_torch.parallel.measure_mesh",
+                 "gramtools_tpu_torch.common.timers",
+                 "gramtools_tpu_torch.common.workload",
                  "gramtools_tpu_torch.commands.genotype_command"):
         assert name in mods
 
