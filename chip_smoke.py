@@ -13,8 +13,9 @@ SNP sites, 150 bp reads, k = 10 (the graph and read generators of
 gramtools_tpu_torch/common/workload.py, seeded). Phases, in
 this order, each printing one line or a few:
 
-  0. the card (nvidia-smi name and power limit), the build of the three
-     kernels (one nvcc each, all started together);
+  0. the card (nvidia-smi name and power limit), the build of the
+     three kernel sources and of the cursor-walk probe (one nvcc each,
+     all started together);
   1. the packed-rank kernel (K1) against its plain torch twin, on a
      small FM index (every prefix length) and on the 4.4 Mb graph's
      records (524,288 random rows plus edge rows; the warm steps'
@@ -27,20 +28,23 @@ this order, each printing one line or a few:
      host clock, every kernel's launches counted buffer by buffer; the
      second buffer's ``scan_submit`` runs under
      ``torch.cuda.set_sync_debug_mode("error")`` (no host
-     synchronisation allowed) and its K1 calls, genealogy-replay (K7)
-     and per-base walk (K9) inputs and per-base recorder inputs are
-     kept; the third runs inside
-     ``gramtools_tpu_torch.common.timers.device_trace`` (a
+     synchronisation allowed) and its K1 calls and genealogy-replay
+     (K7) and per-base recorder (K9) inputs are kept; the third runs
+     inside ``gramtools_tpu_torch.common.timers.device_trace`` (a
      ``torch.profiler`` Chrome trace: device busy time, device event
-     count, the device time split by kernel name, and each hand
-     kernel's device time a launch). Then every kept K1 call equals its
+     count, the device time split by kernel name, each hand kernel's
+     device time a launch, and the per-base call's device events
+     between two marker kernels). Then every kept K1 call equals its
      twin and the largest is timed against the dense gather; K7 equals
      its twin bit for bit there and on a forced case (max_chain 2,
-     tcap 4, so chains and paths overrun); K9 equals its twin on the
-     emission multiset and the spill flag there, and on forced spills
-     (emitcap half the emissions; max_iter 2) flags the spill and keeps
-     only emissions the twin makes; the per-base recorder gives the
-     same fallback bits and ``cov_diff`` with K9 and with its twin.
+     tcap 4, so chains and paths overrun); K9, the whole per-base
+     recorder in csrc/walk.cu's four kernels, gives the plain version's
+     fallback bits and ``cov_diff`` there and with wcap half the
+     lanes, emitcap half the emissions, preset fallback rows and
+     max_iter 2, and is timed and traced beside the sort design of the
+     same function (torch around the earlier cursor walk kernel, a
+     probe that the script builds itself; also timed with a cursor word
+     per lane).
      Each kernel's time (CUDA events, the launches queued behind a
      sleep of the card so the host's enqueue does not show), its bound
      (the bytes its inputs need, read once, and its outputs, written
@@ -52,8 +56,8 @@ this order, each printing one line or a few:
      result and ``cov_diff`` on CUDA and on the CPU (plain torch, the
      kernels' twins) must be equal;
   3. end to end: build the graph, then genotype 40,000 reads (two
-     20,000-read buffers, so submit and complete overlap); the three
-     kernels' launch counts are reset just before and read just after,
+     20,000-read buffers, so submit and complete overlap); the launch
+     counts of K1, K7 and K9 are reset just before and read just after,
      and each must be above 0;
   4. output parity: on the first 4,000 reads, the port's device run
      on CUDA, with the fused recorder and with
@@ -74,7 +78,8 @@ this order, each printing one line or a few:
   5b. the SA-range-sharded index: one 4,096-read buffer's scan with the
      whole index split over 4 "idx" shards on the card (dense rank)
      must equal the replicated scan and the engine's flat result; both
-     timed in turns;
+     timed in turns; K10's calls, bytes, bound and device events in one
+     scan;
   5c. ``genotype --engine device --max_threads 2`` on the 4,000 parity
      reads (spawned workers, since CUDA is initialised) must write files
      byte-equal to phase 4's host engine run.
@@ -83,7 +88,8 @@ The second-to-last line is a JSON object with one entry per kernel of
 the path (K1's numbers are those of its largest call on the path;
 ``launches`` counts phase 3's main path, ``launches_per_buffer`` phase
 1d's buffers, ``trace_ms`` the device time a launch in phase 1d's
-trace); the last is ``{"ok": true, "device": {...}}``. Any failed
+trace; K9's launch is one call of the whole per-base recorder, four
+kernels); the last is ``{"ok": true, "device": {...}}``. Any failed
 check raises, and the script exits non-zero; it also exits non-zero,
 printing no result, when no CUDA device is available. It imports no
 JAX and nothing of the JAX package (it checks so at the end).
@@ -101,7 +107,13 @@ from dataclasses import dataclass
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-KERNELS = ("packed_rank", "replay", "walk")
+LIBS = ("packed_rank", "replay", "walk")     # csrc/<name>.cu
+# each entry of the kernels line: its __global__ functions (trace names
+# read "(anonymous namespace)::<name>_kernel(...)")
+KERNELS = {"packed_rank": ("packed_rank",), "replay": ("replay",),
+           "per_base": ("per_base_init", "per_base_expand", "per_base_walk",
+                        "per_base_apply")}
+LABEL = "per_base"        # the record_function around the per-base call
 
 
 @dataclass
@@ -199,23 +211,6 @@ def replay_bytes(f_pref, alive, log_parent, log_event, seeds, ops,
     reads = (N * 5 + log_idx.numel() * 8 + seed.numel() * 16 + slots * 8
              + events.numel() * n_ops * 4 + live_ops * 8)
     return reads + N * tcap * 16 + N * 9
-
-
-def walk_bytes(args) -> int:
-    """K9's bytes for these inputs: the per-lane words (26 bytes a
-    lane), each node row (16 bytes), edge word and allele word of
-    ps_trav that the walks read (counted by the twin's ``visits``), and
-    the (emitcap, 4) emissions and the spill flag written."""
-    import torch
-
-    from gramtools_tpu_torch.ops import walk
-
-    visits = []
-    walk.walk_torch(*args, visits=visits)
-    nodes, edges, trav = [torch.unique(torch.cat(v)).numel()
-                          for v in zip(*visits)] or [0, 0, 0]
-    lanes, emitcap = args[3].shape[0], args[11]
-    return lanes * 26 + nodes * 16 + edges * 4 + trav * 4 + emitcap * 16 + 1
 
 
 def make_workload(cfg: SmokeConfig, work: Path):
@@ -414,9 +409,10 @@ def _profile_device(fn, trace_dir: Path):
     with device_trace(trace_dir) as prof:
         fn()
     by_name = collections.defaultdict(lambda: [0.0, 0])
-    busy_us, kernels = 0.0, 0
+    busy_us, kernels, timeline = 0.0, 0, []
     for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        if (ev.device_type != torch.autograd.DeviceType.CUDA
+                or ev.name == LABEL):        # the annotation's own span
             continue
         t = getattr(ev, "device_time", None)
         if t is None:
@@ -425,15 +421,51 @@ def _profile_device(fn, trace_dir: Path):
         kernels += 1
         by_name[ev.name][0] += t
         by_name[ev.name][1] += 1
+        timeline.append((ev.time_range.start, t, ev.name))
     top = sorted(((name, us / 1000.0, n) for name, (us, n)
                   in by_name.items()), key=lambda e: -e[1])
     if busy_us <= 0:
-        return None, None, []
-    return busy_us / 1000.0, kernels, top
+        return None, None, [], []
+    return busy_us / 1000.0, kernels, top, sorted(timeline)
+
+
+MARK = "spin_kernel"      # torch.cuda._sleep's kernel: the window markers
+
+
+def marked(fn):
+    """fn inside torch.profiler.record_function(LABEL), with a
+    ``torch.cuda._sleep`` kernel launched just before and just after it:
+    one stream runs in order, so the device events between two markers
+    are the ones fn enqueued (``marked_windows``)."""
+    import torch
+
+    def wrapper(*args, **kwargs):
+        torch.cuda._sleep(100)
+        with torch.profiler.record_function(LABEL):
+            out = fn(*args, **kwargs)
+        torch.cuda._sleep(100)
+        return out
+    return wrapper
+
+
+def marked_windows(timeline):
+    """[(device events, device busy ms, span ms)] of each window between
+    a pair of markers in a trace's timeline."""
+    idx = [i for i, (_, _, name) in enumerate(timeline) if MARK in name]
+    out = []
+    for a, b in zip(idx[::2], idx[1::2]):
+        inside = timeline[a + 1:b]
+        if not inside:
+            out.append((0, 0.0, 0.0))
+            continue
+        busy = sum(t for _, t, _ in inside) / 1000.0
+        span = (inside[-1][0] + inside[-1][1] - inside[0][0]) / 1000.0
+        out.append((len(inside), busy, span))
+    return out
 
 
 def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
-               work: Path, dense):
+               work: Path, dense, probe):
     """Phase 1d: the fused engine at the path's shapes; every kernel's
     launches counted buffer by buffer; K1's calls, K7's and K9's inputs
     and the per-base recorder's inputs kept from the second buffer, and
@@ -451,7 +483,7 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
                                                       QuasimapStats,
                                                       ReadBatch)
     from gramtools_tpu_torch.mapping.engine import LogBatchedEngine
-    from gramtools_tpu_torch.ops import rank, replay, walk
+    from gramtools_tpu_torch.ops import rank, replay
 
     os.environ["GRAMTOOLS_TPU_RANK"] = "packed"
     B = DEVICE_BUFFER_SIZE
@@ -483,8 +515,7 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if b == 1:
-            record.replay, record.walk = (keep("replay", replay.replay),
-                                          keep("walk", walk.walk))
+            record.replay = keep("replay", replay.replay)
             record._record_per_base_device = keep("per_base", per_base)
             rank.packed_rank_cuda = keep_rank
             torch.cuda.set_sync_debug_mode("error")
@@ -497,16 +528,34 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
                 raise
             finally:
                 torch.cuda.set_sync_debug_mode("default")
-                record.replay, record.walk = replay.replay, walk.walk
+                record.replay = replay.replay
                 record._record_per_base_device = per_base
                 rank.packed_rank_cuda = packed_rank_cuda
             busy_ms = kernels = None
         elif b == 2:
+            # after the buffer, in the same trace: the per-base recorder
+            # alone on buffer 1's inputs, as the kernels and as the sort
+            # design (each between markers)
+            sort_fn = sort_design(probe_cursor_walk(
+                cfg, probe, per_base_lanes(captured["per_base"][0])[0]))
             box = {}
-            busy_ms, kernels, top = _profile_device(
-                lambda: box.setdefault("token", engine.scan_submit(
+
+            def traced():
+                box["token"] = engine.scan_submit(
                     batch, kmer_index, cfg.kmer_size, stats,
-                    first_raws=firsts)), work / "trace")
+                    first_raws=firsts)
+                box["launches"] = {name: fn.launches
+                                   for name, fn in _counted().items()}
+                record._record_per_base_device = per_base
+                for fn in (per_base, sort_fn):
+                    marked(fn)(*fresh_cov(captured["per_base"][0]))
+
+            record._record_per_base_device = marked(per_base)
+            try:
+                busy_ms, kernels, top, timeline = _profile_device(
+                    traced, work / "trace")
+            finally:
+                record._record_per_base_device = per_base
             token = box["token"]
         else:
             token = engine.scan_submit(batch, kmer_index, cfg.kmer_size,
@@ -521,15 +570,15 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
         t0 = time.perf_counter()
         engine.record_complete(token, sel_seeds, firsts, stats, coverage)
         complete_s = time.perf_counter() - t0
-        per_buffer.append({name: fn.launches
-                           for name, fn in _counted().items()})
+        per_buffer.append(box["launches"] if b == 2 else
+                          {name: fn.launches for name, fn in _counted().items()})
         lines.append(
             f"buffer {b}: scan_submit {submit_s:.3f} s host, then waited "
             f"{wait_s:.3f} s for the result, record_complete {complete_s:.3f}"
             f" s host, launches {per_buffer[-1]}"
             + ("" if busy_ms is None else
-               f"; profiled: device busy {busy_ms:.1f} ms over "
-               f"{kernels} device events")
+               f"; profiled, with the two per-base calls traced after it: "
+               f"device busy {busy_ms:.1f} ms over {kernels} device events")
             + (" [sync debug mode 'error': no synchronisation]"
                if b == 1 else ""))
     engine.flush_device_coverage()
@@ -541,20 +590,40 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
         f"{dict(engine.fallback_reasons)}")
     # device ms a launch, from the trace of buffer 2
     trace_ms = dict.fromkeys(KERNELS)
+    windows = [None] * 3
     if busy_ms is None:
         say("[phase 1d] trace: the profiler showed no device time")
     else:
+        found = marked_windows(timeline)
+        if len(found) == 3:
+            windows = found
+            # the buffer's own device time, without the two calls after it
+            busy_ms -= found[1][1] + found[2][1]
+            kernels -= found[1][0] + found[2][0]
+        else:
+            say(f"[phase 1d] trace: {len(found)} marked windows, not 3 "
+                f"({sum(MARK in n for _, _, n in timeline)} markers)")
         # names read "(anonymous namespace)::packed_rank_kernel(...)"
-        ours = {k: sum(ms for name, ms, _ in top if f"::{k}_kernel(" in name)
+        ours = {k: sum(ms for name, ms, _ in top
+                       if any(f"::{g}_kernel(" in name for g in KERNELS[k]))
                 for k in KERNELS}
-        for k in KERNELS:
+        for k in ("packed_rank", "replay"):
             if per_buffer[2][k]:
                 trace_ms[k] = ours[k] / per_buffer[2][k]
+        if windows[0] is not None:
+            trace_ms["per_base"] = windows[0][1]
         say(f"[phase 1d] trace of buffer 2 (device_trace, Chrome trace): "
             f"{busy_ms:.2f} ms device busy over {kernels} device events "
             f"({len(top)} kernel names); "
             f"K1 {ours['packed_rank']:.3f} ms, K7 {ours['replay']:.3f} ms, "
-            f"K9 {ours['walk']:.3f} ms; top kernels by device time: "
+            f"K9 {trace_ms['per_base'] or float('nan'):.4f} ms (its 4 "
+            f"kernels, the marked call; "
+            f"the trace also holds the two per-base calls after the buffer, "
+            f"left out of the busy time; by kernel, the mean of 2 calls: "
+            + ", ".join(f"{g} " + "{:.4f} ms".format(sum(
+                ms for name, ms, _ in top if f"::{g}_kernel(" in name) / 2)
+                for g in KERNELS["per_base"])
+            + "); top kernels by device time: "
             + "; ".join(f"{name[:60]} {ms:.3f} ms x{n}"
                         for name, ms, n in top[:12]))
         if not all(ours.values()):
@@ -596,10 +665,10 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
     entries.append(entry("replay", "gramtools_tpu_torch/csrc/replay.cu",
                          "gramtools_tpu/mapping/record_jax.py:251",
                          check_replay(cfg, captured["replay"], trace_ms)))
-    entries.append(entry("walk", "gramtools_tpu_torch/csrc/walk.cu",
-                         "gramtools_tpu/mapping/record_jax.py:841",
-                         check_walk(cfg, captured["walk"], trace_ms)))
-    check_per_base(captured["per_base"])
+    entries.append(entry("per_base", "gramtools_tpu_torch/csrc/walk.cu",
+                         "gramtools_tpu/mapping/record_jax.py:714",
+                         check_per_base(cfg, captured["per_base"], windows,
+                                        sort_fn)))
     return entries
 
 
@@ -644,95 +713,351 @@ def check_replay(cfg: SmokeConfig, call, trace_ms):
     return m
 
 
-def check_walk(cfg: SmokeConfig, call, trace_ms):
-    """K9 on the path's inputs: the emission multiset and the spill flag
-    equal to the twin's; then forced spills (emitcap half the emissions;
-    max_iter 2): the same spill flag, every kept emission one of the
-    twin's."""
-    import collections
+def fresh_cov(args, **over):
+    """A copy of per-base arguments ``args`` with a zeroed cov_diff and
+    the named ones replaced (fallback, wcap, emitcap)."""
+    import torch
 
+    a = list(args)
+    a[10] = torch.zeros_like(args[10])
+    for k, v in over.items():
+        a[{"fallback": 9, "wcap": 11, "emitcap": 12}[k]] = v
+    return a
+
+
+def sort_design(cursor_walk):
+    """The sort design of the per-base recorder: the plain version with
+    the cursor walk kernel (``probe_cursor_walk``) in place of the
+    plain walk."""
+    from gramtools_tpu_torch.mapping import record
+    from gramtools_tpu_torch.ops import walk
+
+    def run(*a):
+        record.walk_torch = cursor_walk
+        try:
+            return record._record_per_base_torch(*a)
+        finally:
+            record.walk_torch = walk.walk_torch
+    return run
+
+
+def per_base_lanes(args):
+    """The plain version's walk inputs for per-base arguments ``args``:
+    (walk_torch's positional arguments, the lanes' SA rows and PRG
+    positions)."""
+    import torch
+
+    from gramtools_tpu_torch.mapping import record
+
+    (di, rt, ps_row, ps_lo, ps_hi, ps_trav, ps_ntrav, st_selected, row_len,
+     _fallback, _cov, wcap, emitcap) = args
+    lanes, _ = record._walk_lanes(di, rt, ps_row, ps_lo, ps_hi, ps_ntrav,
+                                  st_selected, row_len, wcap)
+    w = torch.where(st_selected, ps_hi - ps_lo + 1, 0)
+    item, off, _, _ = record._expand_budget(w, wcap)
+    occ_sa = (ps_lo[item] + off).clamp(0, di.size - 1)
+    prg = di.sa[occ_sa].clamp(0, rt.ra_node.shape[0] - 1)
+    return ((rt.nt_walk, rt.nt_edges) + lanes
+            + (ps_trav, emitcap, rt.n_nodes + 2)), occ_sa, prg
+
+
+def per_base_bytes(args):
+    """The whole per-base recorder's bytes for these inputs: the
+    selection flag of every state, lo, hi and row of each selected one;
+    for the walk lanes, each SA entry, PRG position (node and offset),
+    row length and path count they read; each node row (16 bytes), edge
+    word and ps_trav allele word the walks read (the plain walk's
+    ``visits``); each emitted node's coverage offset; the fallback row
+    bits read and written; each cov_diff slot the envelopes touch, read
+    and written. Returns (bytes, emissions)."""
     import torch
 
     from gramtools_tpu_torch.ops import walk
 
-    args, kwargs = call
-    assert not kwargs
-
-    def rows(e):
-        """The filled emissions as a sorted list of tuples."""
-        return sorted(map(tuple, e[e[:, 0] < walk.BIG].cpu().tolist()))
-
-    got, spill = walk.walk_cuda(*args)
-    want, want_spill = walk.walk_torch(*args)
-    if bool(spill) != bool(want_spill):
-        raise AssertionError("walk kernel spill != twin spill")
-    g, w = rows(got), rows(want)
-    if bool(want_spill) or g != w:
-        raise AssertionError(f"walk kernel != twin on the path's inputs "
-                             f"({len(g)} against {len(w)} emissions, spill "
-                             f"{bool(want_spill)})")
-    full = collections.Counter(w)
-    emitcap = args[11]
-    forced = [(max(1, len(w) // 2), args[12]), (emitcap, 2)]
-    for cap, max_iter in forced:
-        a = args[:11] + (cap, max_iter)
-        got_f, spill_f = walk.walk_cuda(*a)
-        _, want_f = walk.walk_torch(*a)
-        if not (bool(spill_f) and bool(want_f)):
-            raise AssertionError(f"walk forced spill (emitcap {cap}, "
-                                 f"max_iter {max_iter}) not flagged: kernel "
-                                 f"{bool(spill_f)}, twin {bool(want_f)}")
-        kept = collections.Counter(rows(got_f))
-        if kept - full:
-            raise AssertionError("walk kernel kept an emission the twin "
-                                 "does not make")
-        if max_iter == args[12] and sum(kept.values()) != cap:
-            raise AssertionError("walk kernel filled "
-                                 f"{sum(kept.values())} of {cap} rows")
-    m = {"max_abs_err": 0,
-         "ms": time_ms(lambda: walk.walk_cuda(*args), cfg.timing_runs),
-         "plain_ms": time_ms(lambda: walk.walk_torch(*args), 3),
-         "library_ms": None}
-    nbytes = walk_bytes(args)
-    m["bound_ms"] = bound_ms(nbytes)
-    valid = args[2]
-    say(f"[phase 1d] K9 walk at {valid.shape[0]} lanes ({int(valid.sum())} "
-        f"live), emitcap {emitcap}: kernel == twin ({len(w)} emissions, "
-        f"spill False; forced emitcap {forced[0][0]} and max_iter 2: spill "
-        f"flagged, kept emissions the twin's), {m['ms']:.4f} ms kernel, "
-        f"{m['plain_ms']:.4f} ms twin; bound {m['bound_ms']:.4f} ms "
-        f"({nbytes} bytes), kernel at {100 * m['bound_ms'] / m['ms']:.1f}%"
-        + ("" if trace_ms["walk"] is None else
-           f", {trace_ms['walk']:.4f} ms a launch in the trace"))
-    return m
+    rt, st_selected, row_len = args[1], args[7], args[8]
+    R = row_len.shape[0]
+    uniq = lambda t: torch.unique(t).numel()
+    wargs, occ_sa, prg = per_base_lanes(args)
+    valid, item, read_of = wargs[2], wargs[7], wargs[8]
+    visits = []
+    emits, _ = walk.walk_torch(*wargs, visits=visits)
+    nodes, edges, trav = [torch.unique(torch.cat(v)).numel()
+                          for v in zip(*visits)] or [0, 0, 0]
+    e = emits[emits[:, 0] < walk.BIG].to(torch.int64)
+    key, inv = torch.unique(e[:, 0] * rt.n_nodes + e[:, 1],
+                            return_inverse=True)
+    lo = torch.full((key.numel(),), 1 << 30, dtype=torch.int64,
+                    device=e.device).scatter_reduce_(0, inv, e[:, 2], "amin")
+    hi = torch.full((key.numel(),), -1, dtype=torch.int64,
+                    device=e.device).scatter_reduce_(0, inv, e[:, 3], "amax")
+    covs = rt.nt_cov_start[key % rt.n_nodes].to(torch.int64)
+    slots = uniq(torch.cat([covs + lo, covs + hi + 1])[
+        torch.cat([covs, covs]) >= 0])
+    n_sel = int(st_selected.sum())
+    nbytes = (st_selected.numel() + 12 * n_sel
+              + 4 * uniq(occ_sa[valid]) + 8 * uniq(prg[valid])
+              + 4 * uniq(read_of[valid]) + 4 * uniq(item[valid])
+              + 16 * nodes + 4 * edges + 4 * trav
+              + 4 * uniq(e[:, 1]) + 8 * R + 8 * slots)
+    return nbytes, e.shape[0]
 
 
-def check_per_base(call):
-    """The per-base recorder on buffer 1's inputs, once with K9 and once
-    with its twin: the same fallback bits and the same cov_diff."""
+def check_per_base(cfg: SmokeConfig, call, windows, sort_fn):
+    """K9, the whole per-base recorder (csrc/walk.cu's four kernels), on
+    buffer 1's inputs: equal to the plain version (fallback bits and
+    cov_diff) there and on forced cases (emitcap half the emissions,
+    wcap half the lanes, preset fallback rows, max_iter 2); its time by
+    queued CUDA events beside the sort design of the same function
+    (``sort_fn``: the plain version with the cursor walk kernel); its
+    bound; and the device events and time in buffer 2's trace
+    (``windows``: the path's marked call, then the kernels and the sort
+    design on these inputs)."""
     import torch
 
     from gramtools_tpu_torch.mapping import record
     from gramtools_tpu_torch.ops import walk
 
     args, kwargs = call
-    outs = []
-    for fn in (walk.walk_cuda, walk.walk_torch):
-        a = list(args)
-        a[10] = torch.zeros_like(args[10])          # a fresh cov_diff
-        record.walk = fn
-        try:
-            fallback = record._record_per_base_device(*a, **kwargs)
-        finally:
-            record.walk = walk.walk
-        outs.append((fallback, a[10]))
-    (fb_k, cov_k), (fb_t, cov_t) = outs
-    if not (torch.equal(fb_k, fb_t) and torch.equal(cov_k, cov_t)):
-        raise AssertionError("per-base recording with the walk kernel != "
-                             "with its twin (fallback or cov_diff)")
-    say(f"[phase 1d] per-base recording of buffer 1 with K9 and with its "
-        f"twin: fallback bits and cov_diff ({cov_k.numel()} int32, "
-        f"{int((cov_k != 0).sum())} non-zero) equal")
+    assert not kwargs
+    di, rt = args[0], args[1]
+    R = args[8].shape[0]
+
+    fresh = lambda **over: fresh_cov(args, **over)
+
+    def compare(what, a):
+        before = walk.per_base_cuda.launches
+        got = record._record_per_base_device(*a)
+        if walk.per_base_cuda.launches != before + 1:
+            raise AssertionError("the per-base call launched no kernel")
+        b = list(a)
+        b[10] = torch.zeros_like(a[10])
+        want = record._record_per_base_torch(*b)
+        if not (torch.equal(got, want) and torch.equal(a[10], b[10])):
+            raise AssertionError(f"per-base kernels != plain version ({what}:"
+                                 f" fallback {torch.equal(got, want)}, "
+                                 f"cov_diff {torch.equal(a[10], b[10])})")
+        return got, b[10]
+
+    nbytes, n_emit = per_base_bytes(args)
+    fb, cov = compare("path inputs", fresh())
+    if (fb & (256 | 512)).any():
+        raise AssertionError("the path's per-base call spilled")
+    lanes = int(per_base_lanes(args)[0][2].sum())
+    fb_w, _ = compare("wcap half the lanes", fresh(wcap=max(1, lanes // 2)))
+    fb_e, cov_e = compare("emitcap half the emissions",
+                          fresh(emitcap=max(1, n_emit // 2)))
+    preset = torch.where(torch.arange(R, device=fb.device) % 3 == 0, 4, 0
+                         ).to(torch.int32)
+    fb_p, cov_p = compare("preset fallback rows", fresh(fallback=preset))
+    if not ((fb_w & 256).any() and (fb_e & 512).any() and not cov_e.any()
+            and (cov_p != 0).sum() < (cov != 0).sum()):
+        raise AssertionError("a forced per-base case did not take effect")
+    a = fresh()
+    c = dict(sa=di.sa[:di.size], ra_node=rt.ra_node, ra_offset=rt.ra_offset,
+             nt_step=rt.nt_step, nt_edges=rt.nt_edges,
+             nt_cov_start=rt.nt_cov_start, ps_row=a[2], ps_lo=a[3],
+             ps_hi=a[4], ps_trav=a[5], ps_ntrav=a[6], st_selected=a[7],
+             row_len=a[8], fallback=a[9], cov_diff=a[10])
+    fb_i = walk.per_base_cuda(**c, wcap=a[11], emitcap=a[12], max_iter=2)
+    sel_rows = record._flag_rows(R, a[7], a[2])
+    if not (torch.equal(fb_i, a[9] | torch.where(sel_rows, 512, 0).to(
+            torch.int32)) and not a[10].any()):
+        raise AssertionError("per-base kernels at max_iter 2: not a spill")
+
+    a_k, a_s, a_t = fresh(), fresh(), fresh()
+    fb_s = sort_fn(*a_s)
+    if not (torch.equal(fb_s, fb) and torch.equal(a_s[10], cov)):
+        raise AssertionError("the sort design != the kernels")
+    m = {"max_abs_err": 0,
+         "ms": time_ms(lambda: record._record_per_base_device(*a_k),
+                       cfg.timing_runs),
+         "plain_ms": time_ms(lambda: record._record_per_base_torch(*a_t), 3),
+         "library_ms": None, "bound_ms": bound_ms(nbytes)}
+    sort_ms = time_ms(lambda: sort_fn(*a_s), cfg.timing_runs)
+    trace = lambda w: ("not in the trace" if w is None else
+                       f"{w[0]} device events, {w[1]:.4f} ms busy over a "
+                       f"{w[2]:.4f} ms span")
+    share_trace = ("" if windows[1] is None else
+                   f", {100 * m['bound_ms'] / windows[1][1]:.1f}% by trace")
+    say(f"[phase 1d] K9, the whole per-base recorder (csrc/walk.cu, 4 "
+        f"kernels), on buffer 1's inputs ({lanes} lanes, {n_emit} "
+        f"emissions): kernels == plain version (fallback bits and cov_diff,"
+        f" {cov.numel()} int32, {int((cov != 0).sum())} non-zero), and on "
+        f"wcap {max(1, lanes // 2)} (FB_WALK on {int((fb_w != 0).sum())} "
+        f"rows), emitcap {max(1, n_emit // 2)} (FB_EMIT, nothing added), "
+        f"preset fallback rows, max_iter 2 (spill); queued events "
+        f"{m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, the sort design "
+        f"{sort_ms:.4f} ms; buffer 2's trace: the path's call "
+        f"{trace(windows[0])}; on these inputs the kernels "
+        f"{trace(windows[1])}, the sort design {trace(windows[2])}; bound "
+        f"{m['bound_ms']:.4f} ms ({nbytes} bytes): kernels at "
+        f"{100 * m['bound_ms'] / m['ms']:.1f}% of it by events"
+        + share_trace)
+    return m
+
+
+# The earlier walk kernel (one thread a lane, one global atomic cursor,
+# the emissions sorted after it), kept here as a probe only: UNIQUE
+# gives every lane its own cursor word (emissions land in a spread of
+# rows, not a compact prefix), which separates the same-address atomics'
+# share of the time from the dependent loads'. Never on the path.
+CURSOR_WALK_SRC = r"""
+#include <cuda_runtime.h>
+template <bool UNIQUE>
+__global__ void cursor_walk_kernel(
+    int lanes, const unsigned char* __restrict__ valid,
+    const int* __restrict__ cur0, const int* __restrict__ start0,
+    const int* __restrict__ remaining0, const int* __restrict__ trav_idx0,
+    const int* __restrict__ w_item, const int* __restrict__ read_of,
+    const unsigned char* __restrict__ full,
+    const int2* __restrict__ ps_trav, int tcap,
+    const int4* __restrict__ nt_walk, const int* __restrict__ nt_edges,
+    int n_edges, int max_iter, int emitcap, int4* __restrict__ emits,
+    int* __restrict__ cursor, int* __restrict__ overrun) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= lanes || !valid[i]) return;
+  int cur = cur0[i], start = start0[i], remaining = remaining0[i];
+  int trav_idx = trav_idx0[i];
+  const int row = read_of[i];
+  const bool is_full = full[i] != 0;
+  const int2* trav = ps_trav + (size_t)w_item[i] * tcap;
+  int4 wrow = nt_walk[cur];
+  bool first = true;
+  for (int it = 0;; ++it) {
+    if (it >= max_iter) { atomicExch(overrun, 1); return; }
+    bool entry = false;
+    if (!first) {
+      if (remaining <= 0 || wrow.x == 0) return;
+      entry = wrow.x > 1;
+      int choice = 0;
+      if (entry) {
+        --trav_idx;
+        choice = trav[min(max(trav_idx, 0), tcap - 1)].y;
+      }
+      cur = nt_edges[min(max(wrow.w + choice, 0), n_edges - 1)];
+      start = 0;
+      wrow = nt_walk[cur];
+    }
+    const int seq_len = wrow.y;
+    const bool in_bubble = wrow.z > 0;
+    const bool has_seq = seq_len > 0;
+    const int end = has_seq ? min(seq_len - 1, start + remaining - 1) : 0;
+    if (has_seq) remaining -= end - start + 1;
+    if (has_seq && in_bubble) {
+      int slot;
+      if (UNIQUE) {
+        slot = atomicAdd(cursor + 1 + i, 1);
+        slot = (int)(((long long)i * 3 + slot) % emitcap);
+      } else {
+        slot = atomicAdd(cursor, 1);
+      }
+      if (slot < emitcap) emits[slot] = make_int4(row, cur, start, end);
+    }
+    const bool returned = first ? in_bubble : (in_bubble || entry);
+    first = false;
+    if (!is_full && returned) return;
+  }
+}
+extern "C" int cursor_walk(int unique, int lanes, const void* valid,
+                           const void* cur0, const void* start0,
+                           const void* remaining0, const void* trav_idx0,
+                           const void* w_item, const void* read_of,
+                           const void* full, const void* ps_trav, int tcap,
+                           const void* nt_walk, const void* nt_edges,
+                           int n_edges, int max_iter, int emitcap,
+                           void* emits, void* cursor, void* overrun,
+                           void* stream) {
+  if (lanes <= 0) return 0;
+  const int grid = (lanes + 127) / 128;
+  auto kernel = unique ? cursor_walk_kernel<true> : cursor_walk_kernel<false>;
+  kernel<<<grid, 128, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      lanes, (const unsigned char*)valid, (const int*)cur0,
+      (const int*)start0, (const int*)remaining0, (const int*)trav_idx0,
+      (const int*)w_item, (const int*)read_of, (const unsigned char*)full,
+      (const int2*)ps_trav, tcap, (const int4*)nt_walk,
+      (const int*)nt_edges, n_edges, max_iter, emitcap, (int4*)emits,
+      (int*)cursor, (int*)overrun);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def start_probe_build():
+    """Start nvcc on CURSOR_WALK_SRC (into the package's git-ignored build
+    directory); returns (process, library path)."""
+    from gramtools_tpu_torch.ops import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = _build.BUILD_DIR / "cursor_walk_probe.cu"
+    src.write_text(CURSOR_WALK_SRC)
+    lib = _build.BUILD_DIR / "libcursor_walk_probe.so"
+    return subprocess.Popen([_build._nvcc()] + _build.NVCC_FLAGS
+                            + ["-o", str(lib), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True), lib
+
+
+def probe_cursor_walk(cfg: SmokeConfig, probe, walk_args):
+    """The cursor walk kernel on the path's walk inputs, with its one
+    global cursor and with a cursor word per lane: emissions equal to
+    the plain walk's (shared cursor), and both times by queued CUDA
+    events.
+    Returns the shared-cursor kernel as a stand-in for ``walk_torch``
+    (the sort design of the per-base recorder)."""
+    import ctypes
+
+    import torch
+
+    from gramtools_tpu_torch.ops import walk
+
+    proc, path = probe
+    _, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the cursor walk probe:\n{err}")
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.cursor_walk.argtypes = ([i, i] + [p] * 8
+                                + [p, i, p, p, i, i, i, p, p, p, p])
+    lib.cursor_walk.restype = ctypes.c_int
+
+    def run(unique, nt_walk, nt_edges, valid, cur0, start0, remaining0,
+            trav_idx0, w_item, read_of, full, ps_trav, emitcap, max_iter):
+        lanes = cur0.shape[0]
+        emits = torch.full((emitcap, 4), walk.BIG, dtype=torch.int32,
+                           device=cur0.device)
+        counters = torch.zeros(lanes + 2, dtype=torch.int32,
+                               device=cur0.device)
+        err = lib.cursor_walk(
+            unique, lanes, valid.data_ptr(), cur0.data_ptr(),
+            start0.data_ptr(), remaining0.data_ptr(), trav_idx0.data_ptr(),
+            w_item.data_ptr(), read_of.data_ptr(), full.data_ptr(),
+            ps_trav.data_ptr(), ps_trav.shape[1], nt_walk.data_ptr(),
+            nt_edges.data_ptr(), nt_edges.shape[0], max_iter, emitcap,
+            emits.data_ptr(), counters.data_ptr(),
+            counters[lanes + 1:].data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"cursor walk probe launch failed: {err}")
+        return emits, (counters[0] > emitcap) | (counters[lanes + 1] > 0)
+
+    got, _ = run(0, *walk_args)
+    want, _ = walk.walk_torch(*walk_args)
+    rows = lambda e: sorted(map(tuple, e[e[:, 0] < walk.BIG].cpu().tolist()))
+    if rows(got) != rows(want):
+        raise AssertionError("cursor walk probe != the plain walk")
+    ms = {u: time_ms(lambda: run(u, *walk_args), cfg.timing_runs)
+          for u in (0, 1)}
+    emitcap, lanes = walk_args[11], walk_args[3].shape[0]
+    fill = time_ms(lambda: (torch.full((emitcap, 4), walk.BIG,
+                                       dtype=torch.int32, device=got.device),
+                            torch.zeros(lanes + 2, dtype=torch.int32,
+                                        device=got.device)), cfg.timing_runs)
+    say(f"[phase 1d] probe, the cursor walk kernel on buffer 1's walk inputs "
+        f"({len(rows(want))} emissions, equal to the plain walk's): one "
+        f"global cursor {ms[0]:.4f} ms, a cursor word per lane "
+        f"{ms[1]:.4f} ms, queued events, each with its {fill:.4f} ms of "
+        f"buffer fills")
+    return lambda *a: run(0, *a)
 
 
 def phase_fused_parity(cfg: SmokeConfig, idx, kmer_index, reads, device):
@@ -803,7 +1128,7 @@ def _counted():
     from gramtools_tpu_torch.ops import rank, replay, walk
 
     return {"packed_rank": rank.packed_rank, "replay": replay.replay,
-            "walk": walk.walk}
+            "per_base": walk.per_base_cuda}
 
 
 def phase_e2e(cfg: SmokeConfig, work: Path):
@@ -974,19 +1299,21 @@ def phase_mesh(cfg: SmokeConfig, idx, kmer_index, work: Path, device):
     return launches
 
 
-def phase_index_sharded(cfg: SmokeConfig, idx, kmer_index, reads, device):
+def phase_index_sharded(cfg: SmokeConfig, idx, kmer_index, reads, device,
+                        work: Path):
     """Phase 5b: one buffer's scan with the whole index split over 4
     SA-range shards on the card (dense rank), against the replicated
-    scan's flat result."""
+    scan's flat result; then K10, the masked shard gathers, in one scan:
+    their calls, bytes and bound (a counting run) and their device
+    events and time (a traced run, each gather between markers)."""
     import numpy as np
     import torch
 
     from gramtools_tpu_torch.mapping.quasimap import QuasimapStats, ReadBatch
     from gramtools_tpu_torch.mapping.engine import LogBatchedEngine
     from gramtools_tpu_torch.mapping.search_log import log_search_phases
+    from gramtools_tpu_torch.parallel import sharded_index
     from gramtools_tpu_torch.parallel.mesh import Mesh
-    from gramtools_tpu_torch.parallel.sharded_index import \
-        make_index_sharded_log_search
 
     os.environ["GRAMTOOLS_TPU_RANK"] = "dense"
     try:
@@ -999,9 +1326,31 @@ def phase_index_sharded(cfg: SmokeConfig, idx, kmer_index, reads, device):
     (pending, phases, R), carry, reads_T = token[2], token[5], token[6]
     engine_flat = pending.get()
     n_idx = 4
-    sharded = make_index_sharded_log_search(
-        Mesh([device] * n_idx, ("idx",)), engine.di, engine.cfg, R,
-        phases=phases)
+    k10 = {"mode": None, "calls": 0, "bytes": 0}
+    factory = sharded_index._sharded_gather
+
+    def watched(parts, rows_per_shard, lo, hi, home):
+        gather = factory(parts, rows_per_shard, lo, hi, home)
+        row_bytes = parts[0][0][0].numel() * parts[0][0].element_size()
+
+        def run(rows):
+            if k10["mode"] == "count":      # synchronises: not timed
+                k10["calls"] += 1
+                k10["bytes"] += rows.numel() * (rows.element_size()
+                                                + row_bytes) + row_bytes * \
+                    torch.unique(rows.clamp(lo, hi)).numel()
+            if k10["mode"] == "mark":
+                return marked(gather)(rows)
+            return gather(rows)
+        return run
+
+    sharded_index._sharded_gather = watched
+    try:
+        sharded = sharded_index.make_index_sharded_log_search(
+            Mesh([device] * n_idx, ("idx",)), engine.di, engine.cfg, R,
+            phases=phases)
+    finally:
+        sharded_index._sharded_gather = factory
     replicated = lambda rt, c: log_search_phases(engine.di, rt, c, phases, R)
     flats, secs = {}, {}
     for name, run in (("replicated", replicated), ("sharded", sharded),
@@ -1024,6 +1373,24 @@ def phase_index_sharded(cfg: SmokeConfig, idx, kmer_index, reads, device):
         f" (R={R}, {engine_flat.size} int32) equal to the replicated scan's "
         f"and the engine's; scan + fetch, host clock, s: "
         + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
+    args = lambda: (torch.from_numpy(reads_T).to(device),
+                    tuple(torch.from_numpy(a).to(device) for a in carry))
+    k10["mode"] = "count"
+    sharded(*args())
+    k10["mode"] = "mark"
+    a = args()
+    torch.cuda.synchronize()
+    _, _, _, timeline = _profile_device(lambda: sharded(*a), work / "trace_k10")
+    k10["mode"] = None
+    windows = marked_windows(timeline)
+    say(f"[phase 5b] K10 (the masked shard gathers of "
+        f"parallel/sharded_index.py, {n_idx} shards) in one sharded scan: "
+        f"{k10['calls']} gather calls, {k10['bytes']} bytes, bound "
+        f"{bound_ms(k10['bytes']):.4f} ms; traced: {len(windows)} marked "
+        f"gathers, {sum(w[0] for w in windows)} device events, "
+        f"{sum(w[1] for w in windows):.4f} ms device busy (the trace: "
+        f"{len(timeline)} device events, "
+        f"{sum(MARK in n for _, _, n in timeline)} markers)")
 
 
 def phase_pool(work: Path):
@@ -1066,11 +1433,12 @@ def run(cfg: SmokeConfig, device) -> dict:
     from gramtools_tpu_torch.ops import _build, rank, replay, walk
 
     t0 = time.perf_counter()
-    _build.build_all(KERNELS)
+    probe = start_probe_build()
+    _build.build_all(LIBS)
     for mod in (rank, replay, walk):
         mod._kernel_lib()
-    say(f"[phase 0] kernels {', '.join(KERNELS)} built together in "
-        f"{_build.build_seconds[KERNELS[0]]:.2f} s "
+    say(f"[phase 0] csrc/{{{','.join(LIBS)}}}.cu built together in "
+        f"{_build.build_seconds[LIBS[0]]:.2f} s "
         f"({time.perf_counter() - t0:.2f} s with loading)")
     os.environ["GRAMTOOLS_TORCH_DEVICE"] = str(device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1082,7 +1450,7 @@ def run(cfg: SmokeConfig, device) -> dict:
         err, dense = phase_kernel(cfg, idx, device, b_outcomes,
                                   warm_hit_budget(cfg, kmer_index, reads))
         entries = phase_path(cfg, idx, kmer_index, reads, device, work,
-                             dense)
+                             dense, probe)
         entries[0]["max_abs_err"] = max(entries[0]["max_abs_err"], err)
         del dense
         phase_scan(cfg, idx, kmer_index, reads, device)
@@ -1090,7 +1458,7 @@ def run(cfg: SmokeConfig, device) -> dict:
         launches = phase_e2e(cfg, work)
         phase_parity(work)
         mesh_launches = phase_mesh(cfg, idx, kmer_index, work, device)
-        phase_index_sharded(cfg, idx, kmer_index, reads, device)
+        phase_index_sharded(cfg, idx, kmer_index, reads, device, work)
         for entry in entries:
             entry["launches"] = launches[entry["name"]]
             entry["launches_mesh"] = mesh_launches[entry["name"]]

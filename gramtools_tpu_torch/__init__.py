@@ -14,16 +14,16 @@ Ported so far: ``genotype --engine device`` with the fused device
 recorder (the default) and the non-fused one
 (``GRAMTOOLS_TPU_DEVICE_RECORD=0``), on one device, over a mesh of
 devices and with a worker pool. The packed-rank LF gather
-(``GRAMTOOLS_TPU_RANK=packed``), the genealogy replay and the per-base
-walk run as hand-written CUDA kernels (``csrc/``).
+(``GRAMTOOLS_TPU_RANK=packed``), the genealogy replay and the whole
+per-base coverage recorder run as hand-written CUDA kernels (``csrc/``).
 
 Layering (bottom-up):
   common/    codecs, RNG, IO, timers and device trace, explicit device
              choice (GRAMTOOLS_TORCH_DEVICE), the measured workload
   prg/       linearised PRG + coverage graph (structure-of-arrays)
   index/     suffix array, FM/occ tables, kmer index, native helpers
-  ops/       integer prefix sum; packed rank, replay and walk (CUDA
-             kernels + torch twins)
+  ops/       integer prefix sum; packed rank, replay and the per-base
+             recorder (CUDA kernels + plain torch versions)
   mapping/   host search oracle, coverage recording, device index
              tables, scan steps, phase loop, fused recorder, engine,
              quasimap driver

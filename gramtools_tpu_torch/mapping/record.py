@@ -12,7 +12,8 @@ the same device and without a host round trip,
      per read with the mt19937 first draw (``select_and_record_device``);
   3. walk every selected occurrence base by base and add its per-node
      envelopes into the persistent ``cov_diff`` array
-     (``_record_per_base_device``; the walk loop is K9, ops/walk.py).
+     (``_record_per_base_device``, K9: on CUDA the hand kernels of
+     csrc/walk.cu through ops/walk.py, on the CPU the plain version).
 
 Rows that hit a static budget or a rare edge case set a fallback bit
 (``search_log_host.FB_*``) and contribute nothing here; the engine
@@ -24,9 +25,11 @@ bit for bit; what differs, and why:
     slot past the end, and only dump slots take duplicate writes.
   * ``lax.sort(..., num_keys=k)`` becomes stable sorts from the last key
     to the first (``_lexsort``). Where a sort carries non-key operands
-    (the class sort and the emission sort), ties may come out in another
-    order than XLA's; what is read from them (the selected states, the
-    per-(row, node) envelopes) does not depend on that order.
+    (the class sort and the plain version's emission sort), ties may
+    come out in another order than XLA's; what is read from them (the
+    selected states, the per-(row, node) envelopes) does not depend on
+    that order. The CUDA per-base recorder does not sort at all: it
+    folds the emissions into a (row, node) table (ops/walk.py).
   * The uint32 selection pick is done in int64 (every value < 2**32).
   * ``cov_diff`` is updated in place, which stands in for JAX's buffer
     donation.
@@ -44,7 +47,7 @@ from .coverage_fast import SiteMeta
 from .search import PrgIndex
 
 from ..ops.replay import JumpOps, SeedPaths, replay
-from ..ops.walk import BIG, walk
+from ..ops.walk import BIG, per_base_cuda, walk_torch
 from .device_index import _as_i32 as _i32
 from .search_log_host import (FB_CHAIN, FB_CONFLICT, FB_DUP_SITE, FB_EMIT,
                               FB_ENC, FB_KCAP, FB_LOCI, FB_RNG, FB_TRAV,
@@ -55,6 +58,23 @@ I32 = torch.int32
 I64 = torch.int64
 _URNG_RANGE = (1 << 32) - 1
 _PAD = -1            # key padding: sorts before any site marker (>= 5)
+
+
+def step_table(nt_walk: np.ndarray, edges: np.ndarray) -> np.ndarray:
+    """(n_nodes, 8) int32: each node's nt_walk row (n_edges, seq_len,
+    in_bubble, edge_off), then the targets of its out-edges 0 and 1
+    (``edges[edge_off]``, ``edges[edge_off + 1]``; -1 where the node has
+    fewer edges), then two zeros. The CUDA walk reads one 32-byte row a
+    node and goes to the next node without a second load, except at an
+    entry whose allele names an edge past the second."""
+    n_edges, off = nt_walk[:, 0], nt_walk[:, 3]
+    out = np.zeros((nt_walk.shape[0], 8), np.int64)
+    out[:, :4] = nt_walk
+    for k in (0, 1):
+        has = n_edges > k
+        out[:, 4 + k] = -1
+        out[has, 4 + k] = edges[off[has] + k]
+    return out
 
 
 @dataclass
@@ -74,6 +94,10 @@ class RecordTables:
     base_site: torch.Tensor     # (n_sites,) level-1 ancestor marker
     nt_walk: torch.Tensor       # (n_nodes, 4) [n_edges, seq_len,
                                 #  in_bubble, edge_off] per node
+    nt_step: torch.Tensor       # (n_nodes, 8) nt_walk's row, then the
+                                #  targets of edges 0 and 1 (-1 where
+                                #  the node has fewer), 0, 0: the CUDA
+                                #  walk's one load per node (port only)
     cov_size: int               # flat per-base coverage length
     n_nodes: int
     max_anc: int
@@ -98,6 +122,7 @@ class RecordTables:
             anc_allele=_i32(sm.anc_allele, device),
             base_site=_i32(sm.base_site, device),
             nt_walk=_i32(nt_walk, device),
+            nt_step=_i32(step_table(nt_walk, nt.edges), device),
             cov_size=int(g.coverage.size),
             n_nodes=n_nodes,
             max_anc=int(sm.max_depth),
@@ -477,29 +502,71 @@ def select_and_record_device(di, rt: RecordTables,
 def _record_per_base_device(di, rt: RecordTables, ps_row, ps_lo, ps_hi,
                             ps_trav, ps_ntrav, st_selected, row_len,
                             fallback, cov_diff, wcap: int, emitcap: int):
-    """Walk lanes = occurrence expansion of the selected states; the
-    walk's emissions (row, node, start, end) -> one envelope per (row,
-    node) by sorted segment min/max -> +1/-1 boundary adds into
-    ``cov_diff`` (in place). Returns fallback with its additions."""
-    dev = ps_row.device
+    """Per-base coverage of the selected states (K9): adds their +1/-1
+    envelope boundaries into ``cov_diff`` in place and returns fallback
+    with its additions (FB_WALK, FB_EMIT). CUDA tensors run the hand
+    kernels (ops/walk.py::per_base_cuda, csrc/walk.cu), CPU tensors the
+    plain version (``_record_per_base_torch``); the two are the same
+    function."""
+    if ps_row.device.type == "cuda":
+        return per_base_cuda(
+            di.sa[:di.size], rt.ra_node, rt.ra_offset, rt.nt_step,
+            rt.nt_edges, rt.nt_cov_start, ps_row, ps_lo, ps_hi, ps_trav,
+            ps_ntrav, st_selected, row_len, fallback, cov_diff, wcap,
+            emitcap, rt.n_nodes + 2)
+    if ps_row.device.type == "cpu":
+        return _record_per_base_torch(di, rt, ps_row, ps_lo, ps_hi, ps_trav,
+                                      ps_ntrav, st_selected, row_len,
+                                      fallback, cov_diff, wcap, emitcap)
+    raise ValueError(f"per-base recorder: unsupported device {ps_row.device}")
+
+
+def _record_per_base_torch(di, rt: RecordTables, ps_row, ps_lo, ps_hi,
+                           ps_trav, ps_ntrav, st_selected, row_len,
+                           fallback, cov_diff, wcap: int, emitcap: int):
+    """The plain version: walk lanes = occurrence expansion of the
+    selected states; the walk's emissions (row, node, start, end) -> one
+    envelope per (row, node) by sorted segment min/max -> +1/-1 boundary
+    adds into ``cov_diff`` (in place). Returns fallback with its
+    additions."""
     R = row_len.shape[0]
-    w = torch.where(st_selected, ps_hi - ps_lo + 1, 0)
-    w_item, w_off, w_valid, w_spill = _expand_budget(w, wcap)
+    lanes, w_spill = _walk_lanes(di, rt, ps_row, ps_lo, ps_hi, ps_ntrav,
+                                 st_selected, row_len, wcap)
     fallback = fallback | _flag_rows_bit(R, w_spill, ps_row, FB_WALK)
-
-    occ_sa = (ps_lo[w_item] + w_off).clamp(0, di.size - 1)
-    prg_pos = di.sa[occ_sa].clamp(0, rt.ra_node.shape[0] - 1)
-    read_of = ps_row[w_item].clamp(0, R - 1)
-    emits, spill = walk(
-        rt.nt_walk, rt.nt_edges, w_valid, rt.ra_node[prg_pos],
-        rt.ra_offset[prg_pos], row_len[read_of].to(I32),
-        ps_ntrav[w_item].to(I32), w_item, read_of, w_off == 0,
-        ps_trav, emitcap, rt.n_nodes + 2)
-
+    emits, spill = walk_torch(rt.nt_walk, rt.nt_edges, *lanes, ps_trav,
+                              emitcap, rt.n_nodes + 2)
     # emission spill: every read with a selected state falls back
     sel_rows = _flag_rows(R, st_selected, ps_row)
     fallback = fallback | _bit_where(spill & sel_rows, FB_EMIT)
+    _add_envelopes(rt, emits, fallback, cov_diff)
+    return fallback
 
+
+def _walk_lanes(di, rt: RecordTables, ps_row, ps_lo, ps_hi, ps_ntrav,
+                st_selected, row_len, wcap: int):
+    """The selected states' SA occurrences expanded into ``wcap`` walk
+    lanes. Returns (walk_torch's lane inputs (valid, cur0, start0,
+    remaining0, trav_idx0, w_item, read_of, full), spilled (NS,): the
+    state had occurrences past wcap)."""
+    R = row_len.shape[0]
+    w = torch.where(st_selected, ps_hi - ps_lo + 1, 0)
+    w_item, w_off, w_valid, w_spill = _expand_budget(w, wcap)
+    occ_sa = (ps_lo[w_item] + w_off).clamp(0, di.size - 1)
+    prg_pos = di.sa[occ_sa].clamp(0, rt.ra_node.shape[0] - 1)
+    read_of = ps_row[w_item].clamp(0, R - 1)
+    return (w_valid, rt.ra_node[prg_pos], rt.ra_offset[prg_pos],
+            row_len[read_of].to(I32), ps_ntrav[w_item].to(I32), w_item,
+            read_of, w_off == 0), w_spill
+
+
+def _add_envelopes(rt: RecordTables, emits, fallback, cov_diff):
+    """Sort the (emitcap, 4) emissions by (row, node), take each group's
+    min start and max end, and add +1/-1 at its boundaries into
+    ``cov_diff`` where the row has no fallback bit and the node has
+    coverage."""
+    dev = emits.device
+    R = fallback.shape[0]
+    emitcap = emits.shape[0]
     k_row, k_node, s_s, en_s = _lexsort([emits[:, 0], emits[:, 1]],
                                         emits[:, 2], emits[:, 3])
     valid_e = k_row < BIG
@@ -522,4 +589,3 @@ def _record_per_base_device(di, rt: RecordTables, ps_row, ps_lo, ps_hi,
                                        ).to(I64), ones)
     cov_diff.index_add_(0, torch.where(keep, covs + seg_max + 1, rt.cov_size
                                        ).to(I64), -ones)
-    return fallback

@@ -1,30 +1,31 @@
-"""Per-base walk (K9): the CUDA kernel and its plain torch twin.
+"""Per-base coverage recorder (K9): the CUDA kernels' wrapper and the
+plain walk.
 
-Port of the walk loop of gramtools_tpu/mapping/record_jax.py::
-_record_per_base_device (``make_body`` under ``lax.while_loop``; on the
-TPU it is XLA-lowered jnp, not Pallas). Each walk lane is one selected
-state's SA occurrence: it starts at (node cur0, offset start0) with
-``remaining0`` read bases left and walks the coverage graph, taking the
-edge its traversed allele names at each bubble entry (``trav_idx``
-counts down the state's path ``ps_trav[w_item]``), until the read is
-used up, the graph ends, or a partial occurrence (``full`` false) leaves
-the bubble it started in. Every in-bubble node it covers emits
-``(row, node, start, end)``.
+Port of gramtools_tpu/mapping/record_jax.py::_record_per_base_device
+(XLA-lowered jnp on the TPU, not Pallas): each selected state's SA
+occurrences become walk lanes; a lane starts at (node cur0, offset
+start0) with ``remaining0`` read bases left and walks the coverage
+graph, taking the edge its traversed allele names at each bubble entry
+(``trav_idx`` counts down the state's path ``ps_trav[w_item]``), until
+the read is used up, the graph ends, or a partial occurrence (``full``
+false) leaves the bubble it started in. Every in-bubble node it covers
+emits ``(row, node, start, end)``; one envelope per (row, node) goes
+into ``cov_diff`` as +1/-1 boundaries.
 
-Returns ``(emits (emitcap, 4) int32, spill () bool)``. Unfilled rows
-hold ``(2**30, 0, 0, 0)``. ``spill`` is set when the lanes emitted more
-than ``emitcap`` rows (the rows past it are dropped) or a lane outran
-``max_iter`` iterations, which a walk over the acyclic coverage graph
-cannot do (it moves one node an iteration); the caller then flags
-every selected row. The emission ORDER is not part of the contract: the
-twin emits in the jnp code's order, the kernel in atomic-cursor order,
-and the caller's stable (row, node) sort and segment min/max envelope
-do not depend on it.
+``walk_torch`` is the plain walk loop; with the expansion and the
+sorted envelope around it (mapping/record.py::_record_per_base_torch)
+it is the plain version of the whole function, which CPU tensors take.
+``per_base_cuda`` runs the whole function on CUDA tensors in the four
+kernels of ``csrc/walk.cu`` (expansion, walk, hash-table envelope and
+adds; no sort), with no host synchronisation, and counts its calls in
+``per_base_cuda.launches``.
 
-``walk`` routes by device: CPU tensors take the twin (a Python
-``while any(active)`` loop), CUDA tensors launch ``csrc/walk.cu``, one
-thread per lane, with no host synchronisation. ``walk.launches`` counts
-kernel launches.
+``walk_torch`` returns ``(emits (emitcap, 4) int32, spill () bool)``.
+Unfilled rows hold ``(2**30, 0, 0, 0)``. ``spill`` is set when the lanes
+emitted more than ``emitcap`` rows (the rows past it are dropped) or a
+lane outran ``max_iter`` iterations, which a walk over the acyclic
+coverage graph cannot do (it moves one node an iteration); the caller
+then flags every selected row.
 """
 from __future__ import annotations
 
@@ -118,95 +119,108 @@ def walk_torch(nt_walk, nt_edges, valid, cur0, start0, remaining0,
 
 
 # --------------------------------------------------------------------------
-# the kernel's wrapper
+# the kernels' wrapper
 # --------------------------------------------------------------------------
 
 def _kernel_lib() -> ctypes.CDLL:
     from . import _build
 
     lib = _build.load("walk")
-    if lib.walk.argtypes is None:
+    if lib.per_base.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.walk.argtypes = ([i, p, p, p, p, p, p, p, p]   # lanes
-                             + [p, i]                      # ps_trav
-                             + [p, p, i, i]                # graph, max_iter
-                             + [i, p, p, p, p])            # outputs, stream
-        lib.walk.restype = ctypes.c_int
+        lib.per_base.argtypes = ([i, p, p, p, p, p, p, i]   # states
+                                 + [p, i, p, p, i]          # sa, ra_*
+                                 + [p, i, p]                # rows
+                                 + [p, p, i, p, i, p]       # graph, cov
+                                 + [i, i, i]                # wcap ..
+                                 + [p, p, p, p, i, p, p])   # scratch
+        lib.per_base.restype = ctypes.c_int
     return lib
 
 
-def _check(name, t, dtype, shape):
-    if t.dtype != dtype:
-        raise TypeError(f"walk_cuda: {name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"walk_cuda: {name} must have shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-
-
-def walk_cuda(nt_walk, nt_edges, valid, cur0, start0, remaining0,
-              trav_idx0, w_item, read_of, full, ps_trav, emitcap: int,
-              max_iter: int):
-    """Launch csrc/walk.cu on PyTorch's current stream. Raises on what
-    the kernel does not take; does not synchronise. Strided inputs are
-    made contiguous first."""
-    (nt_walk, nt_edges, valid, cur0, start0, remaining0, trav_idx0, w_item,
-     read_of, full, ps_trav) = tensors = tuple(
-        t.contiguous() for t in (nt_walk, nt_edges, valid, cur0, start0,
-                                 remaining0, trav_idx0, w_item, read_of,
-                                 full, ps_trav))
-    dev = cur0.device
+def per_base_cuda(sa, ra_node, ra_offset, nt_step, nt_edges, nt_cov_start,
+                  ps_row, ps_lo, ps_hi, ps_trav, ps_ntrav, st_selected,
+                  row_len, fallback, cov_diff, wcap: int, emitcap: int,
+                  max_iter: int):
+    """The whole per-base recorder on PyTorch's current stream
+    (csrc/walk.cu): states (NS,) and their paths ps_trav (NS, tcap, 2),
+    rows (R,), the graph tables (``nt_step``: RecordTables.nt_step).
+    Adds into ``cov_diff`` in place and returns the new fallback (R,)
+    int32; the input fallback is left as it is. Raises on what the
+    kernels do not take or a failed launch; does not synchronise."""
+    tensors = (sa, ra_node, ra_offset, nt_step, nt_edges, nt_cov_start,
+               ps_row, ps_lo, ps_hi, ps_trav, ps_ntrav, st_selected,
+               row_len, fallback, cov_diff)
+    dev = ps_row.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError("walk_cuda: every input must be on one CUDA "
+        raise ValueError("per_base_cuda: every input must be on one CUDA "
                          f"device, got {sorted({str(t.device) for t in tensors})}")
-    lanes = cur0.shape[0]
-    for name, t in (("cur0", cur0), ("start0", start0),
-                    ("remaining0", remaining0), ("trav_idx0", trav_idx0),
-                    ("w_item", w_item), ("read_of", read_of)):
-        _check(name, t, I32, (lanes,))
-    _check("valid", valid, torch.bool, (lanes,))
-    _check("full", full, torch.bool, (lanes,))
-    if nt_walk.dim() != 2 or nt_walk.shape[1] != 4:
-        raise ValueError("walk_cuda: nt_walk must be (n_nodes, 4)")
-    _check("nt_walk", nt_walk, I32, tuple(nt_walk.shape))
-    if nt_edges.dim() != 1 or nt_edges.shape[0] < 1:
-        raise ValueError("walk_cuda: nt_edges must be 1-D and non-empty")
-    _check("nt_edges", nt_edges, I32, tuple(nt_edges.shape))
-    if ps_trav.dim() != 3 or ps_trav.shape[2] != 2 or ps_trav.shape[0] < 1:
-        raise ValueError("walk_cuda: ps_trav must be (n_states >= 1, tcap, 2)")
-    _check("ps_trav", ps_trav, I32, tuple(ps_trav.shape))
-    if emitcap < 1:
-        raise ValueError("walk_cuda: emitcap must be >= 1")
-    emits = _empty_emits(emitcap, dev)
-    counters = torch.zeros(2, dtype=I32, device=dev)   # cursor, overrun
-    if lanes:
-        lib = _kernel_lib()
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.walk(
-            lanes, valid.data_ptr(), cur0.data_ptr(), start0.data_ptr(),
-            remaining0.data_ptr(), trav_idx0.data_ptr(), w_item.data_ptr(),
-            read_of.data_ptr(), full.data_ptr(),
-            ps_trav.data_ptr(), ps_trav.shape[1],
-            nt_walk.data_ptr(), nt_edges.data_ptr(), nt_edges.shape[0],
-            max_iter, emitcap, emits.data_ptr(), counters.data_ptr(),
-            counters[1:].data_ptr(), stream)
-        if err != 0:
-            raise RuntimeError(f"walk kernel launch failed: CUDA error {err}")
-        walk.launches += 1
-    spill = (counters[0] > emitcap) | (counters[1] > 0)
-    return emits, spill
+    if st_selected.dtype != torch.bool:
+        raise TypeError("per_base_cuda: st_selected must be torch.bool, "
+                        f"got {st_selected.dtype}")
+    for name, t in zip(("sa", "ra_node", "ra_offset", "nt_step", "nt_edges",
+                        "nt_cov_start", "ps_row", "ps_lo", "ps_hi", "ps_trav",
+                        "ps_ntrav", "row_len", "fallback", "cov_diff"),
+                       tensors[:11] + tensors[12:]):
+        if t.dtype != I32:
+            raise TypeError(f"per_base_cuda: {name} must be {I32}, got "
+                            f"{t.dtype}")
+    NS, R = ps_row.shape[0], row_len.shape[0]
+    n_nodes = nt_step.shape[0]
+    shapes = {"ps_row": (ps_row, (NS,)), "ps_lo": (ps_lo, (NS,)),
+              "ps_hi": (ps_hi, (NS,)), "ps_ntrav": (ps_ntrav, (NS,)),
+              "st_selected": (st_selected, (NS,)),
+              "ps_trav": (ps_trav, (NS, ps_trav.shape[1] if ps_trav.dim() == 3
+                                    else -1, 2)),
+              "row_len": (row_len, (R,)), "fallback": (fallback, (R,)),
+              "nt_step": (nt_step, (n_nodes, 8)),
+              "nt_cov_start": (nt_cov_start, (n_nodes,)),
+              "ra_offset": (ra_offset, tuple(ra_node.shape))}
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"per_base_cuda: {name} must have shape {shape},"
+                             f" got {tuple(t.shape)}")
+    for name, t in (("sa", sa), ("ra_node", ra_node), ("nt_edges", nt_edges),
+                    ("cov_diff", cov_diff)):
+        if t.dim() != 1 or t.shape[0] < 1:
+            raise ValueError(f"per_base_cuda: {name} must be 1-D and "
+                             "non-empty")
+    if min(NS, R, n_nodes, ps_trav.shape[1]) < 1:
+        raise ValueError("per_base_cuda: needs a state, a row, a node and "
+                         "a path slot")
+    if min(wcap, emitcap, max_iter) < 1 or emitcap >= 1 << 29:
+        raise ValueError("per_base_cuda: wcap, emitcap and max_iter must "
+                         "be >= 1, emitcap < 2**29")
+    if not cov_diff.is_contiguous():
+        raise ValueError("per_base_cuda: cov_diff is added into in place "
+                         "and must be contiguous")
+    (sa, ra_node, ra_offset, nt_step, nt_edges, nt_cov_start, ps_row, ps_lo,
+     ps_hi, ps_trav, ps_ntrav, st_selected, row_len, fallback) = (
+        t.contiguous() for t in tensors[:14])
+    lib = _kernel_lib()
+    # the (row, node) envelope table: the power of two at or above
+    # 2 * emitcap (at most emitcap emissions go in, so a probe always
+    # finds room and the table is at most half full)
+    slots = 1 << max(1, (2 * emitcap - 1).bit_length())
+    fb_out = torch.empty(R, dtype=I32, device=dev)
+    cum = torch.empty(NS, dtype=I32, device=dev)
+    tile_sum = torch.empty(-(-NS // 1024), dtype=I32, device=dev)
+    table = torch.empty((slots, 4), dtype=I32, device=dev)
+    counters = torch.empty(2, dtype=I32, device=dev)
+    err = lib.per_base(
+        NS, st_selected.data_ptr(), ps_lo.data_ptr(), ps_hi.data_ptr(),
+        ps_row.data_ptr(), ps_ntrav.data_ptr(), ps_trav.data_ptr(),
+        ps_trav.shape[1], sa.data_ptr(), sa.shape[0], ra_node.data_ptr(),
+        ra_offset.data_ptr(), ra_node.shape[0], row_len.data_ptr(), R,
+        fallback.data_ptr(), nt_step.data_ptr(), nt_edges.data_ptr(),
+        nt_edges.shape[0], nt_cov_start.data_ptr(), cov_diff.shape[0],
+        cov_diff.data_ptr(), wcap, emitcap, max_iter, fb_out.data_ptr(),
+        cum.data_ptr(), tile_sum.data_ptr(), table.data_ptr(), slots,
+        counters.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"per-base kernel launch failed: CUDA error {err}")
+    per_base_cuda.launches += 1
+    return fb_out
 
 
-def walk(nt_walk, nt_edges, valid, cur0, start0, remaining0, trav_idx0,
-         w_item, read_of, full, ps_trav, emitcap: int, max_iter: int):
-    """CPU tensors take the plain twin; CUDA tensors launch the kernel
-    or raise."""
-    args = (nt_walk, nt_edges, valid, cur0, start0, remaining0, trav_idx0,
-            w_item, read_of, full, ps_trav, emitcap, max_iter)
-    if cur0.device.type == "cpu":
-        return walk_torch(*args)
-    if cur0.device.type == "cuda":
-        return walk_cuda(*args)
-    raise ValueError(f"walk: unsupported device {cur0.device}")
-
-
-walk.launches = 0
+per_base_cuda.launches = 0

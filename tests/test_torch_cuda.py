@@ -1,5 +1,6 @@
-"""The port on a CUDA device: the packed-rank (K1), genealogy-replay
-(K7) and per-base walk (K9) kernels against their plain torch twins,
+"""The port on a CUDA device: the packed-rank (K1) and genealogy-replay
+(K7) kernels and the per-base recorder's kernels (K9) against their
+plain torch versions,
 the scan and the fused record program on CUDA against the CPU, the
 engine against the host oracle, the mesh engine and the index-sharded
 scan on one card and, where the machine has two cards or more, across
@@ -13,6 +14,7 @@ there on its own:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -31,11 +33,14 @@ from gramtools_tpu_torch.mapping.search import search_read_backwards
 from gramtools_tpu_torch.prg.linearise import PrgString, prg_string_to_ints
 from gramtools_tpu_torch.mapping import engine as engine_mod
 from gramtools_tpu_torch.mapping.device_index import DeviceIndex
-from gramtools_tpu_torch.mapping.engine import LogBatchedEngine
+from gramtools_tpu_torch.mapping import record
+from gramtools_tpu_torch.mapping.engine import LogBatchedEngine, _to_device
 from gramtools_tpu_torch.mapping.record import RecordTables, SeedTables
 from gramtools_tpu_torch.mapping.search_log import (log_search_packed,
                                                     log_search_record)
-from gramtools_tpu_torch.mapping.search_log_host import TCAP, LogConfig
+from gramtools_tpu_torch.mapping.search_log_host import (FB_EMIT, FB_WALK,
+                                                         TCAP, LogConfig,
+                                                         buffer_caps)
 from gramtools_tpu_torch.ops import rank, replay, walk
 
 pytestmark = pytest.mark.cuda
@@ -173,7 +178,7 @@ def test_cuda_device_from_environment(cuda, monkeypatch):
 
 
 # --------------------------------------------------------------------------
-# K7 (replay) and K9 (walk)
+# K7 (replay) and K9 (the per-base recorder)
 # --------------------------------------------------------------------------
 
 def _replay_inputs(rng, N, L, n_states, n_ev, n_ops, max_path, device):
@@ -231,44 +236,142 @@ def test_replay_kernel_matches_twin(cuda, N, L, max_chain, tcap):
     assert want[4].any()                  # some chains or paths overran
 
 
-def _walk_inputs(rng, rt, lanes, n_items, device):
-    i32 = lambda a: torch.from_numpy(np.asarray(a, dtype=np.int32)).to(device)
-    return dict(
-        nt_walk=rt.nt_walk.to(device), nt_edges=rt.nt_edges.to(device),
-        valid=torch.from_numpy(rng.rand(lanes) < 0.9).to(device),
-        cur0=i32(rng.randint(0, rt.n_nodes, lanes)),
-        start0=i32(np.zeros(lanes)),
-        remaining0=i32(rng.randint(1, 150, lanes)),
-        trav_idx0=i32(rng.randint(0, 6, lanes)),
-        w_item=i32(rng.randint(0, n_items, lanes)),
-        read_of=i32(rng.randint(0, 1000, lanes)),
-        full=torch.from_numpy(rng.rand(lanes) < 0.7).to(device),
-        ps_trav=i32(rng.randint(0, 2, (n_items, TCAP, 2))))
+def _per_base_case(seed, n_states, width, R, allele_max=1):
+    """Random but well-formed per-base recorder inputs on the CPU, on a
+    site graph: n_states states with SA intervals of 1..width rows, half
+    of them selected, on random rows; paths of up to TCAP loci with
+    alleles 0..allele_max (past 1 the walk reads nt_edges); reads of
+    1..150 bases. Returns (di, rt, per-base arguments without the caps)."""
+    idx = _idx(genome_len=20_000, num_sites=400)
+    rt = RecordTables.build(idx, "cpu")
+    rng = np.random.RandomState(seed)
+    n = idx.fm.size
+    i32 = lambda a: torch.from_numpy(np.asarray(a, dtype=np.int32))
+    lo = rng.randint(0, n, n_states)
+    hi = np.minimum(lo + rng.randint(0, width, n_states), n - 1)
+    di = SimpleNamespace(sa=i32(idx.fm.sa), size=n)
+    args = [i32(rng.randint(0, R, n_states)), i32(lo), i32(hi),
+            i32(rng.randint(0, allele_max + 1, (n_states, TCAP, 2))),
+            i32(rng.randint(0, TCAP + 1, n_states)),
+            torch.from_numpy(rng.rand(n_states) < 0.5),
+            i32(rng.randint(1, 151, R)), i32(np.zeros(R)),
+            i32(rng.randint(-3, 4, rt.cov_size + 1))]
+    return di, rt, args
 
 
-@pytest.mark.parametrize("lanes,emitcap", [(1, 16), (500, 8192),
-                                           (24_576, 98_304), (2000, 64)])
-def test_walk_kernel_matches_twin(cuda, lanes, emitcap):
-    rt = RecordTables.build(_idx(genome_len=20_000, num_sites=400), "cpu")
-    rng = np.random.RandomState(lanes)
-    args = _walk_inputs(rng, rt, lanes, 64, "cpu")
-    before = walk.walk.launches
-    got, spill = walk.walk(**{k: v.to(cuda) for k, v in args.items()},
-                           emitcap=emitcap, max_iter=rt.n_nodes + 2)
+def _emissions(di, rt, args, wcap):
+    """How many emissions the plain walk makes on these inputs."""
+    ps_row, ps_lo, ps_hi, ps_trav, ps_ntrav, sel, row_len = args[:7]
+    lanes, _ = record._walk_lanes(di, rt, ps_row, ps_lo, ps_hi, ps_ntrav, sel,
+                                  row_len, wcap)
+    emits, _ = walk.walk_torch(rt.nt_walk, rt.nt_edges, *lanes, ps_trav,
+                               1 << 22, rt.n_nodes + 2)
+    return int((emits[:, 0] < walk.BIG).sum())
+
+
+@pytest.mark.parametrize("case", ["one_lane", "lanes500", "wcap_spill",
+                                  "emit_spill", "fallback_preset",
+                                  "allele2"])
+def test_per_base_kernels_match_plain(cuda, case):
+    """The whole per-base recorder on CUDA (csrc/walk.cu) against its
+    plain version on the CPU: fallback and cov_diff bit for bit, from
+    one lane to past wcap (24,576 lanes at R = 30,720), with emission
+    spill, wcap spill and preset fallback rows."""
+    n_states, width, R, allele_max = {
+        "one_lane": (1, 1, 1, 1), "lanes500": (500, 2, 300, 1),
+        "wcap_spill": (16_000, 6, 30_720, 1), "emit_spill": (2000, 3, 1000, 1),
+        "fallback_preset": (2000, 3, 1000, 1), "allele2": (2000, 3, 1000, 2),
+        }[case]
+    di, rt, args = _per_base_case(len(case), n_states, width, R, allele_max)
+    _, _, wcap, emitcap, _ = buffer_caps(R)
+    if case == "one_lane":
+        args[5][:] = True
+    if case == "emit_spill":
+        emitcap = max(1, _emissions(di, rt, args, wcap) // 2)
+    if case == "fallback_preset":
+        args[7][::3] = 4
+    want_cov = args[8].clone()
+    want_fb = record._record_per_base_device(di, rt, *args[:8], want_cov,
+                                             wcap, emitcap)
+    got_cov = args[8].to(cuda)
+    before = walk.per_base_cuda.launches
+    got_fb = record._record_per_base_device(
+        SimpleNamespace(sa=di.sa.to(cuda), size=di.size),
+        _to_device(rt, cuda), *(a.to(cuda) for a in args[:8]), got_cov,
+        wcap, emitcap)
     torch.cuda.synchronize()
-    assert walk.walk.launches == before + 1
-    want, want_spill = walk.walk_torch(**args, emitcap=emitcap,
-                                       max_iter=rt.n_nodes + 2)
-    assert bool(spill) == bool(want_spill)
-    if not bool(want_spill):
-        # emission order is the atomics'; the multiset is the contract
-        key = lambda e: sorted(map(tuple, e.cpu().numpy().tolist()))
-        assert key(got) == key(want)
-    else:
-        assert int((got[:, 0] < walk.BIG).sum()) == emitcap
+    assert walk.per_base_cuda.launches == before + 1
+    assert torch.equal(got_fb.cpu(), want_fb)
+    assert torch.equal(got_cov.cpu(), want_cov)
+    bits = {"wcap_spill": FB_WALK, "emit_spill": FB_EMIT}.get(case)
+    if bits:
+        assert ((want_fb & bits) != 0).any()
+    elif case != "one_lane":
+        assert not torch.equal(want_cov, args[8])     # coverage was added
 
 
-def test_replay_and_walk_wrappers_check_inputs(cuda):
+def test_per_base_kernel_max_iter_overrun(cuda):
+    """A lane past max_iter spills: every row with a selected state
+    takes FB_EMIT and cov_diff is left as it was."""
+    di, rt, args = _per_base_case(5, 500, 3, 300)
+    sel_rows = record._flag_rows(300, args[5], args[0])
+    c = {k: v.to(cuda) for k, v in _per_base_tensors(di, rt, args).items()}
+    cov = c["cov_diff"].clone()
+    fb = walk.per_base_cuda(**c, wcap=8192, emitcap=32_768, max_iter=2)
+    torch.cuda.synchronize()
+    assert torch.equal(fb.cpu(), torch.where(sel_rows, FB_EMIT, 0).to(
+        torch.int32))
+    assert torch.equal(c["cov_diff"], cov)
+
+
+def _per_base_tensors(di, rt, args):
+    names = ("ps_row", "ps_lo", "ps_hi", "ps_trav", "ps_ntrav",
+             "st_selected", "row_len", "fallback", "cov_diff")
+    return dict(sa=di.sa, ra_node=rt.ra_node, ra_offset=rt.ra_offset,
+                nt_step=rt.nt_step, nt_edges=rt.nt_edges,
+                nt_cov_start=rt.nt_cov_start, **dict(zip(names, args)))
+
+
+def test_per_base_wrapper_checks_inputs(cuda):
+    di, rt, args = _per_base_case(6, 64, 2, 40)
+    c = {k: v.to(cuda) for k, v in _per_base_tensors(di, rt, args).items()}
+    caps = dict(wcap=8192, emitcap=64, max_iter=99)
+    with pytest.raises(TypeError):
+        walk.per_base_cuda(**dict(c, ps_lo=c["ps_lo"].long()), **caps)
+    with pytest.raises(TypeError):
+        walk.per_base_cuda(**dict(c, st_selected=c["st_selected"].int()),
+                           **caps)
+    with pytest.raises(ValueError):
+        walk.per_base_cuda(**dict(c, ps_hi=c["ps_hi"][:-1]), **caps)
+    with pytest.raises(ValueError):
+        walk.per_base_cuda(**dict(c, nt_step=c["nt_step"][:, :4]), **caps)
+    with pytest.raises(ValueError):          # mixed devices
+        walk.per_base_cuda(**dict(c, fallback=c["fallback"].cpu()), **caps)
+    with pytest.raises(ValueError):          # added into in place
+        walk.per_base_cuda(**dict(c, cov_diff=c["cov_diff"][::2]), **caps)
+    with pytest.raises(ValueError):
+        walk.per_base_cuda(**c, wcap=8192, emitcap=0, max_iter=99)
+
+
+def test_per_base_does_not_synchronise(cuda):
+    """The per-base recorder on CUDA enqueues its kernels without a host
+    synchronisation."""
+    di, rt, args = _per_base_case(7, 2000, 3, 1000)
+    di_c = SimpleNamespace(sa=di.sa.to(cuda), size=di.size)
+    rt_c = _to_device(rt, cuda)
+    a = [x.to(cuda) for x in args]
+    record._record_per_base_device(di_c, rt_c, *a, 8192, 32_768)   # loads
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fb = record._record_per_base_device(di_c, rt_c, *a, 8192, 32_768)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert fb.shape == (1000,)
+
+
+def test_replay_wrapper_checks_inputs(cuda):
     rng = np.random.RandomState(0)
     args = _on(cuda, _replay_inputs(rng, 64, 100, 10, 8, 2, 4, "cpu"))
     with pytest.raises(TypeError):
@@ -279,16 +382,6 @@ def test_replay_and_walk_wrappers_check_inputs(cuda):
     with pytest.raises(ValueError):          # mixed devices
         replay.replay_cuda(args[0], args[1].cpu(), *args[2:], max_chain=32,
                            tcap=TCAP)
-    rt = RecordTables.build(_idx(), "cpu")
-    w = {k: v.to(cuda) for k, v in _walk_inputs(rng, rt, 32, 4, "cpu").items()}
-    with pytest.raises(TypeError):
-        walk.walk(**dict(w, cur0=w["cur0"].long()), emitcap=64, max_iter=99)
-    with pytest.raises(ValueError):
-        walk.walk(**dict(w, start0=w["start0"][:-1]), emitcap=64,
-                  max_iter=99)
-    with pytest.raises(ValueError):
-        walk.walk_cuda(**dict(w, ps_trav=w["ps_trav"].cpu()), emitcap=64,
-                       max_iter=99)
 
 
 # --------------------------------------------------------------------------
@@ -365,12 +458,12 @@ def test_fused_engine_on_cuda_matches_host_engine(cuda, monkeypatch,
     engine = LogBatchedEngine(idx_d, k, LogConfig(pool=4096, hits=16),
                               device=cuda)
     before = (rank.packed_rank.launches, replay.replay.launches,
-              walk.walk.launches)
+              walk.per_base_cuda.launches)
     stats_d, cov_d = quasimap_reads(
         [str(fq)], build_kmer_index_vectorised(idx_d, k), idx_d, k, seed=1,
         engine=engine, buffer_size=100)
     after = (rank.packed_rank.launches, replay.replay.launches,
-             walk.walk.launches)
+             walk.per_base_cuda.launches)
     assert all(a > b for a, b in zip(after, before)), (before, after)
     assert engine.device_mapped > 0 and engine.device_retried > 0
     idx_h = _haplotype_reads(np.random.RandomState(4), 400)[0]
@@ -430,10 +523,10 @@ def test_mesh_engine_on_cuda_matches_cpu_mesh(cuda, monkeypatch, tmp_path):
     monkeypatch.setenv("GRAMTOOLS_TPU_RANK", "packed")
     monkeypatch.setenv("GRAMTOOLS_TPU_RETRY_MIN", "1")
     before = (rank.packed_rank.launches, replay.replay.launches,
-              walk.walk.launches)
+              walk.per_base_cuda.launches)
     got = _mesh_quasimap([cuda, cuda], tmp_path, "cuda")
     after = (rank.packed_rank.launches, replay.replay.launches,
-             walk.walk.launches)
+             walk.per_base_cuda.launches)
     assert all(a > b for a, b in zip(after, before)), (before, after)
     want = _mesh_quasimap(["cpu", "cpu"], tmp_path, "cpu")
     assert got[0].as_dict() == want[0].as_dict()
@@ -521,10 +614,10 @@ def test_mesh_engine_across_cards_matches_one_card(cuda, monkeypatch,
     monkeypatch.setenv("GRAMTOOLS_TPU_RANK", "packed")
     monkeypatch.setenv("GRAMTOOLS_TPU_RETRY_MIN", "1")
     before = (rank.packed_rank.launches, replay.replay.launches,
-              walk.walk.launches)
+              walk.per_base_cuda.launches)
     got = _mesh_quasimap(cards, tmp_path, "cards")
     after = (rank.packed_rank.launches, replay.replay.launches,
-             walk.walk.launches)
+             walk.per_base_cuda.launches)
     assert all(a > b for a, b in zip(after, before)), (before, after)
     want = _mesh_quasimap([cuda], tmp_path, "one")
     assert got[0].as_dict() == want[0].as_dict()

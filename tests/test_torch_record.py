@@ -375,7 +375,7 @@ def test_walk_emissions_do_not_depend_on_lane_order(site_case):
     perm = torch.from_numpy(rng.permutation(lanes))
     runs = []
     for order in (torch.arange(lanes), perm):
-        emits, spill = walk_ops.walk(
+        emits, spill = walk_ops.walk_torch(
             rt.nt_walk, rt.nt_edges, *(args[k][order] for k in (
                 "valid", "cur0", "start0", "remaining0", "trav_idx0",
                 "w_item", "read_of", "full")), ps_trav, emitcap=4096,
