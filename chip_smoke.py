@@ -25,11 +25,14 @@ this order, each printing one line or a few:
      and the bound;
   1d. the path's own shapes: three 20,000-read buffers (R = 30,720
      rows) through the fused engine on CUDA, timed per buffer on the
-     host clock, every kernel's launches counted buffer by buffer; the
-     second buffer's ``scan_submit`` runs under
+     host clock and by the engine's stage timers
+     (``GRAMTOOLS_TPU_TIMERS=1``, each key's seconds per buffer), every
+     kernel's launches counted buffer by buffer; the second buffer's
+     ``scan_submit`` runs under
      ``torch.cuda.set_sync_debug_mode("error")`` (no host
-     synchronisation allowed) and its K1 calls and genealogy-replay
-     (K7) and per-base recorder (K9) inputs are kept; the third runs
+     synchronisation allowed) and its K1 calls and its genealogy-replay
+     (K7), selection (K8) and per-base recorder (K9) inputs are kept;
+     the third runs
      inside ``gramtools_tpu_torch.common.timers.device_trace`` (a
      ``torch.profiler`` Chrome trace: device busy time, device event
      count, the device time split by kernel name, each hand kernel's
@@ -49,14 +52,26 @@ this order, each printing one line or a few:
      sleep of the card so the host's enqueue does not show), its bound
      (the bytes its inputs need, read once, and its outputs, written
      once, over the HBM rate) and its share of the bound are printed;
+  1e. the profiling stages on buffer 1's kept inputs: K7 at stages 1
+     (the chase), 2 (+ the seed gather) and 99 (+ the ops apply), each
+     equal bit for bit to its twin at that stage and timed by queued
+     events, and the three blocks' times as prefix differences; the
+     selection ``select_and_record_device`` (K8, plain torch, K9 inside
+     from stage 6) at stages 0-6 and 99, stage 99 equal to the path's
+     own call, each timed by queued events and traced once between
+     markers (device events and busy time by stage), with K8's bound;
   2. scan parity on one 4,096-read buffer: the flat result of the scan
      on CUDA with the packed rank, on CUDA with the dense rank and on
-     the CPU in plain torch must be equal;
+     the CPU in plain torch must be equal; the live-state probe
+     (``log_search_probe``) on CUDA and on the CPU gives that flat
+     result and equal live counts, printed as a share of each phase's
+     pool;
   2b. fused parity on one 4,096-read buffer: the fused program's flat
      result and ``cov_diff`` on CUDA and on the CPU (plain torch, the
      kernels' twins) must be equal;
   3. end to end: build the graph, then genotype 40,000 reads (two
-     20,000-read buffers, so submit and complete overlap); the launch
+     20,000-read buffers, so submit and complete overlap), its phase
+     seconds read from the run's "Timer report" log lines; the launch
      counts of K1, K7 and K9 are reset just before and read just after,
      and each must be above 0;
   4. output parity: on the first 4,000 reads, the port's device run
@@ -98,7 +113,9 @@ from __future__ import annotations
 
 import gzip
 import json
+import logging
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -114,6 +131,8 @@ KERNELS = {"packed_rank": ("packed_rank",), "replay": ("replay",),
            "per_base": ("per_base_init", "per_base_expand", "per_base_walk",
                         "per_base_apply")}
 LABEL = "per_base"        # the record_function around the per-base call
+# the profiling knobs: set, they change the main path's output files
+STAGE_KNOBS = ("GRAMTOOLS_TPU_REPLAY_STAGE", "GRAMTOOLS_TPU_RECORD_STAGE")
 
 
 @dataclass
@@ -156,6 +175,32 @@ def time_ms(fn, runs: int) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / runs
+
+
+def time_each_ms(fn, runs: int) -> float:
+    """Milliseconds of one call of ``fn`` that is hundreds of launches:
+    the median of ``runs`` single calls, each queued behind a 50 ms
+    sleep of the card and timed alone. Several such calls behind one
+    sleep would fill the card's queue of pending launches (about a
+    thousand), and the host would then wait, so their time would be the
+    host's enqueue."""
+    import statistics
+
+    import torch
+
+    fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000_000)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
 
 
 # H100 SXM HBM3 peak (NVIDIA's data sheet), at the 700 W power limit
@@ -333,14 +378,18 @@ def check_rank(cfg: SmokeConfig, rank, blocks, rows, size: int, dense=None):
 
 
 def phase_scan(cfg: SmokeConfig, idx, kmer_index, reads, device):
-    """Phase 2: one buffer's flat scan result, three ways."""
+    """Phase 2: one buffer's flat scan result, three ways; then the
+    live-state probe (``log_search_probe``) on CUDA and on the CPU:
+    final carry and log equal to the flat result, live counts per phase
+    equal."""
     import numpy as np
     import torch
 
     from gramtools_tpu_torch.mapping.quasimap import QuasimapStats, ReadBatch
     from gramtools_tpu_torch.mapping.device_index import DeviceIndex
     from gramtools_tpu_torch.mapping.engine import LogBatchedEngine
-    from gramtools_tpu_torch.mapping.search_log import log_search_packed
+    from gramtools_tpu_torch.mapping.search_log import (log_search_packed,
+                                                        log_search_probe)
 
     os.environ["GRAMTOOLS_TPU_RANK"] = "packed"
     engine = LogBatchedEngine(idx, cfg.kmer_size, device=device)
@@ -383,6 +432,30 @@ def phase_scan(cfg: SmokeConfig, idx, kmer_index, reads, device):
         f"packed, {device.type} dense and cpu; {live} live states, {ovf} "
         f"rows overflowed; {packed_s:.3f} s submit+scan packed, "
         f"{dense_s:.3f} s dense, {cpu_s:.3f} s cpu")
+
+    def probe(dev, blocks):
+        (rid, lo, hi, pref, ovf), (lp, le), live = log_search_probe(
+            engine.di if dev == device else di_cpu,
+            torch.from_numpy(reads_T).to(dev),
+            tuple(torch.from_numpy(a).to(dev) for a in carry), phases, R,
+            blocks=blocks, rank="packed")
+        flat = torch.cat([rid, lo, hi, pref, ovf.to(torch.int32), lp, le])
+        return flat.cpu().numpy(), live.cpu().numpy()
+
+    flat_c, live_c = probe(device, engine.blocks)
+    flat_h, live_h = probe(torch.device("cpu"), engine.blocks.cpu())
+    for name, flat in ((device.type, flat_c), ("cpu", flat_h)):
+        if not np.array_equal(flat, flat_packed):
+            raise AssertionError(f"probe on {name}: final carry and log != "
+                                 "the flat scan result")
+    if not np.array_equal(live_c, live_h):
+        raise AssertionError(f"probe live counts: {device.type} {live_c} != "
+                             f"cpu {live_h}")
+    say(f"[phase 2] log_search_probe, live states after each phase (equal "
+        f"on {device.type} and cpu, final carry and log equal to the flat "
+        f"result): " + "; ".join(
+            f"phase {i} (pool {e[1]}): {n} live = {100 * n / e[1]:.1f}%"
+            for i, (e, n) in enumerate(zip(phases, live_c.tolist()))))
 
 
 def _first_draws(cfg: SmokeConfig, n: int, salt: int):
@@ -466,18 +539,20 @@ def marked_windows(timeline):
 
 def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
                work: Path, dense, probe):
-    """Phase 1d: the fused engine at the path's shapes; every kernel's
-    launches counted buffer by buffer; K1's calls, K7's and K9's inputs
-    and the per-base recorder's inputs kept from the second buffer, and
-    each kernel held against its twin on them; the third buffer inside
-    device_trace, its device time split by kernel name. Returns the
-    kernels' JSON entries (without the main path's launch counts)."""
+    """Phase 1d: the fused engine at the path's shapes, with its stage
+    timers on (``GRAMTOOLS_TPU_TIMERS=1``, printed buffer by buffer);
+    every kernel's launches counted buffer by buffer; K1's calls, K7's
+    and K9's inputs and the selection's inputs and outputs kept from the
+    second buffer, and each kernel held against its twin on them; the
+    third buffer inside device_trace, its device time split by kernel
+    name. Returns (the kernels' JSON entries, without the main path's
+    launch counts; the kept calls)."""
     import traceback
 
     import numpy as np
     import torch
 
-    from gramtools_tpu_torch.mapping import record
+    from gramtools_tpu_torch.mapping import record, search_log
     from gramtools_tpu_torch.mapping.coverage import Coverage
     from gramtools_tpu_torch.mapping.quasimap import (DEVICE_BUFFER_SIZE,
                                                       QuasimapStats,
@@ -487,8 +562,12 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
 
     os.environ["GRAMTOOLS_TPU_RANK"] = "packed"
     B = DEVICE_BUFFER_SIZE
-    engine = LogBatchedEngine(idx, cfg.kmer_size, device=device)
-    assert engine.device_record
+    os.environ["GRAMTOOLS_TPU_TIMERS"] = "1"
+    try:
+        engine = LogBatchedEngine(idx, cfg.kmer_size, device=device)
+    finally:
+        os.environ.pop("GRAMTOOLS_TPU_TIMERS")
+    assert engine.device_record and engine._timing
     stats = QuasimapStats()
     coverage = Coverage.empty(idx)
     starts = [0, B, 0]          # the third buffer repeats the first's reads
@@ -497,7 +576,9 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
     def keep(name, fn):
         def wrapper(*args, **kwargs):
             captured[name] = (args, kwargs)
-            return fn(*args, **kwargs)
+            out = fn(*args, **kwargs)
+            captured[name + "_out"] = out
+            return out
         return wrapper
 
     def keep_rank(blocks, rows, size):
@@ -506,8 +587,10 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
 
     packed_rank_cuda = rank.packed_rank_cuda
     per_base = record._record_per_base_device
+    select = search_log.select_and_record_device
     lines, per_buffer = [], []
     for b, start in enumerate(starts):
+        timers0 = dict(engine.timers)
         batch = ReadBatch(np.ascontiguousarray(reads[start:start + B]))
         sel_seeds, firsts = _first_draws(cfg, B, b)
         for fn in _counted().values():
@@ -517,6 +600,7 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
         if b == 1:
             record.replay = keep("replay", replay.replay)
             record._record_per_base_device = keep("per_base", per_base)
+            search_log.select_and_record_device = keep("select", select)
             rank.packed_rank_cuda = keep_rank
             torch.cuda.set_sync_debug_mode("error")
             try:
@@ -530,6 +614,7 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
                 torch.cuda.set_sync_debug_mode("default")
                 record.replay = replay.replay
                 record._record_per_base_device = per_base
+                search_log.select_and_record_device = select
                 rank.packed_rank_cuda = packed_rank_cuda
             busy_ms = kernels = None
         elif b == 2:
@@ -572,10 +657,12 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
         complete_s = time.perf_counter() - t0
         per_buffer.append(box["launches"] if b == 2 else
                           {name: fn.launches for name, fn in _counted().items()})
+        timers = {k: round(v - timers0.get(k, 0.0), 4)
+                  for k, v in engine.timers.items()}
         lines.append(
             f"buffer {b}: scan_submit {submit_s:.3f} s host, then waited "
             f"{wait_s:.3f} s for the result, record_complete {complete_s:.3f}"
-            f" s host, launches {per_buffer[-1]}"
+            f" s host, engine timers (s) {timers}, launches {per_buffer[-1]}"
             + ("" if busy_ms is None else
                f"; profiled, with the two per-base calls traced after it: "
                f"device busy {busy_ms:.1f} ms over {kernels} device events")
@@ -669,7 +756,7 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
                          "gramtools_tpu/mapping/record_jax.py:714",
                          check_per_base(cfg, captured["per_base"], windows,
                                         sort_fn)))
-    return entries
+    return entries, captured
 
 
 def check_replay(cfg: SmokeConfig, call, trace_ms):
@@ -680,6 +767,8 @@ def check_replay(cfg: SmokeConfig, call, trace_ms):
     from gramtools_tpu_torch.ops import replay
 
     args, kwargs = call
+    assert args[8] == 99, "the path's replay ran a profiling stage"
+    args = args[:8]
 
     def compare(a):
         got = replay.replay_cuda(*a)
@@ -711,6 +800,115 @@ def check_replay(cfg: SmokeConfig, call, trace_ms):
         + ("" if trace_ms["replay"] is None else
            f", {trace_ms['replay']:.4f} ms a launch in the trace"))
     return m
+
+
+REPLAY_STAGES = (1, 2, 99)       # the chase; + the seed gather; + the apply
+SELECT_STAGES = (0, 1, 2, 3, 4, 5, 6, 99)
+SELECT_BLOCKS = {0: "floor (inputs, chain flags)",
+                 1: "encapsulated split + state table",
+                 2: "duplicate-site check", 3: "loci + ancestors + dedup sort",
+                 4: "key rows + class sort + pick",
+                 5: "preliminary triple check", 6: "per-base coverage (K9)",
+                 99: "triples sort"}
+
+
+def select_bytes(select_args, per_base_args) -> int:
+    """K8's bytes for these inputs (a lower bound): each pool state's
+    rid, lo, hi, path lengths and bad flag, the path slots its live
+    states use, each row's ok flag, first draw and length; for the
+    encapsulated split, each SA row of the no-path live states'
+    intervals with its node, site and allele; the outputs (fallback,
+    mapped, the three trip arrays) written once; and the per-base
+    recorder's own bytes (``per_base_bytes``). Reads of the ancestor and
+    base-site tables and of the traversing expansion are left out."""
+    import torch
+
+    (_, _, f_rid, f_lo, f_hi, _, n_trav, _, n_ing, _, row_ok, _,
+     row_len) = select_args[:13]
+    N, R = f_rid.shape[0], row_ok.shape[0]
+    live = f_rid >= 0
+    slots = int((n_trav.clamp(max=16) + n_ing.clamp(max=16))[live].sum())
+    no_path = live & (n_trav == 0) & (n_ing == 0)
+    occ = int((f_hi - f_lo + 1)[no_path].clamp(min=0).sum())
+    trip_cap = 4 * R
+    return (N * 21 + 8 * slots + R * 13 + 16 * occ
+            + R * 5 + 12 * trip_cap + per_base_bytes(per_base_args)[0])
+
+
+def phase_stages(cfg: SmokeConfig, captured, work: Path):
+    """Phase 1e: the profiling stages on buffer 1's own inputs. K7 at
+    stages 1, 2 and 99, each equal bit for bit to the twin at the same
+    stage and timed by queued CUDA events; then the selection
+    (``select_and_record_device``, K8, plain torch with K9 inside) at
+    stages 0-6 and 99, stage 99 equal to the path's own call, each timed
+    by queued events (a few calls) and traced once between markers in
+    one torch.profiler session: device events and busy time by stage,
+    and each block's share as the difference of two prefixes."""
+    import torch
+
+    from gramtools_tpu_torch.mapping import record
+    from gramtools_tpu_torch.ops import replay
+
+    args = captured["replay"][0][:8]
+    ms, lines = {}, []
+    for stage in REPLAY_STAGES:
+        got = replay.replay_cuda(*args, stage=stage)
+        want = replay.replay_torch(*args, stage=stage)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"replay kernel != twin at stage {stage}")
+        ms[stage] = time_ms(lambda: replay.replay_cuda(*args, stage=stage),
+                            cfg.timing_runs)
+    say(f"[phase 1e] K7 by stage on buffer 1's inputs (kernel == twin at "
+        f"each), queued events: stage 1 (chase) {ms[1]:.4f} ms, stage 2 "
+        f"(+ seed gather) {ms[2]:.4f} ms, stage 99 (+ ops apply) "
+        f"{ms[99]:.4f} ms; so chase {ms[1]:.4f} ms, seed "
+        f"gather {ms[2] - ms[1]:.4f} ms, ops apply {ms[99] - ms[2]:.4f} ms")
+
+    (sargs, skw), want = captured["select"], captured["select_out"]
+    assert skw.get("stage", 99) == 99, "the path's selection ran a stage"
+    # cov_diff (argument 13): a scratch copy, added into by every call
+    sargs = list(sargs[:13]) + [torch.zeros_like(sargs[13])]
+    trip_cap = skw["trip_cap"]
+
+    def call(stage):
+        return record.select_and_record_device(*sargs, trip_cap=trip_cap,
+                                               stage=stage)
+
+    got = call(99)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("selection at stage 99 != the path's own call")
+    sel_ms = {st: time_each_ms(lambda: call(st), 5) for st in SELECT_STAGES}
+
+    def traced():
+        call(99)            # unmarked: the session's first events
+        torch.cuda.synchronize()
+        for st in SELECT_STAGES:
+            marked(call)(st)
+
+    busy, _, _, timeline = _profile_device(traced, work / "trace_k8")
+    windows = marked_windows(timeline) if busy is not None else []
+    if len(windows) != len(SELECT_STAGES):
+        say(f"[phase 1e] trace: {len(windows)} marked windows, not "
+            f"{len(SELECT_STAGES)} ({sum(MARK in n for _, _, n in timeline)}"
+            f" markers in {len(timeline)} device events)")
+        windows = [None] * len(SELECT_STAGES)
+    nbytes = select_bytes(sargs, captured["per_base"][0])
+    prev_ms, prev_w = 0.0, (0, 0.0, 0.0)
+    for st, w in zip(SELECT_STAGES, windows):
+        trace = ("not in the trace" if w is None else
+                 f"{w[0]} device events ({w[0] - prev_w[0]:+d}), "
+                 f"{w[1]:.4f} ms busy ({w[1] - prev_w[1]:+.4f}) over a "
+                 f"{w[2]:.4f} ms span")
+        lines.append(f"stage {st} [{SELECT_BLOCKS[st]}] {sel_ms[st]:.4f} ms "
+                     f"({sel_ms[st] - prev_ms:+.4f}), {trace}")
+        prev_ms, prev_w = sel_ms[st], (w or prev_w)
+    say(f"[phase 1e] K8, select_and_record_device by stage on buffer 1's "
+        f"inputs (stage 99 == the path's call), queued events (the median "
+        f"of 5 single calls), and one call a stage in one torch.profiler "
+        f"trace (change on the "
+        f"stage before): " + "; ".join(lines)
+        + f"; bound {bound_ms(nbytes):.4f} ms ({nbytes} bytes), the whole "
+        f"function at {100 * bound_ms(nbytes) / sel_ms[99]:.3f}% of it")
 
 
 def fresh_cov(args, **over):
@@ -1131,32 +1329,62 @@ def _counted():
             "per_base": walk.per_base_cuda}
 
 
+class TimerLines(logging.Handler):
+    """Keeps the phase seconds of the last "Timer report" that the
+    "gramtools_tpu" logger emits (common/timers.py::TimerReport.report:
+    one line a phase, "  <name> <seconds>s[  peak <MB>MB]")."""
+
+    LINE = re.compile(r"^\s+(\S.*?)\s+([0-9.]+)s(\s+peak\s.*)?$")
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.phases = {}
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if msg.startswith("Timer report"):
+            self.phases = {}
+        elif (m := self.LINE.match(msg)) and m.group(1) != "TOTAL":
+            self.phases[m.group(1)] = float(m.group(2))
+
+
 def phase_e2e(cfg: SmokeConfig, work: Path):
     """Phase 3: the main path (fused recorder, the default). Returns the
-    kernels' launch counts."""
+    kernels' launch counts. The phase seconds come from the run's
+    "Timer report" log lines."""
     from gramtools_tpu_torch.cli import run as torch_cli
 
     os.environ["GRAMTOOLS_TPU_RANK"] = "packed"
     os.environ.pop("GRAMTOOLS_TPU_DEVICE_RECORD", None)
+    for knob in STAGE_KNOBS:
+        if knob in os.environ:
+            raise AssertionError(f"{knob} is set before the main path")
     for fn in _counted().values():
         fn.launches = 0
+    timer_lines = TimerLines()
+    logger = logging.getLogger("gramtools_tpu")
+    logger.addHandler(timer_lines)
     t0 = time.perf_counter()
-    if torch_cli(genotype_args(work / "gram", work / "e2e",
-                               work / "reads.fq", "device")) != 0:
-        raise RuntimeError("genotype failed")
+    try:
+        if torch_cli(genotype_args(work / "gram", work / "e2e",
+                                   work / "reads.fq", "device")) != 0:
+            raise RuntimeError("genotype failed")
+    finally:
+        logger.removeHandler(timer_lines)
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in _counted().items()}
     rep = json.loads((work / "e2e" / "genotype_report.json").read_text())
     proc = rep["processes"]["genotype"]
     eng = proc["engine"]
-    quasimap_s = proc["phases"]["Quasimap"]["seconds"]
+    phases = timer_lines.phases
+    quasimap_s = phases["Quasimap"]
     rows = proc["mapping_stats"]["all_reads_count"]
     fallback_share = eng["host_fallbacks"] / max(
         eng["device_mapped"] + eng["host_fallbacks"], 1)
     say(f"[phase 3] genotype --engine device, {cfg.e2e_reads} reads: "
         f"{wall:.1f} s wall, quasimap {quasimap_s:.2f} s = "
         f"{cfg.e2e_reads / quasimap_s:.0f} reads/s ({rows} oriented rows); "
-        f"phases {json.dumps({k: v['seconds'] for k, v in proc['phases'].items()})}; "
+        f"phases (the run's timer report) {json.dumps(phases)}; "
         f"device_mapped {eng['device_mapped']}, host_fallbacks "
         f"{eng['host_fallbacks']} ({100 * fallback_share:.2f}%), "
         f"device_retried {eng['device_retried']}; launches {launches}")
@@ -1449,8 +1677,10 @@ def run(cfg: SmokeConfig, device) -> dict:
         b_outcomes = build_jump_table(idx).max_outcomes
         err, dense = phase_kernel(cfg, idx, device, b_outcomes,
                                   warm_hit_budget(cfg, kmer_index, reads))
-        entries = phase_path(cfg, idx, kmer_index, reads, device, work,
-                             dense, probe)
+        entries, captured = phase_path(cfg, idx, kmer_index, reads, device,
+                                       work, dense, probe)
+        phase_stages(cfg, captured, work)
+        del captured
         entries[0]["max_abs_err"] = max(entries[0]["max_abs_err"], err)
         del dense
         phase_scan(cfg, idx, kmer_index, reads, device)

@@ -175,9 +175,6 @@ def _execute_genotype(geno_report, action, geno_paths, args, kmer_size):
         tracker.reset()
         write_vcf(idx, sites, tracker, args.sample_id, geno_paths.geno_vcf)
     timer.report()
-    # per-phase seconds in the report: what chip_smoke.py reads the
-    # quasimap rate from
-    process_report["phases"] = timer.as_dict()
 
 
 @report.with_report

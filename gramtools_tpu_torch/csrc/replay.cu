@@ -27,6 +27,13 @@
 //       does; counts saturate at tcap (a seed path longer than tcap
 //       keeps its length until an op saturates it).
 //
+// A profiling argument, stage, stops early exactly where the jnp code
+// does (its ``stage``, set by GRAMTOOLS_TPU_REPLAY_STAGE): at stage <= 1
+// the chase only (paths and counts zero, bad without the path-length
+// term); at stage 2 also the seed gather (the seed's unclamped path
+// lengths); the default, 99, runs the whole replay. The branch is the
+// same for every thread of the grid.
+//
 // What bounds it on the card: latency, then stores. A chain step reads
 // one (log_parent, log_event) pair at a random place in the log, and
 // the next step's address is that read's result, so a chain is a
@@ -82,7 +89,7 @@ __global__ void replay_kernel(
     const int2* __restrict__ i_flat, int i_len, int n_states, int p0c,
     const int* __restrict__ ops_kind, const int* __restrict__ ops_site,
     const int* __restrict__ ops_allele, int n_ev, int n_ops,
-    int max_chain, int tcap,
+    int max_chain, int tcap, int stage,
     int2* __restrict__ trav, int* __restrict__ n_trav_out,
     int2* __restrict__ ing, int* __restrict__ n_ing_out,
     unsigned char* __restrict__ bad_out) {
@@ -112,16 +119,20 @@ __global__ void replay_kernel(
   }
   bool bad = al && p >= 0;
 
-  // the seed's paths from the CSR tables, slot s by lane s
-  const int seed = clampi(-p - 1, 0, n_states - 1);
-  int nt = k_nt[seed];
-  int ni = k_ni[seed];
-  const int toff = k_toff[seed];
-  const int ioff = k_ioff[seed];
+  // the seed's paths from the CSR tables, slot s by lane s (stage >= 2)
+  const bool gather = stage >= 2;
+  int nt = 0, ni = 0, toff = 0, ioff = 0;
+  if (gather) {
+    const int seed = clampi(-p - 1, 0, n_states - 1);
+    nt = k_nt[seed];
+    ni = k_ni[seed];
+    toff = k_toff[seed];
+    ioff = k_ioff[seed];
+  }
   for (int s = lane; s < tcap; s += kTeam) {
     int2 tv = make_int2(0, 0);
     int2 iv = make_int2(0, 0);
-    if (s < p0c) {
+    if (gather && s < p0c) {
       if (s < nt) tv = t_flat[clampi(toff + s, 0, t_len - 1)];
       if (s < ni) iv = i_flat[clampi(ioff + s, 0, i_len - 1)];
     }
@@ -131,9 +142,9 @@ __global__ void replay_kernel(
   bad = bad || (al && (nt > tcap || ni > tcap));
   __syncwarp(mask);
 
-  // lane 0 applies the chased events root to leaf to the rows
+  // lane 0 applies the chased events root to leaf to the rows (stage >= 3)
   if (lane == 0) {
-    for (int d = depth - 1; d >= 0; --d) {
+    for (int d = stage >= 3 ? depth - 1 : -1; d >= 0; --d) {
       const int ev = events[d];
       const bool valid = ev >= 0;
       const int row = clampi(ev, 0, n_ev - 1) * n_ops;
@@ -177,7 +188,7 @@ extern "C" int replay(
     const void* k_ioff, const void* t_flat, int t_len, const void* i_flat,
     int i_len, int n_states, int p0c,
     const void* ops_kind, const void* ops_site, const void* ops_allele,
-    int n_ev, int n_ops, int max_chain, int tcap,
+    int n_ev, int n_ops, int max_chain, int tcap, int stage,
     void* trav, void* n_trav, void* ing, void* n_ing, void* bad,
     void* stream) {
   if (n <= 0) return 0;
@@ -195,7 +206,7 @@ extern "C" int replay(
       static_cast<const int2*>(i_flat), i_len, n_states, p0c,
       static_cast<const int*>(ops_kind), static_cast<const int*>(ops_site),
       static_cast<const int*>(ops_allele), n_ev, n_ops, max_chain, tcap,
-      static_cast<int2*>(trav), static_cast<int*>(n_trav),
+      stage, static_cast<int2*>(trav), static_cast<int*>(n_trav),
       static_cast<int2*>(ing), static_cast<int*>(n_ing),
       static_cast<unsigned char*>(bad));
   return (int)cudaGetLastError();

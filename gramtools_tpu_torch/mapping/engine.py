@@ -42,10 +42,29 @@ shard on full, contiguous views: no slice copy and no concat.
 
 The environment knobs are the JAX engine's, with the same defaults
 (``GRAMTOOLS_TPU_POOL``, ``_HITS``, ``_RANK``, ``_RETRY_MIN``,
-``_MAX_HITS_BOOST``, ``_DEVICE_RECORD``; the phase plan reads
-``_NARROW``, ``_LOCK_AFTER`` and ``_TAIL_HITS_DIV``), so one environment
+``_MAX_HITS_BOOST``, ``_DEVICE_RECORD``, ``_TIMERS``; the phase plan
+reads ``_NARROW``, ``_LOCK_AFTER`` and ``_TAIL_HITS_DIV``; the fused
+program ``_REPLAY_STAGE`` and ``_RECORD_STAGE``), so one environment
 gives both engines the same programs, phase plan, budgets and
 overflows.
+
+``GRAMTOOLS_TPU_TIMERS=1`` adds up host-clock seconds per pipeline
+stage in ``timers``, at the JAX engine's points and under its keys. On
+a GPU the device runs behind the host, and no synchronisation is added
+to turn a key into a device time, so on CUDA:
+
+  * ``submit_filter``, ``submit_seed``, ``submit_pack``, ``submit_put``
+    are host work: the kmer screen, seeding, 2-bit packing, and the
+    scan path's carry placement;
+  * ``submit_dispatch`` is the host's enqueue of the device program
+    (some 30,000 launches a buffer), not the device's run;
+  * ``complete_get`` is the wait for the flat result: the device time
+    that the host's work since the submit did not hide, then the copy
+    home (and, on the scan path, its unpacking);
+  * ``complete_retry`` is the retry pass, its device run and wait
+    included (on the fused path also the fallback-reason tally);
+  * ``complete_fold`` and ``complete_hostmap`` are host work: folding
+    the loci triples, and the exact re-maps of the fallback rows.
 """
 from __future__ import annotations
 
@@ -54,6 +73,7 @@ import contextlib
 import dataclasses
 import logging
 import os
+import time
 from typing import Optional
 
 import numpy as np
@@ -204,6 +224,19 @@ class LogBatchedEngine:
         self._sticky_seeds = 0       # warm-pool ratchet (high-fan-out only)
         # observability: one entry per distinct dispatched scan shape
         self.dispatch_shapes = set()
+        # opt-in per-stage host seconds (GRAMTOOLS_TPU_TIMERS=1; the
+        # module doc says what each key measures on a GPU)
+        self.timers = collections.defaultdict(float)
+        self._timing = os.environ.get("GRAMTOOLS_TPU_TIMERS") == "1"
+
+    def _tick(self, key, t0):
+        """Adds the seconds since ``t0`` to ``timers[key]`` when timing
+        is on; returns the new start."""
+        if self._timing:
+            t1 = time.perf_counter()
+            self.timers[key] += t1 - t0
+            return t1
+        return t0
 
     # ---- shard layout ----------------------------------------------------
     # Global row r lives in shard r % S at local column r // S
@@ -294,6 +327,7 @@ class LogBatchedEngine:
         the placed seed-state indices and the 2-bit reads go to the
         device, and only flags + loci triples come back. Otherwise it is
         the scan alone, for scan_complete."""
+        t0 = time.perf_counter()
         k = kmer_size
         self._last_kmer_index = kmer_index
         results, rows, rows_mat = _filter_buffer_rows(buffer, kmer_index, k,
@@ -301,6 +335,7 @@ class LogBatchedEngine:
         if not rows:
             return (results, [], None, None, set(), None, None)
 
+        t0 = self._tick("submit_filter", t0)
         n = len(rows)
         S = self.S
         self._sticky_R = max(self._sticky_R, _row_capacity(-(-n // S)))
@@ -381,6 +416,7 @@ class LogBatchedEngine:
                     s_ing[si, pi] = locus
             seeds = (s_trav, s_nt, s_ing, s_ni)
 
+        t0 = self._tick("submit_seed", t0)
         n_states = owner.size
         if steps > 0 and n_states > 0:
             # the marker-hit budget is a global per-step quota shared by
@@ -408,9 +444,11 @@ class LogBatchedEngine:
                 # the carry holds shard-local read ids
                 slot_row[placed] = (owner[keep] // S).astype(np.int32)
                 reads_p = _pack_reads2(reads_T)
+                t0 = self._tick("submit_pack", t0)
                 device_out = self._dispatch_record(
                     rows, reads_p, slot_sidx, slot_row, host_rows,
                     first_raws, phases, R)
+                self._tick("submit_dispatch", t0)
                 return (results, rows, device_out, None, host_rows,
                         (slot_sidx, slot_row), reads_p)
             carry = (np.full(S * pool0, -1, np.int32),
@@ -425,6 +463,7 @@ class LogBatchedEngine:
             # seed prefs reference the seed list by ORIGINAL index,
             # independent of placement order
             pref_c[placed] = -(np.flatnonzero(keep).astype(np.int32) + 1)
+            t0 = self._tick("submit_put", t0)
             self.dispatch_shapes.add(
                 ("packed", phases, R, reads_T.shape,
                  tuple(a.shape for a in carry)))
@@ -436,6 +475,7 @@ class LogBatchedEngine:
             host_rows.update(range(n))
             carry = None
             device_out = None
+        self._tick("submit_dispatch", t0)
         return (results, rows, device_out, seeds, host_rows, carry, reads_T)
 
     def _ensure_record_tables(self):
@@ -510,12 +550,15 @@ class LogBatchedEngine:
         results, rows, device_out, seeds, host_rows, carry, reads_T = token
         if device_out is not None:
             pending, phases, R = device_out
+            t0 = time.perf_counter()
             carry_np, log_parent, log_event = _unpack_result(
                 pending.get(), phases, R, self.di.n_outcomes,
                 n_shards=self.S)
+            t0 = self._tick("complete_get", t0)
             carry_np, log_parent, log_event = self._retry_overflow(
                 carry_np, log_parent, log_event, carry, reads_T, len(rows),
                 phases, R, host_rows=host_rows)
+            self._tick("complete_retry", t0)
         else:
             carry_np = self._empty_carry_np(len(rows))
             log_parent = log_event = np.empty(0, dtype=np.int32)
@@ -758,10 +801,14 @@ class LogBatchedEngine:
         k = kmer_size if kmer_size is not None else self.kmer_size
         if kmer_index is None:
             kmer_index = self._last_kmer_index
+        t0 = time.perf_counter()
+        flat = pending.get()
+        t0 = self._tick("complete_get", t0)
         ovf, fallback, mapped, loci_rows = _unpack_record_result(
-            pending.get(), R, trip_cap, n_shards=self.S)
+            flat, R, trip_cap, n_shards=self.S)
         nrows = len(rows)
         fold_loci_rows(coverage, loci_rows)
+        t0 = self._tick("complete_fold", t0)
         for bit, name in FB_NAMES.items():
             n_bit = int(((fallback[:nrows] & bit) != 0).sum())
             if n_bit:
@@ -796,6 +843,7 @@ class LogBatchedEngine:
                 fallback[ovf_rows] = fb2[:ovf_rows.size]
                 mapped[ovf_rows] = mapped2[:ovf_rows.size]
                 self.device_retried += int(ovf_rows.size)
+        t0 = self._tick("complete_retry", t0)
 
         # exact host path for unseeded / still-overflowed / flagged rows;
         # device rows are tallied vectorised
@@ -826,6 +874,7 @@ class LogBatchedEngine:
         self.device_mapped += n_dev
         stats.exact_mapped_reads_count += n_mapped
         stats.no_extension_reads_count += n_dev - n_mapped
+        self._tick("complete_hostmap", t0)
 
     def record_complete(self, token, selection_seeds, first_raws, stats,
                         coverage, kmer_index=None, kmer_size=None):

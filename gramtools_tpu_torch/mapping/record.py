@@ -172,16 +172,18 @@ class SeedTables:
 # stage 1: genealogy replay
 # --------------------------------------------------------------------------
 
-def replay_device(di, f_pref, log_parent, log_event, st: SeedTables, alive):
+def replay_device(di, f_pref, log_parent, log_event, st: SeedTables, alive,
+                  stage: int = 99):
     """Rebuild (trav (N, TCAP, 2), n_trav, ing (N, TCAP, 2), n_ing, bad)
     for every pool state (see ops/replay.py). f_pref: (N,) genealogy
     refs (negative = seed-state index -p-1 into the resident
-    SeedTables); alive: (N,) bool."""
+    SeedTables); alive: (N,) bool. stage < 99 stops early, as the JAX
+    function does (profiling only; ops/replay.py)."""
     O = di.n_ops
     ops = JumpOps(di.ops_kind.reshape(-1, O), di.ops_site.reshape(-1, O),
                   di.ops_allele.reshape(-1, O))
     return replay(f_pref, alive, log_parent, log_event, st.paths, ops,
-                  MAX_CHAIN, TCAP)
+                  MAX_CHAIN, TCAP, stage)
 
 
 # --------------------------------------------------------------------------
@@ -280,7 +282,7 @@ def _lexsort(keys, *operands):
 def select_and_record_device(di, rt: RecordTables,
                              f_rid, f_lo, f_hi, trav, n_trav, ing, n_ing,
                              state_bad, row_ok, row_first_raw, row_len,
-                             cov_diff, trip_cap: int = 0):
+                             cov_diff, trip_cap: int = 0, stage: int = 99):
     """Selection + recording for one scanned buffer.
 
     Pool states (N,): f_rid, f_lo, f_hi, the replayed paths and
@@ -289,18 +291,34 @@ def select_and_record_device(di, rt: RecordTables,
     (cov_size + 1,) int32, added into IN PLACE. Returns (fallback (R,)
     int32 reason bits, mapped (R,) bool, trip_row, trip_site,
     trip_allele) -- the trip arrays are (trip_cap,) sorted by (row,
-    site, allele), row > R marking unused slots."""
+    site, allele), row > R marking unused slots.
+
+    ``stage`` is the JAX function's profiling argument
+    (GRAMTOOLS_TPU_RECORD_STAGE; the default 99 runs everything): a
+    value below 99 returns after the numbered block, with the fallback
+    bits so far, ``mapped`` all False, ``trip_row`` all R + 1 and zero
+    sites and alleles, so that a block's device time is the difference
+    of two prefixes. ``cov_diff`` is added into from stage 6 on."""
     if trip_cap <= 0:
         trip_cap = 16 * row_ok.shape[0]
     dev = f_rid.device
     N = f_rid.shape[0]
     R = row_ok.shape[0]
     ecap, trcap, wcap, emitcap, lcap = buffer_caps(R)
+
+    def _stage_out(fallback):
+        z = torch.zeros(trip_cap, dtype=I32, device=dev)
+        return (fallback, torch.zeros(R, dtype=torch.bool, device=dev),
+                torch.full((trip_cap,), R + 1, dtype=I32, device=dev), z,
+                z.clone())
+
     n_ra = rt.ra_node.shape[0]
     ar_n = _arange(N, dev, I64)
     rid_c = f_rid.clamp(0, R - 1)
     alive = (f_rid >= 0) & row_ok[rid_c]
     fallback = _flag_rows_bit(R, state_bad & alive, rid_c, FB_CHAIN)
+    if stage <= 0:                     # the floor: the inputs' plumbing
+        return _stage_out(fallback)
 
     has_path = (n_trav > 0) | (n_ing > 0)
 
@@ -349,6 +367,8 @@ def select_and_record_device(di, rt: RecordTables,
     last_i = (n_ing - 1).clamp(0, TCAP - 1).to(I64)
     ing_parent = torch.cat([torch.where(n_ing > 0, ing[ar_n, last_i, 0], 0),
                             torch.zeros(ecap, dtype=I32, device=dev)])
+    if stage <= 1:                     # + encapsulated split, state table
+        return _stage_out(fallback)
 
     # ---- site-uniqueness (duplicate site within one state's own path) ------
     slot = _arange(TCAP, dev)[None, :]
@@ -361,6 +381,8 @@ def select_and_record_device(di, rt: RecordTables,
     own = torch.sort(torch.cat([own_t, own_i], dim=1), dim=1).values
     dup_site = (own[:, 1:] == own[:, :-1]).any(dim=1) & ps_live
     fallback |= _flag_rows_bit(R, dup_site, ps_row, FB_DUP_SITE)
+    if stage <= 2:                     # + duplicate-site check
+        return _stage_out(fallback)
 
     # ---- loci: traversed + traversing-derived + ancestors -------------------
     t_counts = torch.where(ps_live, ps_ntrav, 0)
@@ -407,6 +429,8 @@ def select_and_record_device(di, rt: RecordTables,
                             trip_keep[:-1]]))
     fallback |= _flag_rows_bit(R, same_ss, ps_row[trip_state], FB_CONFLICT)
     LT = trip_state.shape[0]
+    if stage <= 3:                     # + loci, ancestors, dedup sort
+        return _stage_out(fallback)
 
     # ---- base-site key rows per state ---------------------------------------
     b_base = rt.base_site[torch.div(trip_site - 5, 2, rounding_mode="floor")
@@ -466,6 +490,8 @@ def select_and_record_device(di, rt: RecordTables,
         0, s_state.to(I64), sel_sorted)
 
     mapped = _flag_rows(R, alive, rid_c)  # any live state => "mapped"
+    if stage <= 4:                     # + key rows, class sort, pick
+        return _stage_out(fallback)
 
     # ---- preliminary triple-capacity check (BEFORE per-base recording, so
     # spilled rows can still fall back cleanly with zero device traces) ----
@@ -476,11 +502,15 @@ def select_and_record_device(di, rt: RecordTables,
         over = torch.sort(t_key).values[trip_cap:]
         fallback |= _flag_rows_bit(R, over <= R, over.clamp(0, R - 1),
                                    FB_TRIPS)
+    if stage <= 5:                     # + preliminary triple check
+        return _stage_out(fallback)
 
     # ---- per-base coverage (may add fallback rows; do it before triples) ---
     fallback = _record_per_base_device(
         di, rt, ps_row, ps_lo, ps_hi, ps_trav, ps_ntrav, st_selected,
         row_len, fallback, cov_diff, wcap, emitcap)
+    if stage <= 6:                     # + per-base coverage (K9)
+        return _stage_out(fallback)
 
     # ---- triples of the chosen classes, compact prefix of the sort ----------
     t_sel = trip_keep & st_selected[trip_state] & (fallback[t_row] == 0)

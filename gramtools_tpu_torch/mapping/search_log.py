@@ -1,10 +1,11 @@
 """The phased scan, its flat result, and the fused record program.
 
 Port of gramtools_tpu/mapping/search_jax_log.py ``_log_search_phases``,
-``_occ_rows_for``, ``_packed_body``, ``_unpack_reads2`` and
-``_record_body``: JAX's ``lax.scan`` over the steps of a phase becomes a
-Python loop, and each step writes its genealogy records ``(rec_parent,
-rec_event)`` straight into their place in a preallocated log.
+``_occ_rows_for``, ``_log_search_probe``, ``make_log_search``,
+``_packed_body``, ``_unpack_reads2`` and ``_record_body``: JAX's
+``lax.scan`` over the steps of a phase becomes a Python loop, and each
+step writes its genealogy records ``(rec_parent, rec_event)`` straight
+into their place in a preallocated log.
 
 ``log_search_packed`` (the non-fused engine) returns one flat int32
 result ``[rid | lo | hi | pref | ovf | lp | le]`` (final carry, overflow
@@ -13,9 +14,21 @@ flags, then the log parents and events of every step, phase by phase).
 replays it and records the buffer's coverage there (mapping/record.py),
 and returns only ``[ovf | fallback | mapped | t_row | t_site |
 t_allele]``. Nothing in either reads a value back to the host, so each
-is enqueued without a synchronisation.
+is enqueued without a synchronisation. ``log_search_probe`` is the scan
+with its live-state count after each phase (the pool occupancy a
+benchmark reports), also without a synchronisation.
+
+The fused program reads two profiling knobs, as the JAX package's
+does: ``GRAMTOOLS_TPU_REPLAY_STAGE`` and ``GRAMTOOLS_TPU_RECORD_STAGE``
+(default 99, the whole program) stop the replay and the selection after
+a numbered block and return dummies of the right shapes
+(record.replay_device, record.select_and_record_device), so a block's
+device time is a difference of two prefixes. They change the output:
+only profiling sets them.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -23,7 +36,7 @@ from ..ops.rank import make_packed_occ_rows
 from .record import replay_device, select_and_record_device
 from .scan_steps import (build_log_step, build_narrow_step, lock_pool,
                          resize_pool)
-from .search_log_host import LogConfig, _phase4
+from .search_log_host import LogConfig, _phase4, auto_phases
 
 I32 = torch.int32
 
@@ -38,13 +51,15 @@ def occ_rows_for(di, blocks, rank: str):
 
 
 def _scan_phases(di, reads, carry, phases, num_reads: int, occ_rows,
-                 lp: torch.Tensor, le: torch.Tensor, narrow_rows=None):
+                 lp: torch.Tensor, le: torch.Tensor, narrow_rows=None,
+                 collect_live: bool = False):
     """The phase loop (port of _log_search_phases): runs every step of
     every phase on int32 reads (steps, num_reads), writes each step's
     genealogy records into their place in lp/le (preallocated, steps·G·B
     each), and returns the final carry with its (num_reads,) overflow.
     occ_rows / narrow_rows: the occ and narrow_tab gathers (None = the
-    dense tables in di)."""
+    dense tables in di). collect_live=True also returns the live-state
+    count after each phase, a (n_phases,) int64 device tensor."""
     dev = di.device
     B = di.n_outcomes
     read_id, lo, hi, pref, overflow = carry
@@ -52,6 +67,7 @@ def _scan_phases(di, reads, carry, phases, num_reads: int, occ_rows,
     overflow = torch.cat([overflow.to(torch.bool),
                           torch.zeros(1, dtype=torch.bool, device=dev)])
     carry = (read_id, lo, hi, pref, overflow)
+    live = []
     log_base = 0
     offset = 0
     for entry in phases:
@@ -80,8 +96,13 @@ def _scan_phases(di, reads, carry, phases, num_reads: int, occ_rows,
             le[log_base:log_base + GB] = rec_event.reshape(-1)
             log_base += GB
         offset += n_steps
+        if collect_live:
+            live.append((carry[0] >= 0).sum())
     rid, lo, hi, pref, overflow = carry
-    return rid, lo, hi, pref, overflow[:num_reads]
+    final = rid, lo, hi, pref, overflow[:num_reads]
+    if collect_live:
+        return final, torch.stack(live)
+    return final
 
 
 def _log_length(di, phases) -> int:
@@ -100,6 +121,37 @@ def log_search_phases(di, reads_T: torch.Tensor, carry, phases,
     final = _scan_phases(di, reads_T.to(I32), carry, phases, num_reads,
                          occ_rows, log[:L], log[L:], narrow_rows=narrow_rows)
     return final, (log[:L], log[L:])
+
+
+def log_search_probe(di, reads_T: torch.Tensor, carry, phases,
+                     num_reads: int, blocks=None, rank: str = "dense"):
+    """The scan with the live-state count after each phase (port of
+    _log_search_probe, bench.py's pool-occupancy probe). Takes what
+    log_search_packed takes; returns (final carry, (log_parent,
+    log_event), live (n_phases,) int64), all on the device."""
+    L = _log_length(di, phases)
+    log = torch.empty(2 * L, dtype=I32, device=di.device)
+    final, live = _scan_phases(di, reads_T.to(I32), carry, phases,
+                               num_reads, occ_rows_for(di, blocks, rank),
+                               log[:L], log[L:], collect_live=True)
+    return final, (log[:L], log[L:]), live
+
+
+def make_log_search(di, cfg: LogConfig, num_reads: int, phases=None,
+                    blocks=None, rank: str = "dense"):
+    """run(reads_T, carry) -> log_search_phases' result with the given
+    phases, or auto_phases' plan for the read matrix's step count (port
+    of make_log_search). With ``blocks`` and rank "packed" the scan
+    gathers through the packed rank."""
+    occ_rows = occ_rows_for(di, blocks, rank)
+
+    def run(reads_T, carry):
+        p = phases
+        if p is None:
+            p = auto_phases(reads_T.shape[0], num_reads, cfg)
+        return log_search_phases(di, reads_T, carry, tuple(p), num_reads,
+                                 occ_rows=occ_rows)
+    return run
 
 
 def log_search_packed(di, reads_T: torch.Tensor, carry, phases,
@@ -174,11 +226,14 @@ def log_search_record(di, rt, st, reads_p, slot_sidx, slot_row, row_ok,
     rid, lo, hi, pref, ovf = _scan_phases(
         di, reads, carry, phases, num_reads, occ_rows_for(di, blocks, rank),
         lp, le)
+    # the profiling knobs (module doc); production leaves them unset
+    r_stage = int(os.environ.get("GRAMTOOLS_TPU_REPLAY_STAGE", "99"))
+    s_stage = int(os.environ.get("GRAMTOOLS_TPU_RECORD_STAGE", "99"))
     trav, n_trav, ing, n_ing, bad = replay_device(di, pref, lp, le, st,
-                                                  rid >= 0)
+                                                  rid >= 0, stage=r_stage)
     fallback, mapped, t_row, t_site, t_allele = select_and_record_device(
         di, rt, rid, lo, hi, trav, n_trav, ing, n_ing, bad, row_ok & ~ovf,
-        row_first_raw, row_len, cov_diff, trip_cap=trip_cap)
+        row_first_raw, row_len, cov_diff, trip_cap=trip_cap, stage=s_stage)
     R = num_reads
     flat = torch.empty(3 * R + 3 * trip_cap, dtype=I32, device=dev)
     for i, part in enumerate((ovf, fallback, mapped)):

@@ -277,6 +277,18 @@ def auto_phases(steps: int, num_reads: int, cfg: LogConfig,
     return tuple(plan)
 
 
+def empty_log_carry(num_reads: int, cfg: LogConfig):
+    """An empty scan carry: (read_id (pool,) all -1, lo, hi, pref (pool,)
+    zeros, overflow (num_reads,) False), with pool = cfg.pool."""
+    N = cfg.pool
+    z = np.zeros
+    return (
+        np.full((N,), -1, np.int32), z((N,), np.int32), z((N,), np.int32),
+        z((N,), np.int32),
+        z((num_reads,), bool),
+    )
+
+
 def _filter_buffer_rows(buffer, kmer_index, k, stats):
     """Kmer-presence screen over both orientations of a read buffer.
 

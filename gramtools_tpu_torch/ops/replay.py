@@ -14,6 +14,13 @@ clamped gathers and dropped writes: a dead state replays seed 0's paths
 with no events, and ``bad`` marks live states whose chain outran
 ``max_chain`` or whose paths outran ``tcap``.
 
+``stage`` (default 99, the whole replay) is the JAX function's
+profiling argument (GRAMTOOLS_TPU_REPLAY_STAGE): stage <= 1 stops after
+the chase (zero paths and counts; ``bad`` is the chain-overrun term
+only), stage 2 after the seed gather (the seed's paths and unclamped
+lengths, ``bad`` with the path-length term). Every function here takes
+it, the kernel as an argument.
+
 ``replay`` routes by device: CPU tensors take the twin (the jnp code's
 two ``while_loop``s become Python loops; their ``any()`` tests cost
 nothing on the CPU), CUDA tensors launch ``csrc/replay.cu``, a team of
@@ -59,7 +66,7 @@ class JumpOps(NamedTuple):
 # --------------------------------------------------------------------------
 
 def replay_torch(f_pref, alive, log_parent, log_event, seeds: SeedPaths,
-                 ops: JumpOps, max_chain: int, tcap: int):
+                 ops: JumpOps, max_chain: int, tcap: int, stage: int = 99):
     """Straight port of replay_device's jnp code (see module doc)."""
     dev = f_pref.device
     N = f_pref.shape[0]
@@ -79,6 +86,10 @@ def replay_torch(f_pref, alive, log_parent, log_event, seeds: SeedPaths,
         p = torch.where(live, lp[pc], p)
         depth += 1
     bad = alive & (p >= 0)
+    if stage <= 1:                     # the chase only
+        z2 = torch.zeros((N, tcap, 2), dtype=I32, device=dev)
+        zn = torch.zeros(N, dtype=I32, device=dev)
+        return z2, zn, z2.clone(), zn.clone(), bad
     seed_idx = (-p - 1).clamp(0, max(n_states - 1, 0))
 
     P0c = min(seeds.max_path, tcap)
@@ -97,6 +108,8 @@ def replay_torch(f_pref, alive, log_parent, log_event, seeds: SeedPaths,
         trav[:, :P0c] = torch.where(tmask, seeds.t_flat[tg], 0)
         ing[:, :P0c] = torch.where(imask, seeds.i_flat[ig], 0)
     bad = bad | (alive & ((n_trav > tcap) | (n_ing > tcap)))
+    if stage <= 2:                     # + the seed-path gather
+        return trav, n_trav, ing, n_ing, bad
 
     n_ev = ops.kind.shape[0]
     n_ops = ops.kind.shape[1]
@@ -146,7 +159,7 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.replay.argtypes = ([p, p, i, p, p, i]        # states, log
                                + [p, p, p, p, p, i, p, i, i, i]  # seeds
                                + [p, p, p, i, i]         # jump ops
-                               + [i, i]                  # caps
+                               + [i, i, i]               # caps, stage
                                + [p, p, p, p, p, p])     # outputs, stream
         lib.replay.restype = ctypes.c_int
     return lib
@@ -161,7 +174,7 @@ def _check(name, t, dtype, shape=None):
 
 
 def replay_cuda(f_pref, alive, log_parent, log_event, seeds: SeedPaths,
-                ops: JumpOps, max_chain: int, tcap: int):
+                ops: JumpOps, max_chain: int, tcap: int, stage: int = 99):
     """Launch csrc/replay.cu on PyTorch's current stream. Raises on what
     the kernel does not take; does not synchronise. Strided inputs (such
     as a column of the scan's carry) are made contiguous first."""
@@ -220,7 +233,7 @@ def replay_cuda(f_pref, alive, log_parent, log_event, seeds: SeedPaths,
         seeds.t_flat.shape[0], seeds.i_flat.data_ptr(), seeds.i_flat.shape[0],
         n_states, min(seeds.max_path, tcap),
         ops.kind.data_ptr(), ops.site.data_ptr(), ops.allele.data_ptr(),
-        n_ev, n_ops, max_chain, tcap,
+        n_ev, n_ops, max_chain, tcap, stage,
         trav.data_ptr(), n_trav.data_ptr(), ing.data_ptr(), n_ing.data_ptr(),
         bad.data_ptr(), stream)
     if err != 0:
@@ -230,15 +243,15 @@ def replay_cuda(f_pref, alive, log_parent, log_event, seeds: SeedPaths,
 
 
 def replay(f_pref, alive, log_parent, log_event, seeds: SeedPaths,
-           ops: JumpOps, max_chain: int, tcap: int):
+           ops: JumpOps, max_chain: int, tcap: int, stage: int = 99):
     """CPU tensors take the plain twin; CUDA tensors launch the kernel
     or raise."""
     if f_pref.device.type == "cpu":
         return replay_torch(f_pref, alive, log_parent, log_event, seeds, ops,
-                            max_chain, tcap)
+                            max_chain, tcap, stage)
     if f_pref.device.type == "cuda":
         return replay_cuda(f_pref, alive, log_parent, log_event, seeds, ops,
-                           max_chain, tcap)
+                           max_chain, tcap, stage)
     raise ValueError(f"replay: unsupported device {f_pref.device}")
 
 

@@ -236,6 +236,30 @@ def test_replay_kernel_matches_twin(cuda, N, L, max_chain, tcap):
     assert want[4].any()                  # some chains or paths overran
 
 
+@pytest.mark.parametrize("stage", [1, 2])
+@pytest.mark.parametrize("N,L,max_chain,tcap", [
+    (300, 2000, 32, TCAP), (4096, 50_000, 3, TCAP), (4097, 50_000, 5, 4),
+    (999, 9000, 33, 20)])
+def test_replay_kernel_stage_matches_twin(cuda, N, L, max_chain, tcap,
+                                          stage):
+    """The profiling stages: the chase only (1), + the seed gather (2),
+    with chains past max_chain (3, 5) and seed paths past tcap (4)."""
+    rng = np.random.RandomState(N + stage)
+    args = _replay_inputs(rng, N, L, 500, 64, 3, 20, "cpu")
+    before = replay.replay.launches
+    got = replay.replay(*_on(cuda, args), max_chain=max_chain, tcap=tcap,
+                        stage=stage)
+    torch.cuda.synchronize()
+    assert replay.replay.launches == before + 1
+    want = replay.replay_torch(*args, max_chain=max_chain, tcap=tcap,
+                               stage=stage)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert want[1].any() == (stage == 2)  # path lengths only from stage 2
+    if max_chain < 32 or (stage == 2 and tcap < 20):
+        assert want[4].any()              # chains or paths overran
+
+
 def _per_base_case(seed, n_states, width, R, allele_max=1):
     """Random but well-formed per-base recorder inputs on the CPU, on a
     site graph: n_states states with SA intervals of 1..width rows, half

@@ -189,6 +189,28 @@ def test_engine_counters_equal_jax_fused(runs_fused):
     assert got["device_mapped"] > 0
 
 
+def _keys(obj):
+    """The key tree of a JSON value: a dict's keys, each with its
+    value's key tree; a list's items' key trees."""
+    if isinstance(obj, dict):
+        return {k: _keys(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_keys(v) for v in obj]
+    return None
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_report_keys_equal_jax(runs, runs_fused, fused):
+    """The port's genotype_report.json has the reference's keys at every
+    level, and no more."""
+    root = runs_fused if fused else runs
+    got, want = (json.loads((root / name / "genotype_report.json")
+                            .read_text())
+                 for name in ("torch_device", "jax_device"))
+    assert _keys(got) == _keys(want)
+    assert "engine" in got["processes"]["genotype"]
+
+
 def test_fused_and_host_recorder_outputs_equal(runs, runs_fused):
     """The two recorders of the port write the same files."""
     for rel in OUTPUT_FILES:

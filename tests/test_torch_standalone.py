@@ -170,10 +170,9 @@ def test_blocked_process_device_and_host_files_equal(blocked):
 # --------------------------------------------------------------------------
 
 # run reports: what differs between any two runs (timings, memory, the
-# output paths), and the per-phase seconds the port's genotype adds
+# output paths)
 _VOLATILE = {"run_time", "seconds", "peak_mem_mb", "total_runtime",
-             "current_working_directory", "paths", "path_hashes",
-             "phases"}
+             "current_working_directory", "paths", "path_hashes"}
 
 
 def _normalised(obj):
