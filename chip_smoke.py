@@ -14,7 +14,7 @@ gramtools_tpu_torch/common/workload.py, seeded). Phases, in
 this order, each printing one line or a few:
 
   0. the card (nvidia-smi name and power limit), the build of the
-     three kernel sources and of the cursor-walk probe (one nvcc each,
+     four kernel sources and of the cursor-walk probe (one nvcc each,
      all started together);
   1. the packed-rank kernel (K1) against its plain torch twin, on a
      small FM index (every prefix length) and on the 4.4 Mb graph's
@@ -30,14 +30,19 @@ this order, each printing one line or a few:
      kernel's launches counted buffer by buffer; the second buffer's
      ``scan_submit`` runs under
      ``torch.cuda.set_sync_debug_mode("error")`` (no host
-     synchronisation allowed) and its K1 calls and its genealogy-replay
-     (K7), selection (K8) and per-base recorder (K9) inputs are kept;
+     synchronisation allowed) and its K1 calls and its locked-tail (K3
+     locked), genealogy-replay (K7), selection (K8) and per-base
+     recorder (K9) inputs are kept;
      the third runs
      inside ``gramtools_tpu_torch.common.timers.device_trace`` (a
      ``torch.profiler`` Chrome trace: device busy time, device event
      count, the device time split by kernel name, each hand kernel's
      device time a launch, and the per-base call's device events
-     between two marker kernels). Then every kept K1 call equals its
+     between two marker kernels); then the first buffer's reads go
+     through ``scan_submit`` twice more in one trace, each between
+     markers: with the locked phase as the kernel and as the torch steps
+     with K1 that it replaces (the buffer's device events before and
+     after). Then every kept K1 call equals its
      twin and the largest is timed against the dense gather; K7 equals
      its twin bit for bit there and on a forced case (max_chain 2,
      tcap 4, so chains and paths overrun); K9, the whole per-base
@@ -60,20 +65,28 @@ this order, each printing one line or a few:
      from stage 6) at stages 0-6 and 99, stage 99 equal to the path's
      own call, each timed by queued events and traced once between
      markers (device events and busy time by stage), with K8's bound;
+  1f. the locked tail (csrc/locked_step.cu, the whole locked phase in
+     one cooperative launch) on buffer 1's kept inputs: equal bit for
+     bit (carry, flags, every log record) to the path's own call and to
+     its plain version, also at forced budgets (hits 8, wide budget 4:
+     spills and conflicts) and in two ranges of steps; timed by queued
+     events beside the plain version, with its bound and share and its
+     time in buffer 2's trace;
   2. scan parity on one 4,096-read buffer: the flat result of the scan
-     on CUDA with the packed rank, on CUDA with the dense rank and on
-     the CPU in plain torch must be equal; the live-state probe
+     on CUDA with the packed rank, on CUDA with the dense rank (each
+     must launch the locked-tail kernel) and on the CPU in plain torch
+     must be equal; the live-state probe
      (``log_search_probe``) on CUDA and on the CPU gives that flat
      result and equal live counts, printed as a share of each phase's
      pool;
   2b. fused parity on one 4,096-read buffer: the fused program's flat
-     result and ``cov_diff`` on CUDA and on the CPU (plain torch, the
-     kernels' twins) must be equal;
+     result and ``cov_diff`` on CUDA (every kernel launched) and on the
+     CPU (plain torch, the kernels' twins) must be equal;
   3. end to end: build the graph, then genotype 40,000 reads (two
      20,000-read buffers, so submit and complete overlap), its phase
      seconds read from the run's "Timer report" log lines; the launch
-     counts of K1, K7 and K9 are reset just before and read just after,
-     and each must be above 0;
+     counts of K1, K7, K9 and the locked tail are reset just before and
+     read just after, and each must be above 0;
   4. output parity: on the first 4,000 reads, the port's device run
      on CUDA, with the fused recorder and with
      ``GRAMTOOLS_TPU_DEVICE_RECORD=0``, and the port's own host engine
@@ -86,15 +99,16 @@ this order, each printing one line or a few:
      one card (``make_mesh(devices=[cuda, cuda])``), rank packed, fused
      recorder; stats, allele-sum, grouped counts and per-base coverage
      must equal a 1-shard run's, and the counts of the 2-shard run
-     (reset just before it) must show K1, K7 and K9 launched; per-buffer
+     (reset just before it) must show every kernel launched; per-buffer
      host seconds of ``scan_submit`` and ``record_complete`` and the
      fallback share are printed (this one card cannot show copies
      between cards);
   5b. the SA-range-sharded index: one 4,096-read buffer's scan with the
      whole index split over 4 "idx" shards on the card (dense rank)
      must equal the replicated scan and the engine's flat result; both
-     timed in turns; K10's calls, bytes, bound and device events in one
-     scan;
+     timed in turns (its locked phase runs the torch steps: the
+     gathers are injected); K10's calls, bytes, bound and device events
+     in one scan;
   5c. ``genotype --engine device --max_threads 2`` on the 4,000 parity
      reads (spawned workers, since CUDA is initialised) must write files
      byte-equal to phase 4's host engine run.
@@ -104,7 +118,8 @@ the path (K1's numbers are those of its largest call on the path;
 ``launches`` counts phase 3's main path, ``launches_per_buffer`` phase
 1d's buffers, ``trace_ms`` the device time a launch in phase 1d's
 trace; K9's launch is one call of the whole per-base recorder, four
-kernels); the last is ``{"ok": true, "device": {...}}``. Any failed
+kernels; the locked tail's is one launch a buffer, the whole locked
+phase); the last is ``{"ok": true, "device": {...}}``. Any failed
 check raises, and the script exits non-zero; it also exits non-zero,
 printing no result, when no CUDA device is available. It imports no
 JAX and nothing of the JAX package (it checks so at the end).
@@ -124,12 +139,13 @@ from dataclasses import dataclass
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-LIBS = ("packed_rank", "replay", "walk")     # csrc/<name>.cu
+LIBS = ("packed_rank", "replay", "walk", "locked_step")   # csrc/<name>.cu
 # each entry of the kernels line: its __global__ functions (trace names
 # read "(anonymous namespace)::<name>_kernel(...)")
 KERNELS = {"packed_rank": ("packed_rank",), "replay": ("replay",),
            "per_base": ("per_base_init", "per_base_expand", "per_base_walk",
-                        "per_base_apply")}
+                        "per_base_apply"),
+           "locked_step": ("locked_tail",)}
 LABEL = "per_base"        # the record_function around the per-base call
 # the profiling knobs: set, they change the main path's output files
 STAGE_KNOBS = ("GRAMTOOLS_TPU_REPLAY_STAGE", "GRAMTOOLS_TPU_RECORD_STAGE")
@@ -209,7 +225,7 @@ HBM_BYTES_PER_MS = 3.35e12 / 1e3
 
 def bound_ms(nbytes: int) -> float:
     """The least time the card could take to move ``nbytes`` (each input
-    byte read once, each output byte written once); the three kernels
+    byte read once, each output byte written once); the hand kernels
     do a few integer operations a byte, so bytes bound them."""
     return nbytes / HBM_BYTES_PER_MS
 
@@ -390,10 +406,12 @@ def phase_scan(cfg: SmokeConfig, idx, kmer_index, reads, device):
     from gramtools_tpu_torch.mapping.engine import LogBatchedEngine
     from gramtools_tpu_torch.mapping.search_log import (log_search_packed,
                                                         log_search_probe)
+    from gramtools_tpu_torch.ops import locked_step
 
     os.environ["GRAMTOOLS_TPU_RANK"] = "packed"
     engine = LogBatchedEngine(idx, cfg.kmer_size, device=device)
     batch = ReadBatch(np.ascontiguousarray(reads[:cfg.scan_reads]))
+    tails = locked_step.locked_tail.launches
     t0 = time.perf_counter()
     token = engine.scan_submit(batch, kmer_index, cfg.kmer_size,
                                QuasimapStats())
@@ -411,6 +429,10 @@ def phase_scan(cfg: SmokeConfig, idx, kmer_index, reads, device):
         return out, time.perf_counter() - t
 
     flat_dense, dense_s = run_dense(device)
+    # the locked phase of both CUDA scans ran as the kernel
+    if phases[-1][4:] != ("locked",) or (
+            locked_step.locked_tail.launches != tails + 2):
+        raise AssertionError("the CUDA scans did not launch the locked tail")
     # the plain run on the CPU uses the packed rank's torch twin
     di_cpu = DeviceIndex.build(idx, engine.jt, "cpu")
     t = time.perf_counter()
@@ -429,7 +451,8 @@ def phase_scan(cfg: SmokeConfig, idx, kmer_index, reads, device):
     ovf = int(flat_packed[4 * N:4 * N + R].sum())
     say(f"[phase 2] scan of {len(token[1])} rows (R={R}, phases={phases}): "
         f"flat result ({flat_packed.size} int32) equal on {device.type} "
-        f"packed, {device.type} dense and cpu; {live} live states, {ovf} "
+        f"packed, {device.type} dense (each with the locked-tail kernel) and "
+        f"cpu (the plain versions); {live} live states, {ovf} "
         f"rows overflowed; {packed_s:.3f} s submit+scan packed, "
         f"{dense_s:.3f} s dense, {cpu_s:.3f} s cpu")
 
@@ -558,7 +581,7 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
                                                       QuasimapStats,
                                                       ReadBatch)
     from gramtools_tpu_torch.mapping.engine import LogBatchedEngine
-    from gramtools_tpu_torch.ops import rank, replay
+    from gramtools_tpu_torch.ops import locked_step, rank, replay
 
     os.environ["GRAMTOOLS_TPU_RANK"] = "packed"
     B = DEVICE_BUFFER_SIZE
@@ -586,6 +609,7 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
         return packed_rank_cuda(blocks, rows, size)
 
     packed_rank_cuda = rank.packed_rank_cuda
+    locked_tail_cuda = locked_step.locked_tail_cuda
     per_base = record._record_per_base_device
     select = search_log.select_and_record_device
     lines, per_buffer = [], []
@@ -602,6 +626,7 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
             record._record_per_base_device = keep("per_base", per_base)
             search_log.select_and_record_device = keep("select", select)
             rank.packed_rank_cuda = keep_rank
+            locked_step.locked_tail_cuda = keep("locked", locked_tail_cuda)
             torch.cuda.set_sync_debug_mode("error")
             try:
                 token = engine.scan_submit(batch, kmer_index, cfg.kmer_size,
@@ -616,6 +641,7 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
                 record._record_per_base_device = per_base
                 search_log.select_and_record_device = select
                 rank.packed_rank_cuda = packed_rank_cuda
+                locked_step.locked_tail_cuda = locked_tail_cuda
             busy_ms = kernels = None
         elif b == 2:
             # after the buffer, in the same trace: the per-base recorder
@@ -694,7 +720,7 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
         ours = {k: sum(ms for name, ms, _ in top
                        if any(f"::{g}_kernel(" in name for g in KERNELS[k]))
                 for k in KERNELS}
-        for k in ("packed_rank", "replay"):
+        for k in ("packed_rank", "replay", "locked_step"):
             if per_buffer[2][k]:
                 trace_ms[k] = ours[k] / per_buffer[2][k]
         if windows[0] is not None:
@@ -703,6 +729,7 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
             f"{busy_ms:.2f} ms device busy over {kernels} device events "
             f"({len(top)} kernel names); "
             f"K1 {ours['packed_rank']:.3f} ms, K7 {ours['replay']:.3f} ms, "
+            f"K3 locked {ours['locked_step']:.3f} ms, "
             f"K9 {trace_ms['per_base'] or float('nan'):.4f} ms (its 4 "
             f"kernels, the marked call; "
             f"the trace also holds the two per-base calls after the buffer, "
@@ -717,15 +744,11 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
             say("[phase 1d] trace: names outside at::native: " + "; ".join(
                 f"{name[:80]} {ms:.3f} ms x{n}" for name, ms, n in top
                 if "at::native" not in name)[:2000])
-
-    def entry(name, source, replaces, m):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "max_abs_err": m["max_abs_err"],
-                "ms": m["ms"], "plain_ms": m["plain_ms"],
-                "bound_ms": m["bound_ms"], "bound_by": "bytes",
-                "library_ms": m["library_ms"],
-                "launches_per_buffer": [c[name] for c in per_buffer],
-                "trace_ms": trace_ms[name]}
+    captured["tail_windows"] = trace_tail_designs(
+        engine, batch, kmer_index, cfg, stats, firsts, work)
+    captured["per_buffer"], captured["trace_ms"] = per_buffer, trace_ms
+    entry = lambda name, source, replaces, m: kernel_entry(
+        name, source, replaces, m, per_buffer, trace_ms)
 
     # K1: every call of buffer 1 against the twin; the largest one timed
     calls = captured["packed_rank"]
@@ -757,6 +780,68 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
                          check_per_base(cfg, captured["per_base"], windows,
                                         sort_fn)))
     return entries, captured
+
+
+def kernel_entry(name, source, replaces, m, per_buffer, trace_ms):
+    """One kernel's entry of the kernels line (without the main path's
+    launch counts, which phase 3 adds)."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "max_abs_err": m["max_abs_err"],
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": "bytes",
+            "library_ms": m["library_ms"],
+            "launches_per_buffer": [c[name] for c in per_buffer],
+            "trace_ms": trace_ms[name]}
+
+
+def k1_locked_tail(*args, **kwargs):
+    """The locked phase as the path ran it before the locked kernel:
+    the torch locked steps, their occ gathers through K1."""
+    from gramtools_tpu_torch.ops import locked_step, rank
+
+    plain = locked_step._plain_packed_rows
+    locked_step._plain_packed_rows = rank.make_packed_occ_rows
+    try:
+        return locked_step.locked_tail_torch(*args, **kwargs)
+    finally:
+        locked_step._plain_packed_rows = plain
+
+
+def trace_tail_designs(engine, batch, kmer_index, cfg, stats, firsts,
+                       work: Path):
+    """One buffer's scan_submit twice in one torch.profiler session,
+    each between markers: the path (the locked phase one kernel launch)
+    and the path before it (the locked phase as torch steps with K1).
+    Returns their [(device events, busy ms, span ms)], or [] when the
+    trace shows no window."""
+    import torch
+
+    from gramtools_tpu_torch.mapping import search_log
+    from gramtools_tpu_torch.ops import locked_step
+
+    tokens = []
+
+    def submit():
+        tokens.append(engine.scan_submit(batch, kmer_index, cfg.kmer_size,
+                                         stats, first_raws=firsts))
+
+    def traced():
+        # the session's first events (a profiler session may miss them),
+        # not a marker
+        torch.ones(1, device=engine.device).add_(1)
+        torch.cuda.synchronize()
+        marked(submit)()
+        search_log.locked_tail = k1_locked_tail
+        try:
+            marked(submit)()
+        finally:
+            search_log.locked_tail = locked_step.locked_tail
+
+    busy, _, _, timeline = _profile_device(traced, work / "trace_tail")
+    for token in tokens:
+        token[2][1].get()
+    windows = marked_windows(timeline) if busy is not None else []
+    return windows if len(windows) == 2 else []
 
 
 def check_replay(cfg: SmokeConfig, call, trace_ms):
@@ -800,6 +885,144 @@ def check_replay(cfg: SmokeConfig, call, trace_ms):
         + ("" if trace_ms["replay"] is None else
            f", {trace_ms['replay']:.4f} ms a launch in the trace"))
     return m
+
+
+FORCED_TAIL = (8, 4)     # phase 1f's forced (hits, wide budget)
+
+
+def locked_bytes(args, le) -> int:
+    """The locked tail's bytes for these inputs (a lower bound): the
+    reads rows, the incoming carry and flags read once, the final carry
+    and flags and every log record written once; each step's narrow_tab
+    word of every live state and two occ rows (16 bytes dense, 32 the
+    packed checkpoint and code vector) of each covered wide state; per
+    hit pair with a locus past 0 (``le`` >= B), its locus and outcome
+    words, and two occ rows for each valid outcome. The live and wide
+    states per step come from stepping the plain version."""
+    import torch
+
+    from gramtools_tpu_torch.mapping.scan_steps import (build_narrow_step,
+                                                        lock_pool)
+    from gramtools_tpu_torch.mapping.search_log_host import LogConfig
+    from gramtools_tpu_torch.ops import locked_step
+
+    di, reads, carry, log_base, _, _, G, W, blocks, lock = args
+    S, R = reads.shape
+    B = di.n_outcomes
+    row = 16 if blocks is None else 32
+    occ_rows = (None if blocks is None
+                else locked_step._plain_packed_rows(blocks, di.size))
+    step = build_narrow_step(di, LogConfig(pool=R, hits=G), R, W,
+                             occ_rows=occ_rows, locked=True)
+    c = lock_pool(carry, R, R) if lock else carry
+    live = wide = 0
+    for i in range(S):
+        valid = c[0] >= 0
+        live += int(valid.sum())
+        wide += min(int((valid & (reads[i] > 0) & (c[1] != c[2])).sum()), W)
+        c, _ = step(c, reads[i], log_base + i * G * B)
+    ev = le[log_base:log_base + S * G * B].to(torch.int64)
+    hit = ev >= B
+    li, b = ev // B, ev % B
+    outcome = hit & (di.out_lo[li.clamp(0, di.out_lo.shape[0] - 1), b] >= 0)
+    n_in = carry[0].shape[0]
+    return (S * R * 4 + n_in * 16 + (R + 1) + R * 16 + (R + 1) + S * G * B * 8
+            + 4 * live + 2 * row * wide + 8 * int(hit.sum())
+            + 2 * row * int(outcome.sum()))
+
+
+def phase_locked(cfg: SmokeConfig, captured):
+    """Phase 1f: the locked-tail kernel (csrc/locked_step.cu) on buffer
+    1's own locked-phase inputs: equal bit for bit to the path's own call
+    and to the plain version (carry, flags, every log record) there and
+    at forced budgets (hits 8, wide budget 4: spills and conflicts), and
+    in two ranges (the lock and the first half, then the rest on the
+    locked carry); its time by queued CUDA events, its bound and share;
+    the buffer's device events and busy time with the kernel and with
+    the torch steps it replaces (phase 1d's trace). Returns its entry of
+    the kernels line."""
+    import torch
+
+    from gramtools_tpu_torch.ops import locked_step
+
+    (args, kwargs), path_out = captured["locked"], captured["locked_out"]
+    assert not kwargs
+    di, reads, carry, log_base, lp, _, G, W, blocks, lock = args
+    S, R = reads.shape
+    B = di.n_outcomes
+
+    def run(fn, G_, W_, a=args, lock_=lock, reads_=reads, base=log_base):
+        lp2 = torch.full_like(lp, -7)
+        le2 = torch.full_like(lp, -7)
+        out = fn(di, reads_, a[2], base, lp2, le2, G_, W_, blocks, lock_)
+        return tuple(out) + (lp2, le2)
+
+    def compare(what, G_, W_):
+        got = run(locked_step.locked_tail_cuda, G_, W_)
+        want = run(locked_step.locked_tail_torch, G_, W_)
+        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                  for g, w in zip(got, want))
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"locked tail kernel != twin ({what}, max "
+                                 f"abs err {err})")
+        return got, err
+
+    got, err = compare("path inputs", G, W)
+    if not all(torch.equal(g, w) for g, w in zip(got, path_out)):
+        raise AssertionError("locked tail kernel != the path's own call")
+    forced, err_f = compare("forced budgets", *FORCED_TAIL)
+    ovf0 = int(carry[4][:R].sum())
+    raised = int(got[4][:R].sum()) - ovf0
+    raised_f = int(forced[4][:R].sum()) - ovf0
+    if raised_f <= raised:
+        raise AssertionError("the forced budgets raised no more flags")
+    # two ranges: the lock and [0, S/2), then [S/2, S) on the locked carry
+    h = S // 2
+    first = run(locked_step.locked_tail_cuda, G, W, reads_=reads[:h])
+    lp2, le2 = first[5], first[6]
+    second = locked_step.locked_tail_cuda(
+        di, reads[h:], first[:5], log_base + h * G * B, lp2, le2, G, W,
+        blocks, False)
+    if not (all(torch.equal(a, b) for a, b in zip(second, got[:5]))
+            and torch.equal(lp2, got[5]) and torch.equal(le2, got[6])):
+        raise AssertionError("locked tail in two ranges != one call")
+
+    lp_t, le_t = torch.empty_like(lp), torch.empty_like(lp)
+    m = {"max_abs_err": max(err, err_f),
+         "ms": time_ms(lambda: locked_step.locked_tail_cuda(
+             di, reads, carry, log_base, lp_t, le_t, G, W, blocks, lock),
+             cfg.timing_runs),
+         "plain_ms": time_each_ms(lambda: locked_step.locked_tail_torch(
+             di, reads, carry, log_base, lp_t, le_t, G, W, blocks, lock), 3),
+         "library_ms": None}
+    nbytes = locked_bytes(args, got[6])
+    m["bound_ms"] = bound_ms(nbytes)
+    trace = captured["trace_ms"]["locked_step"]
+    windows = captured["tail_windows"]
+    tail = ("not in a trace" if not windows else
+            f"{windows[0][0]} device events, {windows[0][1]:.3f} ms busy "
+            f"over a {windows[0][2]:.3f} ms span with the kernel; "
+            f"{windows[1][0]} events, {windows[1][1]:.3f} ms busy over "
+            f"{windows[1][2]:.3f} ms with the torch steps and K1 (the path "
+            f"before it)")
+    say(f"[phase 1f] K3 locked tail (csrc/locked_step.cu, one cooperative "
+        f"launch) on buffer 1's locked phase: {S} steps, R={R} slots, "
+        f"{carry[0].shape[0]} incoming states, G={G}, W={W}, B={B}, rank "
+        f"{'dense' if blocks is None else 'packed'}: kernel == the path's "
+        f"call == twin (carry, flags, {S * G * B} log records), {raised} "
+        f"rows flagged; forced hits {FORCED_TAIL[0]}, wide budget "
+        f"{FORCED_TAIL[1]}: equal, {raised_f} "
+        f"flagged; two ranges [0, {h}) + [{h}, {S}) == one call; queued "
+        f"events {m['ms']:.4f} ms kernel, {m['plain_ms']:.4f} ms twin (one "
+        f"call, host-bound); bound {m['bound_ms']:.4f} ms ({nbytes} bytes), "
+        f"kernel at {100 * m['bound_ms'] / m['ms']:.2f}% of it by events"
+        + ("" if trace is None else
+           f", {trace:.4f} ms in the trace "
+           f"({100 * m['bound_ms'] / trace:.2f}%)")
+        + f"; one buffer's scan_submit in one trace: {tail}")
+    return kernel_entry("locked_step", "gramtools_tpu_torch/csrc/locked_step.cu",
+                        "gramtools_tpu/mapping/search_jax_log.py:232", m,
+                        captured["per_buffer"], captured["trace_ms"])
 
 
 REPLAY_STAGES = (1, 2, 99)       # the chase; + the seed gather; + the apply
@@ -1280,6 +1503,7 @@ def phase_fused_parity(cfg: SmokeConfig, idx, kmer_index, reads, device):
 
     batch = ReadBatch(np.ascontiguousarray(reads[:cfg.scan_reads]))
     _, firsts = _first_draws(cfg, cfg.scan_reads, 7)
+    launches = {name: fn.launches for name, fn in _counted().items()}
     engine_mod.log_search_record = capture
     try:
         t0 = time.perf_counter()
@@ -1290,6 +1514,9 @@ def phase_fused_parity(cfg: SmokeConfig, idx, kmer_index, reads, device):
     finally:
         engine_mod.log_search_record = log_search_record
     cov_cuda = engine.cov_diff[0].cpu()
+    for name, fn in _counted().items():
+        if fn.launches <= launches[name]:
+            raise AssertionError(f"the fused program launched no {name}")
     (di, rt, st, *rest), kwargs = captured["call"]
     cov_cpu = torch.zeros(rt.cov_size + 1, dtype=torch.int32)
     t0 = time.perf_counter()
@@ -1309,7 +1536,8 @@ def phase_fused_parity(cfg: SmokeConfig, idx, kmer_index, reads, device):
     say(f"[phase 2b] fused program on {len(token[1])} rows (R={R}, "
         f"trip_cap={trip_cap}): flat result ({flat_cuda.size} int32) and "
         f"cov_diff ({cov_cpu.numel()} int32, {int((cov_cpu != 0).sum())} "
-        f"non-zero) equal on cuda and cpu; {int(flat_cuda[2 * R:3 * R].sum())}"
+        f"non-zero) equal on cuda (K1, K7, K9 and the locked tail launched) "
+        f"and cpu; {int(flat_cuda[2 * R:3 * R].sum())}"
         f" rows mapped, {int((fb != 0).sum())} flagged, "
         f"{int((flat_cuda[3 * R:3 * R + trip_cap] < R).sum())} loci triples;"
         f" {cuda_s:.3f} s cuda submit+wait, {cpu_s:.3f} s cpu")
@@ -1322,11 +1550,12 @@ def genotype_args(gram: Path, out: Path, reads: Path, engine: str):
 
 
 def _counted():
-    """The three kernels' launch-counting wrappers, by name."""
-    from gramtools_tpu_torch.ops import rank, replay, walk
+    """The four kernels' launch-counting wrappers, by name."""
+    from gramtools_tpu_torch.ops import locked_step, rank, replay, walk
 
     return {"packed_rank": rank.packed_rank, "replay": replay.replay,
-            "per_base": walk.per_base_cuda}
+            "per_base": walk.per_base_cuda,
+            "locked_step": locked_step.locked_tail}
 
 
 class TimerLines(logging.Handler):
@@ -1658,12 +1887,12 @@ def phase_pool(work: Path):
 def run(cfg: SmokeConfig, device) -> dict:
     import torch
 
-    from gramtools_tpu_torch.ops import _build, rank, replay, walk
+    from gramtools_tpu_torch.ops import _build, locked_step, rank, replay, walk
 
     t0 = time.perf_counter()
     probe = start_probe_build()
     _build.build_all(LIBS)
-    for mod in (rank, replay, walk):
+    for mod in (rank, replay, walk, locked_step):
         mod._kernel_lib()
     say(f"[phase 0] csrc/{{{','.join(LIBS)}}}.cu built together in "
         f"{_build.build_seconds[LIBS[0]]:.2f} s "
@@ -1680,6 +1909,7 @@ def run(cfg: SmokeConfig, device) -> dict:
         entries, captured = phase_path(cfg, idx, kmer_index, reads, device,
                                        work, dense, probe)
         phase_stages(cfg, captured, work)
+        entries.append(phase_locked(cfg, captured))
         del captured
         entries[0]["max_abs_err"] = max(entries[0]["max_abs_err"], err)
         del dense

@@ -35,6 +35,9 @@
 // the threads of the earlier kernel are in flight to hide the latency
 // of the random sector reads.
 //
+// The per-row count (count_word, count_vec, the clamp and the record
+// address) lives in packed_rank.cuh, shared with locked_step.cu.
+//
 // C interface for ctypes (no PyTorch headers): the wrapper passes raw
 // device pointers and PyTorch's current stream; the function returns
 // cudaGetLastError() after the launch, 0 on success.
@@ -42,32 +45,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "packed_rank.cuh"
+
 namespace {
 
-constexpr int kBlock = 128;       // symbols per record
-constexpr int kVecs = 6;          // 16-byte vectors per 96-byte record
-constexpr int kCodeVec0 = 2;      // first code vector (words 8-11)
-constexpr unsigned kRep = 0x11111111u;   // one bit per nibble
-constexpr unsigned kFull = 0xFFFFFFFFu;
-
-// Packed counts (A | C << 8 | G << 16 | T << 24) of the first n nibbles
-// of one code word (0 <= n <= 8).
-__device__ __forceinline__ unsigned count_word(unsigned word, int n) {
-  const unsigned pmask = n >= 8 ? kFull : ((1u << (4 * n)) - 1u);
-  unsigned packed = 0;
-#pragma unroll
-  for (int c = 1; c <= 4; ++c) {
-    // nibble equality with code c: every bit of (word ^ c*rep) zero
-    const unsigned y = ~(word ^ (unsigned)c * kRep);
-    const unsigned m = y & (y >> 1) & (y >> 2) & (y >> 3) & kRep;
-    packed += (unsigned)__popc(m & pmask) << (8 * (c - 1));
-  }
-  return packed;
-}
-
-__device__ __forceinline__ int clampn(int n) {
-  return n < 0 ? 0 : (n > 8 ? 8 : n);
-}
+using namespace packed_rank_dev;
 
 __global__ void packed_rank_kernel(const uint4* __restrict__ blocks,
                                    const int* __restrict__ rows,
@@ -77,31 +59,18 @@ __global__ void packed_rank_kernel(const uint4* __restrict__ blocks,
   const long long i = t >> 2;      // query of this quad
   const int q = threadIdx.x & 3;   // lane in the quad
   const bool ok = i < m;
-  // the scan passes -1 for invalid jump outcomes and relies on this
-  // clamp (rank.py: jnp.clip(rows, 0, size))
-  int r = ok ? __ldg(rows + i) : 0;
-  r = r < 0 ? 0 : (r > size ? size : r);
-  const uint4* rec = blocks + (size_t)(r / kBlock) * kVecs;
-  const int n = r % kBlock - 32 * q;   // prefix nibbles in this lane's part
+  int off;
+  const uint4* rec = record_of(blocks, ok ? __ldg(rows + i) : 0, size, &off);
+  const int n = off - 32 * q;      // prefix nibbles in this lane's part
 
   uint4 ck = make_uint4(0, 0, 0, 0);
   if (ok && q == 0) ck = __ldg(rec);
   unsigned packed = 0;
-  if (ok && n > 0) {
-    const uint4 w = __ldg(rec + kCodeVec0 + q);
-    packed = count_word(w.x, clampn(n)) + count_word(w.y, clampn(n - 8))
-             + count_word(w.z, clampn(n - 16))
-             + count_word(w.w, clampn(n - 24));
-  }
+  if (ok && n > 0) packed = count_vec(__ldg(rec + kCodeVec0 + q), n);
   // quads never straddle a warp: every lane takes part in both shuffles
   packed += __shfl_xor_sync(kFull, packed, 1);
   packed += __shfl_xor_sync(kFull, packed, 2);
-  if (ok && q == 0) {
-    out[i] = make_int4((int)(ck.x + (packed & 0xFFu)),
-                       (int)(ck.y + ((packed >> 8) & 0xFFu)),
-                       (int)(ck.z + ((packed >> 16) & 0xFFu)),
-                       (int)(ck.w + (packed >> 24)));
-  }
+  if (ok && q == 0) out[i] = add_packed(ck, packed);
 }
 
 }  // namespace

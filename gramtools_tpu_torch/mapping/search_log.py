@@ -32,7 +32,8 @@ import os
 
 import torch
 
-from ..ops.rank import make_packed_occ_rows
+from ..ops.locked_step import locked_tail
+from ..ops.rank import PackedOccRows, make_packed_occ_rows
 from .record import replay_device, select_and_record_device
 from .scan_steps import (build_log_step, build_narrow_step, lock_pool,
                          resize_pool)
@@ -58,8 +59,14 @@ def _scan_phases(di, reads, carry, phases, num_reads: int, occ_rows,
     genealogy records into their place in lp/le (preallocated, steps·G·B
     each), and returns the final carry with its (num_reads,) overflow.
     occ_rows / narrow_rows: the occ and narrow_tab gathers (None = the
-    dense tables in di). collect_live=True also returns the live-state
-    count after each phase, a (n_phases,) int64 device tensor."""
+    dense tables in di; occ_rows may be the packed rank, a
+    ``PackedOccRows``). A locked phase over the index's own tables (the
+    dense occ or the packed rank, no injected gather) is one
+    ``ops/locked_step.locked_tail`` call (on CUDA one kernel launch);
+    injected gathers (the SA-range-sharded index, parallel/
+    sharded_index.py) keep the torch locked step. collect_live=True
+    also returns the live-state count after each phase, a (n_phases,)
+    int64 device tensor."""
     dev = di.device
     B = di.n_outcomes
     read_id, lo, hi, pref, overflow = carry
@@ -75,7 +82,26 @@ def _scan_phases(di, reads, carry, phases, num_reads: int, occ_rows,
         cfg = LogConfig(pool=pool, hits=hits)
         narrow_ok = narrow_w > 0 and (
             narrow_rows is not None or di.narrow_tab.shape[0] == di.size)
+        GB = hits * B
+        if (kind == "locked" and narrow_ok and narrow_rows is None
+                and (occ_rows is None or isinstance(occ_rows, PackedOccRows))):
+            # the whole locked phase in one call (a kernel launch on CUDA)
+            if pool != num_reads:
+                raise ValueError(f"locked phase needs pool == num_reads, "
+                                 f"got {pool} and {num_reads}")
+            rid, lo, hi, pref, ovf = carry
+            carry = locked_tail(
+                di, reads[offset:offset + n_steps].contiguous(),
+                (rid.contiguous(), lo.contiguous(), hi.contiguous(),
+                 pref.contiguous(), ovf), log_base, lp, le, hits, narrow_w,
+                blocks=None if occ_rows is None else occ_rows.blocks)
+            log_base += n_steps * GB
+            offset += n_steps
+            if collect_live:
+                live.append((carry[0] >= 0).sum())
+            continue
         if kind == "locked" and narrow_ok:
+            # injected gathers (the SA-range-sharded index): the torch step
             carry = lock_pool(carry, pool, num_reads)
             step = build_narrow_step(di, cfg, num_reads, narrow_w,
                                      occ_rows=occ_rows, locked=True,
@@ -88,7 +114,6 @@ def _scan_phases(di, reads, carry, phases, num_reads: int, occ_rows,
         else:
             carry = resize_pool(carry, pool, num_reads)
             step = build_log_step(di, cfg, num_reads, occ_rows=occ_rows)
-        GB = hits * B
         for i in range(n_steps):
             carry, (rec_parent, rec_event) = step(
                 carry, reads[offset + i], log_base)

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled with
 ``nvcc`` into ``build/lib<name>-<hash>.so`` inside the package (the
 directory is git-ignored), at first use, and loaded with ``ctypes``.
-The file name carries a hash of the source and flags, so an edited
-kernel is rebuilt and a stale library is never loaded. Nothing here
+The file name carries a hash of the source, of every shared header
+``csrc/*.cuh`` (a source includes them from ``csrc``, which is on the
+include path) and of the flags, so an edited kernel or header is
+rebuilt and a stale library is never loaded. Nothing here
 runs at import time: the CPU tests import every module on a machine
 without ``nvcc``.
 """
@@ -23,7 +25,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", str(CSRC_DIR)]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 build_seconds: Dict[str, float] = {}
@@ -42,8 +44,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    digest = hashlib.sha256(h.digest()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

@@ -216,13 +216,23 @@ def packed_rank(blocks: torch.Tensor, rows: torch.Tensor,
 packed_rank.launches = 0
 
 
-def make_packed_occ_rows(blocks: torch.Tensor, size: int):
-    """Returns occ_rows(rows) -> (..., 4) int32 for any query shape,
-    such as (2N,) or (2G, B): a drop-in for the dense di.occ gather in
-    the scan steps."""
-    def occ_rows(rows: torch.Tensor) -> torch.Tensor:
+class PackedOccRows:
+    """occ_rows(rows) -> (..., 4) int32 for any query shape, such as
+    (2N,) or (2G, B), through ``packed_rank``: a drop-in for the dense
+    di.occ gather in the scan steps. It carries its ``blocks`` and
+    ``size``, so a caller can hand the records themselves to a kernel
+    that folds the rank in (ops/locked_step.py)."""
+
+    def __init__(self, blocks: torch.Tensor, size: int):
+        self.blocks = blocks
+        self.size = size
+
+    def __call__(self, rows: torch.Tensor) -> torch.Tensor:
         shape = tuple(rows.shape)
-        out = packed_rank(blocks, rows.reshape(-1), size)
+        out = packed_rank(self.blocks, rows.reshape(-1), self.size)
         return out.reshape(shape + (4,))
 
-    return occ_rows
+
+def make_packed_occ_rows(blocks: torch.Tensor, size: int) -> PackedOccRows:
+    """The packed-rank occ gather over ``blocks`` (PackedOccRows)."""
+    return PackedOccRows(blocks, size)

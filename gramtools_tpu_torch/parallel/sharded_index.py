@@ -17,7 +17,12 @@ queries the index shards devices[d, :].
 
 The step itself is the production genealogy-log scan
 (search_log.log_search_phases) with the gathers injected -- no second
-search implementation to keep in sync.
+search implementation to keep in sync. Because its gathers are
+injected, its slot-locked phase runs the torch locked step
+(scan_steps.build_narrow_step), not the locked-tail kernel
+(ops/locked_step.py), which reads the index's own dense or packed
+tables: ``_scan_phases`` chooses by the ``occ_rows``/``narrow_rows``
+it is given. That is this configuration's path, not a fallback.
 """
 from __future__ import annotations
 

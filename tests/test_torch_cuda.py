@@ -1,6 +1,6 @@
-"""The port on a CUDA device: the packed-rank (K1) and genealogy-replay
-(K7) kernels and the per-base recorder's kernels (K9) against their
-plain torch versions,
+"""The port on a CUDA device: the packed-rank (K1), genealogy-replay
+(K7) and locked-tail (K3 locked) kernels and the per-base recorder's
+kernels (K9) against their plain torch versions,
 the scan and the fused record program on CUDA against the CPU, the
 engine against the host oracle, the mesh engine and the index-sharded
 scan on one card and, where the machine has two cards or more, across
@@ -41,7 +41,7 @@ from gramtools_tpu_torch.mapping.search_log import (log_search_packed,
 from gramtools_tpu_torch.mapping.search_log_host import (FB_EMIT, FB_WALK,
                                                          TCAP, LogConfig,
                                                          buffer_caps)
-from gramtools_tpu_torch.ops import rank, replay, walk
+from gramtools_tpu_torch.ops import locked_step, rank, replay, walk
 
 pytestmark = pytest.mark.cuda
 
@@ -128,10 +128,13 @@ def test_scan_flat_result_equal_on_cuda_and_cpu(cuda, rank_kind,
     kmer_index = build_kmer_index(idx, k)
     engine = LogBatchedEngine(idx, k, LogConfig(pool=4096, hits=16),
                               device=cuda)
+    before = locked_step.locked_tail.launches
     token = engine.scan_submit(_reads(idx, 200, 60, 3), kmer_index, k,
                                QuasimapStats())
     (pending, phases, R), carry, reads_T = token[2], token[5], token[6]
     got = pending.get()
+    assert phases[-1][4] == "locked"
+    assert locked_step.locked_tail.launches == before + 1
     di_cpu = DeviceIndex.build(idx, engine.jt, "cpu")
     blocks = engine.blocks.cpu() if engine.blocks is not None else None
     want = log_search_packed(
@@ -409,6 +412,139 @@ def test_replay_wrapper_checks_inputs(cuda):
 
 
 # --------------------------------------------------------------------------
+# the locked scan tail (K3 locked)
+# --------------------------------------------------------------------------
+
+def _locked_case(rank_kind, R, seed, steps):
+    """(DeviceIndex, reads (steps, R), carry, blocks) on the CPU: an
+    incoming pool of 1.25 R random states (so reads hold two at the
+    lock), random bases with one all-zero step (no hit at all)."""
+    idx = _idx()
+    di = DeviceIndex.build(idx, device="cpu")
+    n = di.size
+    rng = np.random.RandomState(seed)
+    n_in = R + R // 4
+    rid = np.where(rng.rand(n_in) < 0.8, rng.randint(0, R, size=n_in), -1)
+    lo = rng.randint(0, n, size=n_in)
+    hi = np.minimum(lo + rng.choice([0, 0, 0, 0, 1, 2, 5, 40], size=n_in),
+                    n - 1)
+    pref = rng.randint(-60, 900, size=n_in)
+    ovf = np.concatenate([rng.rand(R) < 0.05, [False]])
+    carry = tuple(torch.from_numpy(a.astype(np.int32))
+                  for a in (rid, lo, hi, pref)) + (torch.from_numpy(ovf),)
+    reads = rng.randint(0, 5, size=(steps, R)).astype(np.int32)
+    reads[min(1, steps - 1)] = 0
+    blocks = (rank.blocks_tensor(rank.build_packed_occ(idx.fm), "cpu")
+              if rank_kind == "packed" else None)
+    return di, torch.from_numpy(reads), carry, blocks
+
+
+def _locked_on(device, di, reads, carry, blocks):
+    return (_to_device(di, device),
+            reads.to(device), tuple(a.to(device) for a in carry),
+            None if blocks is None else blocks.to(device))
+
+
+def _log_pair(n, device):
+    return (torch.full((n,), -7, dtype=torch.int32, device=device),
+            torch.full((n,), -7, dtype=torch.int32, device=device))
+
+
+@pytest.mark.parametrize("steps", [1, 6])
+@pytest.mark.parametrize("G,W", [(512, 10_000), (2, 8)])
+@pytest.mark.parametrize("R", [300, 5000])
+@pytest.mark.parametrize("rank_kind", ["dense", "packed"])
+def test_locked_tail_kernel_matches_twin(cuda, rank_kind, R, G, W, steps):
+    di, reads, carry, blocks = _locked_case(rank_kind, R, R + G + steps,
+                                            steps)
+    W = min(W, R)
+    B = di.n_outcomes
+    base = 33
+    n_log = base + steps * G * B + 5
+    lp, le = _log_pair(n_log, "cpu")
+    want = locked_step.locked_tail(di, reads, carry, base, lp, le, G, W,
+                                   blocks=blocks)
+    cdi, creads, ccarry, cblocks = _locked_on(cuda, di, reads, carry, blocks)
+    clp, cle = _log_pair(n_log, cuda)
+    before = locked_step.locked_tail.launches
+    got = locked_step.locked_tail(cdi, creads, ccarry, base, clp, cle, G, W,
+                                  blocks=cblocks)
+    torch.cuda.synchronize()
+    assert locked_step.locked_tail.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert torch.equal(clp.cpu(), lp) and torch.equal(cle.cpu(), le)
+    # the inputs are never written
+    for a, b in zip(ccarry, carry):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("rank_kind", ["dense", "packed"])
+def test_locked_tail_kernel_range_split(cuda, rank_kind):
+    """Steps [0, 3) with the lock, then [3, 7) on the kernel's own
+    locked carry: the one-call result, carry and log."""
+    G, W = 64, 40
+    di, reads, carry, blocks = _locked_case(rank_kind, 1200, 5, 7)
+    cdi, creads, ccarry, cblocks = _locked_on(cuda, di, reads, carry, blocks)
+    n_log = 7 * G * di.n_outcomes
+    lp, le = _log_pair(n_log, cuda)
+    whole = locked_step.locked_tail(cdi, creads, ccarry, 0, lp, le, G, W,
+                                    blocks=cblocks)
+    lp2, le2 = _log_pair(n_log, cuda)
+    part = locked_step.locked_tail(cdi, creads[:3], ccarry, 0, lp2, le2, G, W,
+                                   blocks=cblocks)
+    part = locked_step.locked_tail(cdi, creads[3:], part, 3 * G * di.n_outcomes,
+                                   lp2, le2, G, W, blocks=cblocks, lock=False)
+    for a, b in zip(whole, part):
+        assert torch.equal(a, b)
+    assert torch.equal(lp, lp2) and torch.equal(le, le2)
+
+
+def test_locked_tail_wrapper_checks_inputs(cuda):
+    di, reads, carry, blocks = _locked_case("packed", 300, 1, 2)
+    cdi, creads, ccarry, cblocks = _locked_on(cuda, di, reads, carry, blocks)
+    lp, le = _log_pair(2 * 16 * di.n_outcomes, cuda)
+    call = lambda **kw: locked_step.locked_tail_cuda(**{**dict(
+        di=cdi, reads=creads, carry=ccarry, log_base=0, lp=lp, le=le,
+        hits=16, wide_budget=8, blocks=cblocks), **kw})
+    call()                                     # the good call launches
+    with pytest.raises(TypeError):
+        call(reads=creads.long())
+    with pytest.raises(ValueError):            # overflow without its dump slot
+        call(carry=ccarry[:4] + (ccarry[4][:-1],))
+    with pytest.raises(ValueError):            # mixed devices
+        call(carry=(ccarry[0].cpu(),) + ccarry[1:])
+    with pytest.raises(ValueError):            # strided
+        call(reads=torch.cat([creads, creads], dim=1)[:, ::2])
+    with pytest.raises(ValueError):            # records past the log's end
+        call(log_base=1)
+    with pytest.raises(ValueError):            # a locked carry has R states
+        call(lock=False)
+    with pytest.raises(ValueError):            # not the packed records
+        call(blocks=cblocks[:-1])
+    with pytest.raises(ValueError):            # a CPU tensor
+        locked_step.locked_tail_cuda(di, reads, carry, 0, lp.cpu(), le.cpu(),
+                                     16, 8, blocks=blocks)
+
+
+def test_locked_tail_does_not_synchronise(cuda):
+    di, reads, carry, blocks = _locked_case("packed", 2000, 3, 8)
+    cdi, creads, ccarry, cblocks = _locked_on(cuda, di, reads, carry, blocks)
+    lp, le = _log_pair(8 * 32 * di.n_outcomes, cuda)
+    locked_step.locked_tail(cdi, creads, ccarry, 0, lp, le, 32, 16,
+                            blocks=cblocks)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = locked_step.locked_tail(cdi, creads, ccarry, 0, lp, le, 32, 16,
+                                      blocks=cblocks)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert out[0].shape == (2000,)
+
+
+# --------------------------------------------------------------------------
 # the fused record program and engine
 # --------------------------------------------------------------------------
 
@@ -468,8 +604,8 @@ def test_fused_record_flat_result_equal_on_cuda_and_cpu(cuda, monkeypatch):
 def test_fused_engine_on_cuda_matches_host_engine(cuda, monkeypatch,
                                                   tmp_path):
     """Whole quasimap runs, retries recorded on the card included: the
-    fused engine on CUDA gives the host engine's coverage, and K1, K7
-    and K9 all launched."""
+    fused engine on CUDA gives the host engine's coverage, and K1, K7,
+    K9 and the locked tail all launched."""
     monkeypatch.setenv("GRAMTOOLS_TPU_RANK", "packed")
     monkeypatch.setenv("GRAMTOOLS_TPU_RETRY_MIN", "1")
     idx_d, reads = _haplotype_reads(np.random.RandomState(4), 400)
@@ -481,13 +617,13 @@ def test_fused_engine_on_cuda_matches_host_engine(cuda, monkeypatch,
             fh.write(f"@r{i}\n{''.join(lut[r])}\n+\n{'I' * r.size}\n")
     engine = LogBatchedEngine(idx_d, k, LogConfig(pool=4096, hits=16),
                               device=cuda)
-    before = (rank.packed_rank.launches, replay.replay.launches,
-              walk.per_base_cuda.launches)
+    counted = (rank.packed_rank, replay.replay, walk.per_base_cuda,
+               locked_step.locked_tail)
+    before = tuple(fn.launches for fn in counted)
     stats_d, cov_d = quasimap_reads(
         [str(fq)], build_kmer_index_vectorised(idx_d, k), idx_d, k, seed=1,
         engine=engine, buffer_size=100)
-    after = (rank.packed_rank.launches, replay.replay.launches,
-             walk.per_base_cuda.launches)
+    after = tuple(fn.launches for fn in counted)
     assert all(a > b for a, b in zip(after, before)), (before, after)
     assert engine.device_mapped > 0 and engine.device_retried > 0
     idx_h = _haplotype_reads(np.random.RandomState(4), 400)[0]
