@@ -14,7 +14,7 @@ gramtools_tpu_torch/common/workload.py, seeded). Phases, in
 this order, each printing one line or a few:
 
   0. the card (nvidia-smi name and power limit), the build of the
-     four kernel sources and of the cursor-walk probe (one nvcc each,
+     five kernel sources and of the cursor-walk probe (one nvcc each,
      all started together);
   1. the packed-rank kernel (K1) against its plain torch twin, on a
      small FM index (every prefix length) and on the 4.4 Mb graph's
@@ -30,9 +30,10 @@ this order, each printing one line or a few:
      kernel's launches counted buffer by buffer; the second buffer's
      ``scan_submit`` runs under
      ``torch.cuda.set_sync_debug_mode("error")`` (no host
-     synchronisation allowed) and its K1 calls and its locked-tail (K3
-     locked), genealogy-replay (K7), selection (K8) and per-base
-     recorder (K9) inputs are kept;
+     synchronisation allowed) and its K1 calls (none: the scan kernels
+     fold the rank in) and its wide-step (K2), narrow-tail (K3),
+     genealogy-replay (K7), selection (K8) and per-base recorder (K9)
+     inputs are kept;
      the third runs
      inside ``gramtools_tpu_torch.common.timers.device_trace`` (a
      ``torch.profiler`` Chrome trace: device busy time, device event
@@ -40,8 +41,9 @@ this order, each printing one line or a few:
      device time a launch, and the per-base call's device events
      between two marker kernels); then the first buffer's reads go
      through ``scan_submit`` twice more in one trace, each between
-     markers: with the locked phase as the kernel and as the torch steps
-     with K1 that it replaces (the buffer's device events before and
+     markers: with the scan as its two kernel launches, and with the
+     wide and hole-allocated phases as the torch steps with K1 that K2
+     and K3 narrow replace (the buffer's device events before and
      after). Then every kept K1 call equals its
      twin and the largest is timed against the dense gather; K7 equals
      its twin bit for bit there and on a forced case (max_chain 2,
@@ -65,16 +67,21 @@ this order, each printing one line or a few:
      from stage 6) at stages 0-6 and 99, stage 99 equal to the path's
      own call, each timed by queued events and traced once between
      markers (device events and busy time by stage), with K8's bound;
-  1f. the locked tail (csrc/locked_step.cu, the whole locked phase in
-     one cooperative launch) on buffer 1's kept inputs: equal bit for
-     bit (carry, flags, every log record) to the path's own call and to
-     its plain version, also at forced budgets (hits 8, wide budget 4:
-     spills and conflicts) and in two ranges of steps; timed by queued
-     events beside the plain version, with its bound and share and its
+  1f. the scan kernels on buffer 1's kept inputs: K2 (csrc/wide_step.cu,
+     every wide phase in one cooperative launch) and K3 (csrc/
+     locked_step.cu, the hole-allocated narrow phase, the lock and the
+     locked phase in one cooperative launch), each equal bit for bit
+     (carry, flags, every log record) to the path's own call and to its
+     plain version, also at forced budgets (every wide phase's hits 64;
+     K3's hits 8 and wide budget 4 in both ranges: spills, dropped
+     newborns and conflicts); K3 also as two calls (the hole-allocated
+     range, then the locked range) and its locked range in two ranges
+     of steps; each timed by queued events beside the plain version,
+     with its bound and share, K3's two ranges traced alone, and K2's
      time in buffer 2's trace;
   2. scan parity on one 4,096-read buffer: the flat result of the scan
      on CUDA with the packed rank, on CUDA with the dense rank (each
-     must launch the locked-tail kernel) and on the CPU in plain torch
+     must launch K2 and K3 once) and on the CPU in plain torch
      must be equal; the live-state probe
      (``log_search_probe``) on CUDA and on the CPU gives that flat
      result and equal live counts, printed as a share of each phase's
@@ -85,8 +92,9 @@ this order, each printing one line or a few:
   3. end to end: build the graph, then genotype 40,000 reads (two
      20,000-read buffers, so submit and complete overlap), its phase
      seconds read from the run's "Timer report" log lines; the launch
-     counts of K1, K7, K9 and the locked tail are reset just before and
-     read just after, and each must be above 0;
+     counts of K2, K3 (its hole-allocated and locked steps), K7 and K9
+     are reset just before and read just after, and each must be above
+     0, the standalone K1's must be 0;
   4. output parity: on the first 4,000 reads, the port's device run
      on CUDA, with the fused recorder and with
      ``GRAMTOOLS_TPU_DEVICE_RECORD=0``, and the port's own host engine
@@ -118,8 +126,9 @@ the path (K1's numbers are those of its largest call on the path;
 ``launches`` counts phase 3's main path, ``launches_per_buffer`` phase
 1d's buffers, ``trace_ms`` the device time a launch in phase 1d's
 trace; K9's launch is one call of the whole per-base recorder, four
-kernels; the locked tail's is one launch a buffer, the whole locked
-phase); the last is ``{"ok": true, "device": {...}}``. Any failed
+kernels; K2's is one launch a buffer, every wide phase; K3 narrow's and
+K3 locked's are the same launch, one a buffer); the last is
+``{"ok": true, "device": {...}}``. Any failed
 check raises, and the script exits non-zero; it also exits non-zero,
 printing no result, when no CUDA device is available. It imports no
 JAX and nothing of the JAX package (it checks so at the end).
@@ -139,13 +148,20 @@ from dataclasses import dataclass
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-LIBS = ("packed_rank", "replay", "walk", "locked_step")   # csrc/<name>.cu
+LIBS = ("packed_rank", "replay", "walk", "wide_step",
+        "locked_step")                                   # csrc/<name>.cu
 # each entry of the kernels line: its __global__ functions (trace names
-# read "(anonymous namespace)::<name>_kernel(...)")
+# read "(anonymous namespace)::<name>_kernel(...)"); K3's hole-allocated
+# and locked steps share one kernel and one launch on the path
 KERNELS = {"packed_rank": ("packed_rank",), "replay": ("replay",),
            "per_base": ("per_base_init", "per_base_expand", "per_base_walk",
                         "per_base_apply"),
+           "wide_step": ("wide_steps",), "narrow_step": ("locked_tail",),
            "locked_step": ("locked_tail",)}
+# the standalone K1 runs on no path since the scan kernels fold its rank
+# in; every other kernel must launch on each path
+PATH_KERNELS = ("replay", "per_base", "wide_step", "narrow_step",
+                "locked_step")
 LABEL = "per_base"        # the record_function around the per-base call
 # the profiling knobs: set, they change the main path's output files
 STAGE_KNOBS = ("GRAMTOOLS_TPU_REPLAY_STAGE", "GRAMTOOLS_TPU_RECORD_STAGE")
@@ -312,7 +328,8 @@ def phase_kernel(cfg: SmokeConfig, idx, device, b_outcomes: int,
                  warm_hits):
     """Phase 1: the CUDA kernel against its plain twin and the dense
     table. Returns (the largest absolute error, the dense (n+1, 4) table
-    on the card, which phase 1d times the gather on)."""
+    on the card, which phase 1d times the gather on, and phase 1b's
+    numbers, K1's entry when the path keeps no K1 call)."""
     import numpy as np
     import torch
 
@@ -361,7 +378,8 @@ def phase_kernel(cfg: SmokeConfig, idx, device, b_outcomes: int,
         f"kernel == twin, {c['ms']:.4f} ms kernel, {c['plain_ms']:.4f} ms "
         f"twin, {c['library_ms']:.4f} ms dense gather; bound "
         f"{c['bound_ms']:.4f} ms ({100 * c['share']:.1f}%)")
-    return max(a["max_abs_err"], b["max_abs_err"], c["max_abs_err"]), dense
+    return (max(a["max_abs_err"], b["max_abs_err"], c["max_abs_err"]),
+            dense, b)
 
 
 def check_rank(cfg: SmokeConfig, rank, blocks, rows, size: int, dense=None):
@@ -406,12 +424,13 @@ def phase_scan(cfg: SmokeConfig, idx, kmer_index, reads, device):
     from gramtools_tpu_torch.mapping.engine import LogBatchedEngine
     from gramtools_tpu_torch.mapping.search_log import (log_search_packed,
                                                         log_search_probe)
-    from gramtools_tpu_torch.ops import locked_step
+    from gramtools_tpu_torch.ops import locked_step, wide_step
 
     os.environ["GRAMTOOLS_TPU_RANK"] = "packed"
     engine = LogBatchedEngine(idx, cfg.kmer_size, device=device)
     batch = ReadBatch(np.ascontiguousarray(reads[:cfg.scan_reads]))
-    tails = locked_step.locked_tail.launches
+    tails = (wide_step.wide_steps.launches, locked_step.locked_tail.launches,
+             locked_step.locked_tail.narrow_launches)
     t0 = time.perf_counter()
     token = engine.scan_submit(batch, kmer_index, cfg.kmer_size,
                                QuasimapStats())
@@ -429,10 +448,15 @@ def phase_scan(cfg: SmokeConfig, idx, kmer_index, reads, device):
         return out, time.perf_counter() - t
 
     flat_dense, dense_s = run_dense(device)
-    # the locked phase of both CUDA scans ran as the kernel
+    # both CUDA scans ran as two launches: the wide phases, then the
+    # narrow and locked phases
     if phases[-1][4:] != ("locked",) or (
-            locked_step.locked_tail.launches != tails + 2):
-        raise AssertionError("the CUDA scans did not launch the locked tail")
+            wide_step.wide_steps.launches,
+            locked_step.locked_tail.launches,
+            locked_step.locked_tail.narrow_launches) != tuple(
+                n + 2 for n in tails):
+        raise AssertionError("the CUDA scans did not launch the scan kernels "
+                             "once each")
     # the plain run on the CPU uses the packed rank's torch twin
     di_cpu = DeviceIndex.build(idx, engine.jt, "cpu")
     t = time.perf_counter()
@@ -451,7 +475,8 @@ def phase_scan(cfg: SmokeConfig, idx, kmer_index, reads, device):
     ovf = int(flat_packed[4 * N:4 * N + R].sum())
     say(f"[phase 2] scan of {len(token[1])} rows (R={R}, phases={phases}): "
         f"flat result ({flat_packed.size} int32) equal on {device.type} "
-        f"packed, {device.type} dense (each with the locked-tail kernel) and "
+        f"packed, {device.type} dense (each one wide-step and one "
+        f"narrow-tail launch) and "
         f"cpu (the plain versions); {live} live states, {ovf} "
         f"rows overflowed; {packed_s:.3f} s submit+scan packed, "
         f"{dense_s:.3f} s dense, {cpu_s:.3f} s cpu")
@@ -561,7 +586,7 @@ def marked_windows(timeline):
 
 
 def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
-               work: Path, dense, probe):
+               work: Path, dense, k1_b, probe):
     """Phase 1d: the fused engine at the path's shapes, with its stage
     timers on (``GRAMTOOLS_TPU_TIMERS=1``, printed buffer by buffer);
     every kernel's launches counted buffer by buffer; K1's calls, K7's
@@ -581,7 +606,7 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
                                                       QuasimapStats,
                                                       ReadBatch)
     from gramtools_tpu_torch.mapping.engine import LogBatchedEngine
-    from gramtools_tpu_torch.ops import locked_step, rank, replay
+    from gramtools_tpu_torch.ops import locked_step, rank, replay, wide_step
 
     os.environ["GRAMTOOLS_TPU_RANK"] = "packed"
     B = DEVICE_BUFFER_SIZE
@@ -610,6 +635,7 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
 
     packed_rank_cuda = rank.packed_rank_cuda
     locked_tail_cuda = locked_step.locked_tail_cuda
+    wide_steps_cuda = wide_step.wide_steps_cuda
     per_base = record._record_per_base_device
     select = search_log.select_and_record_device
     lines, per_buffer = [], []
@@ -627,6 +653,7 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
             search_log.select_and_record_device = keep("select", select)
             rank.packed_rank_cuda = keep_rank
             locked_step.locked_tail_cuda = keep("locked", locked_tail_cuda)
+            wide_step.wide_steps_cuda = keep("wide", wide_steps_cuda)
             torch.cuda.set_sync_debug_mode("error")
             try:
                 token = engine.scan_submit(batch, kmer_index, cfg.kmer_size,
@@ -642,6 +669,7 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
                 search_log.select_and_record_device = select
                 rank.packed_rank_cuda = packed_rank_cuda
                 locked_step.locked_tail_cuda = locked_tail_cuda
+                wide_step.wide_steps_cuda = wide_steps_cuda
             busy_ms = kernels = None
         elif b == 2:
             # after the buffer, in the same trace: the per-base recorder
@@ -720,7 +748,7 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
         ours = {k: sum(ms for name, ms, _ in top
                        if any(f"::{g}_kernel(" in name for g in KERNELS[k]))
                 for k in KERNELS}
-        for k in ("packed_rank", "replay", "locked_step"):
+        for k in ("packed_rank", "replay", "wide_step", "locked_step"):
             if per_buffer[2][k]:
                 trace_ms[k] = ours[k] / per_buffer[2][k]
         if windows[0] is not None:
@@ -729,7 +757,8 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
             f"{busy_ms:.2f} ms device busy over {kernels} device events "
             f"({len(top)} kernel names); "
             f"K1 {ours['packed_rank']:.3f} ms, K7 {ours['replay']:.3f} ms, "
-            f"K3 locked {ours['locked_step']:.3f} ms, "
+            f"K2 {ours['wide_step']:.3f} ms, "
+            f"K3 (narrow and locked) {ours['locked_step']:.3f} ms, "
             f"K9 {trace_ms['per_base'] or float('nan'):.4f} ms (its 4 "
             f"kernels, the marked call; "
             f"the trace also holds the two per-base calls after the buffer, "
@@ -740,7 +769,7 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
             + "); top kernels by device time: "
             + "; ".join(f"{name[:60]} {ms:.3f} ms x{n}"
                         for name, ms, n in top[:12]))
-        if not all(ours.values()):
+        if not all(v for k, v in ours.items() if k in PATH_KERNELS):
             say("[phase 1d] trace: names outside at::native: " + "; ".join(
                 f"{name[:80]} {ms:.3f} ms x{n}" for name, ms, n in top
                 if "at::native" not in name)[:2000])
@@ -750,26 +779,32 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
     entry = lambda name, source, replaces, m: kernel_entry(
         name, source, replaces, m, per_buffer, trace_ms)
 
-    # K1: every call of buffer 1 against the twin; the largest one timed
+    # K1: every call of buffer 1 against the twin; the largest one timed.
+    # The scan kernels fold its rank in, so the path keeps none: then its
+    # entry is phase 1b's (the graph's records, 524,288 rows).
     calls = captured["packed_rank"]
     for blocks, rows, size in calls:
         if not torch.equal(rank.packed_rank_cuda(blocks, rows, size),
                            rank.packed_occ_rows_torch(blocks, rows, size)):
             raise AssertionError("packed_rank kernel != twin on a path call")
-    buffer_bytes = sum(rank_bytes(r, n) for _, r, n in calls)
-    blocks, rows, size = max(calls, key=lambda c: c[1].numel())
-    k1 = check_rank(cfg, rank, blocks, rows, size, dense)
-    rows_total = sum(c[1].numel() for c in calls)
-    say(f"[phase 1d] K1 on buffer 1: {len(calls)} calls, {rows_total} rows, "
-        f"every call kernel == twin, bound of all of them "
-        f"{bound_ms(buffer_bytes):.4f} ms ({buffer_bytes} bytes); the "
-        f"largest, M={rows.numel()}: "
-        f"{k1['ms']:.4f} ms kernel, {k1['plain_ms']:.4f} ms twin, "
-        f"{k1['library_ms']:.4f} ms dense gather (index_select); bound "
-        f"{k1['bound_ms']:.4f} ms ({rank_bytes(rows, size)} bytes), kernel "
-        f"at {100 * k1['share']:.1f}% of it"
-        + ("" if trace_ms["packed_rank"] is None else
-           f", {trace_ms['packed_rank']:.4f} ms a launch in the trace"))
+    if calls:
+        buffer_bytes = sum(rank_bytes(r, n) for _, r, n in calls)
+        blocks, rows, size = max(calls, key=lambda c: c[1].numel())
+        k1 = check_rank(cfg, rank, blocks, rows, size, dense)
+        say(f"[phase 1d] K1 on buffer 1: {len(calls)} calls, "
+            f"{sum(c[1].numel() for c in calls)} rows, every call kernel == "
+            f"twin, bound of all of them {bound_ms(buffer_bytes):.4f} ms "
+            f"({buffer_bytes} bytes); the largest, M={rows.numel()}: "
+            f"{k1['ms']:.4f} ms kernel, {k1['plain_ms']:.4f} ms twin, "
+            f"{k1['library_ms']:.4f} ms dense gather (index_select); bound "
+            f"{k1['bound_ms']:.4f} ms ({rank_bytes(rows, size)} bytes), "
+            f"kernel at {100 * k1['share']:.1f}% of it"
+            + ("" if trace_ms["packed_rank"] is None else
+               f", {trace_ms['packed_rank']:.4f} ms a launch in the trace"))
+    else:
+        k1 = k1_b
+        say("[phase 1d] K1 on buffer 1: no standalone call (the scan kernels "
+            "fold the packed rank in); its entry is phase 1b's")
     entries = [entry("packed_rank", "gramtools_tpu_torch/csrc/packed_rank.cu",
                      "gramtools_tpu/ops/rank.py:136", k1)]
     entries.append(entry("replay", "gramtools_tpu_torch/csrc/replay.cu",
@@ -794,32 +829,67 @@ def kernel_entry(name, source, replaces, m, per_buffer, trace_ms):
             "trace_ms": trace_ms[name]}
 
 
-def k1_locked_tail(*args, **kwargs):
-    """The locked phase as the path ran it before the locked kernel:
-    the torch locked steps, their occ gathers through K1."""
-    from gramtools_tpu_torch.ops import locked_step, rank
+class _k1_rows:
+    """Inside it, the scan twins gather their occ rows through K1 (the
+    packed-rank kernel), as the path's torch steps did before the scan
+    kernels."""
 
-    plain = locked_step._plain_packed_rows
-    locked_step._plain_packed_rows = rank.make_packed_occ_rows
-    try:
-        return locked_step.locked_tail_torch(*args, **kwargs)
-    finally:
-        locked_step._plain_packed_rows = plain
+    def __enter__(self):
+        from gramtools_tpu_torch.ops import rank
+
+        self.plain = rank.plain_packed_rows
+        rank.plain_packed_rows = rank.make_packed_occ_rows
+
+    def __exit__(self, *exc):
+        from gramtools_tpu_torch.ops import rank
+
+        rank.plain_packed_rows = self.plain
+
+
+def k1_wide_steps(*args, **kwargs):
+    """The wide phases as the path ran them before K2: the torch steps,
+    their occ gathers through K1."""
+    from gramtools_tpu_torch.ops import wide_step
+
+    with _k1_rows():
+        return wide_step.wide_steps_torch(*args, **kwargs)
+
+
+def k1_narrow_tail(di, reads, carry, log_base, lp, le, hits, wide_budget,
+                   blocks=None, lock=True, narrow=None):
+    """The narrow phase as the path ran it before K3 narrow (the torch
+    steps, their occ gathers through K1), then the locked phase as one
+    launch of the K3 kernel."""
+    from gramtools_tpu_torch.ops import locked_step
+
+    if narrow is None:
+        return locked_step.locked_tail(di, reads, carry, log_base, lp, le,
+                                       hits, wide_budget, blocks, lock)
+    n = narrow[0]
+    with _k1_rows():
+        carry = locked_step.locked_tail_torch(
+            di, reads[:n], carry, log_base, lp, le, hits, wide_budget, blocks,
+            False, narrow)
+    carry = tuple(a.contiguous() for a in carry)     # the kernel's inputs
+    return locked_step.locked_tail(
+        di, reads[n:], carry, log_base + n * narrow[2] * di.n_outcomes, lp, le,
+        hits, wide_budget, blocks, lock)
 
 
 def trace_tail_designs(engine, batch, kmer_index, cfg, stats, firsts,
                        work: Path):
     """One buffer's scan_submit twice in one torch.profiler session,
-    each between markers: the path (the locked phase one kernel launch)
-    and the path before it (the locked phase as torch steps with K1).
-    Returns their [(device events, busy ms, span ms)], or [] when the
-    trace shows no window."""
+    each between markers: the path (the scan in two launches, K2 and K3)
+    and the path before K2 and K3 narrow (the wide and narrow phases as
+    torch steps with K1, the locked phase one K3 launch). Returns their
+    [(device events, busy ms, span ms)], or [] when the trace shows no
+    window."""
     import torch
 
     from gramtools_tpu_torch.mapping import search_log
-    from gramtools_tpu_torch.ops import locked_step
 
     tokens = []
+    path = (search_log.wide_steps, search_log.locked_tail)
 
     def submit():
         tokens.append(engine.scan_submit(batch, kmer_index, cfg.kmer_size,
@@ -831,11 +901,12 @@ def trace_tail_designs(engine, batch, kmer_index, cfg, stats, firsts,
         torch.ones(1, device=engine.device).add_(1)
         torch.cuda.synchronize()
         marked(submit)()
-        search_log.locked_tail = k1_locked_tail
+        search_log.wide_steps, search_log.locked_tail = (k1_wide_steps,
+                                                         k1_narrow_tail)
         try:
             marked(submit)()
         finally:
-            search_log.locked_tail = locked_step.locked_tail
+            search_log.wide_steps, search_log.locked_tail = path
 
     busy, _, _, timeline = _profile_device(traced, work / "trace_tail")
     for token in tokens:
@@ -887,67 +958,329 @@ def check_replay(cfg: SmokeConfig, call, trace_ms):
     return m
 
 
-FORCED_TAIL = (8, 4)     # phase 1f's forced (hits, wide budget)
+FORCED_TAIL = (8, 4)     # phase 1f's forced K3 (hits, wide budget)
+FORCED_WIDE_HITS = 64    # phase 1f's forced hit budget of each wide phase
 
 
-def locked_bytes(args, le) -> int:
-    """The locked tail's bytes for these inputs (a lower bound): the
-    reads rows, the incoming carry and flags read once, the final carry
-    and flags and every log record written once; each step's narrow_tab
-    word of every live state and two occ rows (16 bytes dense, 32 the
-    packed checkpoint and code vector) of each covered wide state; per
-    hit pair with a locus past 0 (``le`` >= B), its locus and outcome
-    words, and two occ rows for each valid outcome. The live and wide
-    states per step come from stepping the plain version."""
+def log_bytes(di, le, log_base: int, records: int, row: int) -> int:
+    """The log records written once, and per hit pair with a locus past
+    0 (``le`` >= B) its locus and outcome words and two occ rows of
+    ``row`` bytes for each valid outcome."""
     import torch
 
-    from gramtools_tpu_torch.mapping.scan_steps import (build_narrow_step,
-                                                        lock_pool)
-    from gramtools_tpu_torch.mapping.search_log_host import LogConfig
-    from gramtools_tpu_torch.ops import locked_step
+    B = di.n_outcomes
+    ev = le[log_base:log_base + records].to(torch.int64)
+    hit = ev >= B
+    li, b = ev // B, ev % B
+    outcome = hit & (di.out_lo[li.clamp(0, di.out_lo.shape[0] - 1), b] >= 0)
+    return records * 8 + 8 * int(hit.sum()) + 2 * row * int(outcome.sum())
 
-    di, reads, carry, log_base, _, _, G, W, blocks, lock = args
+
+def wide_bytes(args, le) -> int:
+    """K2's bytes for these inputs (a lower bound): the reads rows, the
+    incoming carry and flags read once, the final carry and flags and
+    every log record written once; each step's two occ rows (16 bytes
+    dense, 32 the packed checkpoint and code vector) of every active
+    state; and ``log_bytes``. The active states per step come from
+    stepping the plain version."""
+    from gramtools_tpu_torch.mapping.scan_steps import (build_log_step,
+                                                        resize_pool)
+    from gramtools_tpu_torch.mapping.search_log_host import LogConfig
+    from gramtools_tpu_torch.ops import rank
+
+    di, reads, carry, phases, log_base, _, _, blocks = args
     S, R = reads.shape
     B = di.n_outcomes
     row = 16 if blocks is None else 32
     occ_rows = (None if blocks is None
-                else locked_step._plain_packed_rows(blocks, di.size))
-    step = build_narrow_step(di, LogConfig(pool=R, hits=G), R, W,
-                             occ_rows=occ_rows, locked=True)
-    c = lock_pool(carry, R, R) if lock else carry
+                else rank.plain_packed_rows(blocks, di.size))
+    c, active, off, base = carry, 0, 0, log_base
+    for n_steps, pool, g in phases:
+        c = resize_pool(c, pool, R)
+        step = build_log_step(di, LogConfig(pool=pool, hits=g), R,
+                              occ_rows=occ_rows)
+        for i in range(n_steps):
+            valid = c[0] >= 0
+            active += int((valid & (reads[off + i][c[0].clamp(0, R - 1)]
+                                    > 0)).sum())
+            c, _ = step(c, reads[off + i], base)
+            base += g * B
+        off += n_steps
+    records = sum(n * g for n, _, g in phases) * B
+    return (S * R * 4 + carry[0].shape[0] * 16 + 2 * (R + 1)
+            + phases[-1][1] * 16 + 2 * row * active
+            + log_bytes(di, le, log_base, records, row))
+
+
+def tail_bytes(args, le) -> int:
+    """K3's bytes for these inputs (a lower bound): the reads rows, the
+    incoming carry and flags read once, the final carry and flags
+    written once; each step's narrow_tab word of every live state and
+    two occ rows (16 bytes dense, 32 the packed checkpoint and code
+    vector) of each covered wide state; and ``log_bytes``. The live and
+    wide states per step come from stepping the plain version."""
+    from gramtools_tpu_torch.mapping.scan_steps import (build_narrow_step,
+                                                        lock_pool,
+                                                        resize_pool)
+    from gramtools_tpu_torch.mapping.search_log_host import LogConfig
+    from gramtools_tpu_torch.ops import rank
+
+    di, reads, carry, log_base, _, _, G, W, blocks, lock, narrow = args
+    S, R = reads.shape
+    B = di.n_outcomes
+    row = 16 if blocks is None else 32
+    occ_rows = (None if blocks is None
+                else rank.plain_packed_rows(blocks, di.size))
+    n_narrow = 0 if narrow is None else narrow[0]
     live = wide = 0
-    for i in range(S):
-        valid = c[0] >= 0
-        live += int(valid.sum())
-        wide += min(int((valid & (reads[i] > 0) & (c[1] != c[2])).sum()), W)
-        c, _ = step(c, reads[i], log_base + i * G * B)
-    ev = le[log_base:log_base + S * G * B].to(torch.int64)
-    hit = ev >= B
-    li, b = ev // B, ev % B
-    outcome = hit & (di.out_lo[li.clamp(0, di.out_lo.shape[0] - 1), b] >= 0)
-    n_in = carry[0].shape[0]
-    return (S * R * 4 + n_in * 16 + (R + 1) + R * 16 + (R + 1) + S * G * B * 8
-            + 4 * live + 2 * row * wide + 8 * int(hit.sum())
-            + 2 * row * int(outcome.sum()))
+    c, base = carry, log_base
+    ranges = []
+    if narrow is not None:
+        c = resize_pool(c, narrow[1], R)
+        ranges.append((reads[:n_narrow], narrow[2], narrow[3], build_narrow_step(
+            di, LogConfig(pool=narrow[1], hits=narrow[2]), R, narrow[3],
+            occ_rows=occ_rows), False))
+    if S > n_narrow:
+        ranges.append((reads[n_narrow:], G, W, build_narrow_step(
+            di, LogConfig(pool=R, hits=G), R, W, occ_rows=occ_rows,
+            locked=True), True))
+    for rows, g, w, step, locked in ranges:
+        if locked and lock:
+            c = lock_pool(c, R, R)
+        for r in rows:
+            valid = c[0] >= 0
+            bases = r if locked else r[c[0].clamp(0, R - 1)]
+            live += int(valid.sum())
+            wide += min(int((valid & (bases > 0) & (c[1] != c[2])).sum()), w)
+            c, _ = step(c, r, base)
+            base += g * B
+    records = base - log_base
+    return (S * R * 4 + carry[0].shape[0] * 16 + 2 * (R + 1)
+            + c[0].shape[0] * 16 + 4 * live + 2 * row * wide
+            + log_bytes(di, le, log_base, records, row))
 
 
-def phase_locked(cfg: SmokeConfig, captured):
-    """Phase 1f: the locked-tail kernel (csrc/locked_step.cu) on buffer
-    1's own locked-phase inputs: equal bit for bit to the path's own call
-    and to the plain version (carry, flags, every log record) there and
-    at forced budgets (hits 8, wide budget 4: spills and conflicts), and
-    in two ranges (the lock and the first half, then the rest on the
-    locked carry); its time by queued CUDA events, its bound and share;
-    the buffer's device events and busy time with the kernel and with
-    the torch steps it replaces (phase 1d's trace). Returns its entry of
-    the kernels line."""
+def _equal(got, want) -> int:
+    """Raise unless every tensor of got equals want's; the largest
+    absolute difference (0)."""
+    import torch
+
+    err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+              if g.numel() else 0 for g, w in zip(got, want))
+    if not all(g.shape == w.shape and torch.equal(g, w)
+               for g, w in zip(got, want)):
+        raise AssertionError(f"max abs err {err}")
+    return err
+
+
+def trace_each(fns, trace_dir: Path):
+    """Each fn once between markers in one torch.profiler trace, after
+    an unmarked call of the first: [(device events, busy ms, span ms)],
+    or Nones when the trace shows no window."""
+    import torch
+
+    def traced():
+        fns[0]()
+        torch.cuda.synchronize()
+        for fn in fns:
+            marked(fn)()
+
+    busy, _, _, timeline = _profile_device(traced, trace_dir)
+    windows = marked_windows(timeline) if busy is not None else []
+    return windows if len(windows) == len(fns) else [None] * len(fns)
+
+
+def check_wide(cfg: SmokeConfig, captured, work: Path):
+    """K2 on buffer 1's wide phases: equal bit for bit (carry, flags,
+    every log record) to the path's own call and to the plain version
+    there and with every phase's hit budget forced to FORCED_WIDE_HITS;
+    timed by queued events beside the plain version, with its bound and
+    share. Returns its entry of the kernels line."""
+    import torch
+
+    from gramtools_tpu_torch.ops import wide_step
+
+    (args, kwargs), path_out = captured["wide"], captured["wide_out"]
+    assert not kwargs
+    di, reads, carry, phases, log_base, lp, le, blocks = args
+
+    def run(fn, phases_):
+        lp2, le2 = torch.full_like(lp, -7), torch.full_like(le, -7)
+        out = fn(di, reads, carry, phases_, log_base, lp2, le2, blocks)
+        return tuple(out) + (lp2, le2)
+
+    def compare(what, phases_):
+        got = run(wide_step.wide_steps_cuda, phases_)
+        try:
+            err = _equal(got, run(wide_step.wide_steps_torch, phases_))
+        except AssertionError as e:
+            raise AssertionError(f"K2 kernel != twin ({what}): {e}") from None
+        return got, err
+
+    got, err = compare("path inputs", phases)
+    end = log_base + sum(n * g for n, _, g in phases) * di.n_outcomes
+    try:                        # the path's log holds the other phases too
+        _equal(got[:5] + (got[5][log_base:end], got[6][log_base:end]),
+               tuple(path_out) + (lp[log_base:end], le[log_base:end]))
+    except AssertionError as e:
+        raise AssertionError(f"K2 kernel != the path's own call: {e}") from None
+    forced_phases = [(n, pool, FORCED_WIDE_HITS) for n, pool, _ in phases]
+    forced, err_f = compare("forced hits", forced_phases)
+    ovf0 = int(carry[4].sum())
+    raised = int(got[4].sum()) - ovf0
+    raised_f = int(forced[4].sum()) - ovf0
+    if raised_f <= raised:
+        raise AssertionError("the forced hit budget raised no more flags")
+    lp_t, le_t = torch.empty_like(lp), torch.empty_like(le)
+    m = {"max_abs_err": max(err, err_f),
+         "ms": time_ms(lambda: wide_step.wide_steps_cuda(
+             di, reads, carry, phases, log_base, lp_t, le_t, blocks),
+             cfg.timing_runs),
+         "plain_ms": time_each_ms(lambda: wide_step.wide_steps_torch(
+             di, reads, carry, phases, log_base, lp_t, le_t, blocks), 3),
+         "library_ms": None}
+    nbytes = wide_bytes(args, got[6])
+    m["bound_ms"] = bound_ms(nbytes)
+    trace = captured["trace_ms"]["wide_step"]
+    S, R = reads.shape
+    say(f"[phase 1f] K2 wide steps (csrc/wide_step.cu, one cooperative "
+        f"launch) on buffer 1's wide phases {phases}: {S} steps, R={R}, "
+        f"{carry[0].shape[0]} incoming states, B={di.n_outcomes}, rank "
+        f"{'dense' if blocks is None else 'packed'}: kernel == the path's "
+        f"call == twin (carry, flags, {end - log_base} log records), "
+        f"{raised} rows flagged; forced hits {FORCED_WIDE_HITS}: equal, "
+        f"{raised_f} flagged; queued events {m['ms']:.4f} ms kernel, "
+        f"{m['plain_ms']:.4f} ms twin (one call); bound "
+        f"{m['bound_ms']:.4f} ms ({nbytes} bytes), kernel at "
+        f"{100 * m['bound_ms'] / m['ms']:.2f}% of it by events"
+        + ("" if trace is None else
+           f", {trace:.4f} ms in the trace "
+           f"({100 * m['bound_ms'] / trace:.2f}%)")
+        + f"; launches a buffer {[c['wide_step'] for c in captured['per_buffer']]}")
+    return kernel_entry("wide_step", "gramtools_tpu_torch/csrc/wide_step.cu",
+                        "gramtools_tpu/mapping/search_jax_log.py:77", m,
+                        captured["per_buffer"], captured["trace_ms"])
+
+
+def check_narrow(cfg: SmokeConfig, captured, work: Path):
+    """K3 on buffer 1's narrow and locked phases (the path's one call):
+    equal bit for bit to the path's own call and to the plain version
+    there and at FORCED_TAIL in both ranges, and as two calls (the
+    hole-allocated range alone, then the locked range from its carry);
+    the hole-allocated range alone timed by queued events beside the
+    plain version, with its bound and share; both ranges traced alone.
+    Returns (K3 narrow's entry of the kernels line, the locked range's
+    own arguments, for phase 1f's locked check)."""
     import torch
 
     from gramtools_tpu_torch.ops import locked_step
 
     (args, kwargs), path_out = captured["locked"], captured["locked_out"]
     assert not kwargs
-    di, reads, carry, log_base, lp, _, G, W, blocks, lock = args
+    di, reads, carry, log_base, lp, le, G, W, blocks, lock, narrow = args
+    assert narrow is not None and lock, "the path's tail has no narrow range"
+    B = di.n_outcomes
+    n, pool, g_n, w_n = narrow
+
+    def run(fn, a):
+        lp2, le2 = torch.full_like(lp, -7), torch.full_like(le, -7)
+        out = fn(*a[:4], lp2, le2, *a[6:])
+        return tuple(out) + (lp2, le2)
+
+    def compare(what, a):
+        got = run(locked_step.locked_tail_cuda, a)
+        try:
+            err = _equal(got, run(locked_step.locked_tail_torch, a))
+        except AssertionError as e:
+            raise AssertionError(f"K3 kernel != twin ({what}): {e}") from None
+        return got, err
+
+    got, err = compare("path inputs", args)
+    end = log_base + (n * g_n + (reads.shape[0] - n) * G) * B
+    try:                        # the path's log holds the wide phases too
+        _equal(got[:5] + (got[5][log_base:end], got[6][log_base:end]),
+               tuple(path_out) + (lp[log_base:end], le[log_base:end]))
+    except AssertionError as e:
+        raise AssertionError(f"K3 kernel != the path's own call: {e}") from None
+    forced_args = args[:6] + FORCED_TAIL + (blocks, lock,
+                                            (n, pool) + FORCED_TAIL)
+    forced, err_f = compare("forced budgets", forced_args)
+    ovf0 = int(carry[4].sum())
+    raised = int(got[4].sum()) - ovf0
+    raised_f = int(forced[4].sum()) - ovf0
+    if raised_f <= raised:
+        raise AssertionError("the forced budgets raised no more flags")
+    # two calls: the hole-allocated range alone, then the locked range
+    narrow_args = (di, reads[:n], carry, log_base, lp, le, G, W, blocks,
+                   False, narrow)
+    first = run(locked_step.locked_tail_cuda, narrow_args)
+    err_n = _equal(first, run(locked_step.locked_tail_torch, narrow_args))
+    locked_args = (di, reads[n:], first[:5], log_base + n * g_n * B, first[5],
+                   first[6], G, W, blocks, True, None)
+    second = locked_step.locked_tail_cuda(*locked_args)
+    try:
+        _equal(tuple(second) + (first[5], first[6]), got)
+    except AssertionError as e:
+        raise AssertionError(f"K3 in two calls != one call: {e}") from None
+
+    lp_t, le_t = torch.empty_like(lp), torch.empty_like(le)
+    timed = lambda fn, a: (lambda: fn(*a[:4], lp_t, le_t, *a[6:]))
+    m = {"max_abs_err": max(err, err_f, err_n),
+         "ms": time_ms(timed(locked_step.locked_tail_cuda, narrow_args),
+                       cfg.timing_runs),
+         "plain_ms": time_each_ms(timed(locked_step.locked_tail_torch,
+                                        narrow_args), 3),
+         "library_ms": None}
+    whole_ms = time_ms(timed(locked_step.locked_tail_cuda, args),
+                       cfg.timing_runs)
+    nbytes = tail_bytes(narrow_args, first[6])
+    m["bound_ms"] = bound_ms(nbytes)
+    windows = trace_each([timed(locked_step.locked_tail_cuda, narrow_args),
+                          timed(locked_step.locked_tail_cuda, locked_args),
+                          timed(locked_step.locked_tail_cuda, args)],
+                         work / "trace_k3")
+    trace_ms = captured["trace_ms"]
+    trace_ms["narrow_step"] = None if windows[0] is None else windows[0][1]
+    trace_ms["locked_alone"] = None if windows[1] is None else windows[1][1]
+    say(f"[phase 1f] K3 narrow tail (csrc/locked_step.cu, one cooperative "
+        f"launch) on buffer 1's narrow phase {narrow} and locked phase "
+        f"({reads.shape[0] - n} steps, G={G}, W={W}), R={reads.shape[1]}, "
+        f"{carry[0].shape[0]} incoming states, B={B}: kernel == the path's "
+        f"call == twin (carry, flags, {end - log_base} log records), "
+        f"{raised} rows flagged; forced "
+        f"hits {FORCED_TAIL[0]}, wide budget {FORCED_TAIL[1]} in both "
+        f"ranges: equal, {raised_f} flagged; the hole-allocated range alone "
+        f"then the locked range == one call. The hole-allocated range "
+        f"alone: queued events {m['ms']:.4f} ms kernel, {m['plain_ms']:.4f}"
+        f" ms twin (one call); bound {m['bound_ms']:.4f} ms ({nbytes} "
+        f"bytes), kernel at {100 * m['bound_ms'] / m['ms']:.2f}% of it by "
+        f"events; the whole tail {whole_ms:.4f} ms queued; traced alone "
+        f"(device events, busy ms): hole-allocated "
+        f"{windows[0] and windows[0][:2]}, locked {windows[1] and windows[1][:2]}"
+        f", whole {windows[2] and windows[2][:2]}; launches a buffer "
+        f"{[c['narrow_step'] for c in captured['per_buffer']]}")
+    entry = kernel_entry("narrow_step",
+                         "gramtools_tpu_torch/csrc/locked_step.cu",
+                         "gramtools_tpu/mapping/search_jax_log.py:419", m,
+                         captured["per_buffer"], trace_ms)
+    return entry, locked_args
+
+
+def phase_locked(cfg: SmokeConfig, captured, args):
+    """Phase 1f, the locked range: K3 on buffer 1's locked phase (``args``,
+    its inputs as the hole-allocated range leaves them): equal bit for
+    bit to the plain version (carry, flags, every log record) there and
+    at forced budgets (hits 8, wide budget 4: spills and conflicts), and
+    in two ranges (the lock and the first half, then the rest on the
+    locked carry); its time by queued CUDA events, its bound and share;
+    the buffer's device events and busy time with the scan kernels and
+    with the torch steps they replace (phase 1d's trace). Returns its
+    entry of the kernels line."""
+    import torch
+
+    from gramtools_tpu_torch.ops import locked_step
+
+    di, reads, carry, log_base, lp, _, G, W, blocks, lock, _ = args
     S, R = reads.shape
     B = di.n_outcomes
 
@@ -960,16 +1293,14 @@ def phase_locked(cfg: SmokeConfig, captured):
     def compare(what, G_, W_):
         got = run(locked_step.locked_tail_cuda, G_, W_)
         want = run(locked_step.locked_tail_torch, G_, W_)
-        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
-                  for g, w in zip(got, want))
-        if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise AssertionError(f"locked tail kernel != twin ({what}, max "
-                                 f"abs err {err})")
+        try:
+            err = _equal(got, want)
+        except AssertionError as e:
+            raise AssertionError(f"locked tail kernel != twin ({what}): "
+                                 f"{e}") from None
         return got, err
 
-    got, err = compare("path inputs", G, W)
-    if not all(torch.equal(g, w) for g, w in zip(got, path_out)):
-        raise AssertionError("locked tail kernel != the path's own call")
+    got, err = compare("locked range", G, W)
     forced, err_f = compare("forced budgets", *FORCED_TAIL)
     ovf0 = int(carry[4][:R].sum())
     raised = int(got[4][:R].sum()) - ovf0
@@ -995,34 +1326,54 @@ def phase_locked(cfg: SmokeConfig, captured):
          "plain_ms": time_each_ms(lambda: locked_step.locked_tail_torch(
              di, reads, carry, log_base, lp_t, le_t, G, W, blocks, lock), 3),
          "library_ms": None}
-    nbytes = locked_bytes(args, got[6])
+    nbytes = tail_bytes(args, got[6])
     m["bound_ms"] = bound_ms(nbytes)
-    trace = captured["trace_ms"]["locked_step"]
+    trace_ms = captured["trace_ms"]
+    trace = trace_ms["locked_alone"]
     windows = captured["tail_windows"]
     tail = ("not in a trace" if not windows else
             f"{windows[0][0]} device events, {windows[0][1]:.3f} ms busy "
-            f"over a {windows[0][2]:.3f} ms span with the kernel; "
-            f"{windows[1][0]} events, {windows[1][1]:.3f} ms busy over "
-            f"{windows[1][2]:.3f} ms with the torch steps and K1 (the path "
-            f"before it)")
-    say(f"[phase 1f] K3 locked tail (csrc/locked_step.cu, one cooperative "
-        f"launch) on buffer 1's locked phase: {S} steps, R={R} slots, "
-        f"{carry[0].shape[0]} incoming states, G={G}, W={W}, B={B}, rank "
-        f"{'dense' if blocks is None else 'packed'}: kernel == the path's "
-        f"call == twin (carry, flags, {S * G * B} log records), {raised} "
-        f"rows flagged; forced hits {FORCED_TAIL[0]}, wide budget "
-        f"{FORCED_TAIL[1]}: equal, {raised_f} "
-        f"flagged; two ranges [0, {h}) + [{h}, {S}) == one call; queued "
-        f"events {m['ms']:.4f} ms kernel, {m['plain_ms']:.4f} ms twin (one "
-        f"call, host-bound); bound {m['bound_ms']:.4f} ms ({nbytes} bytes), "
-        f"kernel at {100 * m['bound_ms'] / m['ms']:.2f}% of it by events"
+            f"over a {windows[0][2]:.3f} ms span with the scan kernels (K2 "
+            f"and K3, 2 launches); {windows[1][0]} events, "
+            f"{windows[1][1]:.3f} ms busy over {windows[1][2]:.3f} ms with "
+            f"the wide and hole-allocated phases as torch steps and K1 and "
+            f"the locked phase one K3 launch (the path before K2 and K3 "
+            f"narrow)")
+    say(f"[phase 1f] K3 locked range on buffer 1's locked phase: {S} steps, "
+        f"R={R} slots, {carry[0].shape[0]} incoming states, G={G}, W={W}, "
+        f"B={B}, rank {'dense' if blocks is None else 'packed'}: kernel == "
+        f"twin (carry, flags, {S * G * B} log records), {raised} rows "
+        f"flagged; forced hits {FORCED_TAIL[0]}, wide budget "
+        f"{FORCED_TAIL[1]}: equal, {raised_f} flagged; two ranges [0, {h}) "
+        f"+ [{h}, {S}) == one call; queued events {m['ms']:.4f} ms kernel, "
+        f"{m['plain_ms']:.4f} ms twin (one call, host-bound); bound "
+        f"{m['bound_ms']:.4f} ms ({nbytes} bytes), kernel at "
+        f"{100 * m['bound_ms'] / m['ms']:.2f}% of it by events"
         + ("" if trace is None else
-           f", {trace:.4f} ms in the trace "
+           f", {trace:.4f} ms traced alone "
            f"({100 * m['bound_ms'] / trace:.2f}%)")
+        + (f"; the whole K3 launch (narrow and locked) "
+           f"{trace_ms['locked_step']:.4f} ms a buffer in phase 1d's trace"
+           if trace_ms["locked_step"] is not None else "")
         + f"; one buffer's scan_submit in one trace: {tail}")
+    trace_ms = dict(trace_ms, locked_step=trace)
     return kernel_entry("locked_step", "gramtools_tpu_torch/csrc/locked_step.cu",
                         "gramtools_tpu/mapping/search_jax_log.py:232", m,
-                        captured["per_buffer"], captured["trace_ms"])
+                        captured["per_buffer"], trace_ms)
+
+
+def phase_scan_kernels(cfg: SmokeConfig, captured, work: Path):
+    """Phase 1f: the scan kernels on buffer 1's own inputs, K2 (the wide
+    phases, csrc/wide_step.cu) and K3 (the narrow and locked phases,
+    csrc/locked_step.cu), each held to the path's own call and to its
+    plain version, at the path's and at forced budgets (check_wide,
+    check_narrow, phase_locked). Returns their entries of the kernels
+    line (K2, K3 narrow, K3 locked)."""
+    if any(c["packed_rank"] for c in captured["per_buffer"]):
+        raise AssertionError("a phase 1d buffer launched the standalone K1")
+    wide = check_wide(cfg, captured, work)
+    narrow, locked_args = check_narrow(cfg, captured, work)
+    return [wide, narrow, phase_locked(cfg, captured, locked_args)]
 
 
 REPLAY_STAGES = (1, 2, 99)       # the chase; + the seed gather; + the apply
@@ -1514,8 +1865,8 @@ def phase_fused_parity(cfg: SmokeConfig, idx, kmer_index, reads, device):
     finally:
         engine_mod.log_search_record = log_search_record
     cov_cuda = engine.cov_diff[0].cpu()
-    for name, fn in _counted().items():
-        if fn.launches <= launches[name]:
+    for name in PATH_KERNELS:
+        if _counted()[name].launches <= launches[name]:
             raise AssertionError(f"the fused program launched no {name}")
     (di, rt, st, *rest), kwargs = captured["call"]
     cov_cpu = torch.zeros(rt.cov_size + 1, dtype=torch.int32)
@@ -1536,7 +1887,7 @@ def phase_fused_parity(cfg: SmokeConfig, idx, kmer_index, reads, device):
     say(f"[phase 2b] fused program on {len(token[1])} rows (R={R}, "
         f"trip_cap={trip_cap}): flat result ({flat_cuda.size} int32) and "
         f"cov_diff ({cov_cpu.numel()} int32, {int((cov_cpu != 0).sum())} "
-        f"non-zero) equal on cuda (K1, K7, K9 and the locked tail launched) "
+        f"non-zero) equal on cuda (K2, K3, K7 and K9 launched) "
         f"and cpu; {int(flat_cuda[2 * R:3 * R].sum())}"
         f" rows mapped, {int((fb != 0).sum())} flagged, "
         f"{int((flat_cuda[3 * R:3 * R + trip_cap] < R).sum())} loci triples;"
@@ -1549,12 +1900,32 @@ def genotype_args(gram: Path, out: Path, reads: Path, engine: str):
             "--engine", engine, "--force"]
 
 
+class _Count:
+    """A launch count kept under another attribute of a wrapper."""
+
+    def __init__(self, fn, attr: str):
+        self.fn, self.attr = fn, attr
+
+    @property
+    def launches(self) -> int:
+        return getattr(self.fn, self.attr)
+
+    @launches.setter
+    def launches(self, value: int):
+        setattr(self.fn, self.attr, value)
+
+
 def _counted():
-    """The four kernels' launch-counting wrappers, by name."""
-    from gramtools_tpu_torch.ops import locked_step, rank, replay, walk
+    """The kernels' launch counts, by name: each wrapper's ``launches``;
+    K3 narrow's is the narrow-tail launches that ran hole-allocated
+    steps."""
+    from gramtools_tpu_torch.ops import (locked_step, rank, replay, walk,
+                                         wide_step)
 
     return {"packed_rank": rank.packed_rank, "replay": replay.replay,
             "per_base": walk.per_base_cuda,
+            "wide_step": wide_step.wide_steps,
+            "narrow_step": _Count(locked_step.locked_tail, "narrow_launches"),
             "locked_step": locked_step.locked_tail}
 
 
@@ -1617,9 +1988,11 @@ def phase_e2e(cfg: SmokeConfig, work: Path):
         f"device_mapped {eng['device_mapped']}, host_fallbacks "
         f"{eng['host_fallbacks']} ({100 * fallback_share:.2f}%), "
         f"device_retried {eng['device_retried']}; launches {launches}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in PATH_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError(f"the main path launched no {name} kernel")
+    if launches["packed_rank"]:
+        raise AssertionError("the main path launched the standalone K1")
     if eng["device_mapped"] <= 0:
         raise AssertionError("no row was mapped on the device")
     if fallback_share >= 0.05:
@@ -1750,8 +2123,8 @@ def phase_mesh(cfg: SmokeConfig, idx, kmer_index, work: Path, device):
         f"{cfg.e2e_reads} reads in {DEVICE_BUFFER_SIZE}-read buffers: stats, "
         f"allele-sum, grouped counts and per-base coverage equal to 1 shard; "
         + "; ".join(lines) + f"; 2-shard launches {launches}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in PATH_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError(f"the 2-shard run launched no {name} kernel")
     return launches
 
@@ -1862,7 +2235,8 @@ def phase_pool(work: Path):
     method = _pool_start_method()
     if method != "spawn" or not torch.cuda.is_initialized():
         raise AssertionError(f"pool start method {method} beside CUDA")
-    launches_before = _counted()["packed_rank"].launches
+    launches_before = {k: _counted()[k].launches
+                       for k in ("wide_step", "locked_step")}
     t0 = time.perf_counter()
     if torch_cli(genotype_args(work / "gram", work / "par_pool",
                                work / "reads_parity.fq", "device")
@@ -1880,19 +2254,22 @@ def phase_pool(work: Path):
     say(f"[phase 5c] genotype --engine device --max_threads 2 ({method} "
         f"workers): {len(PARITY_FILES)} output files byte-equal to the host "
         f"engine's; {wall:.1f} s run, device_mapped {eng['device_mapped']}, "
-        f"host_fallbacks {eng['host_fallbacks']}, K1 launches "
-        f"{_counted()['packed_rank'].launches - launches_before}")
+        f"host_fallbacks {eng['host_fallbacks']}, launches in this "
+        f"process (the workers' own are not counted): " + ", ".join(
+            f"{k} {_counted()[k].launches - n}"
+            for k, n in launches_before.items()))
 
 
 def run(cfg: SmokeConfig, device) -> dict:
     import torch
 
-    from gramtools_tpu_torch.ops import _build, locked_step, rank, replay, walk
+    from gramtools_tpu_torch.ops import (_build, locked_step, rank, replay,
+                                         walk, wide_step)
 
     t0 = time.perf_counter()
     probe = start_probe_build()
     _build.build_all(LIBS)
-    for mod in (rank, replay, walk, locked_step):
+    for mod in (rank, replay, walk, wide_step, locked_step):
         mod._kernel_lib()
     say(f"[phase 0] csrc/{{{','.join(LIBS)}}}.cu built together in "
         f"{_build.build_seconds[LIBS[0]]:.2f} s "
@@ -1904,12 +2281,13 @@ def run(cfg: SmokeConfig, device) -> dict:
         from gramtools_tpu_torch.mapping.jump_table import build_jump_table
 
         b_outcomes = build_jump_table(idx).max_outcomes
-        err, dense = phase_kernel(cfg, idx, device, b_outcomes,
-                                  warm_hit_budget(cfg, kmer_index, reads))
+        err, dense, k1_b = phase_kernel(
+            cfg, idx, device, b_outcomes,
+            warm_hit_budget(cfg, kmer_index, reads))
         entries, captured = phase_path(cfg, idx, kmer_index, reads, device,
-                                       work, dense, probe)
+                                       work, dense, k1_b, probe)
         phase_stages(cfg, captured, work)
-        entries.append(phase_locked(cfg, captured))
+        entries += phase_scan_kernels(cfg, captured, work)
         del captured
         entries[0]["max_abs_err"] = max(entries[0]["max_abs_err"], err)
         del dense

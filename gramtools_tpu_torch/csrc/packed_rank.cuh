@@ -1,7 +1,8 @@
 // Packed BWT rank, the per-row count shared by the kernels that read the
 // bit-packed records of gramtools_tpu/ops/rank.py::build_packed_occ:
-// packed_rank.cu (K1, four lanes a query) and locked_step.cu (one
-// thread a query, inside the slot-locked scan tail).
+// packed_rank.cu (K1, four lanes a query) and, through scan_common.cuh,
+// wide_step.cu and locked_step.cu (one thread a query, inside the scan's
+// cooperative kernels).
 //
 // Record layout (uint32[24], six 16-byte vectors): words 0-3 the
 // A/C/G/T checkpoints before the block, word 4 the marker checkpoint,

@@ -348,6 +348,18 @@ def build_narrow_step(di, cfg, num_reads: int, wide_budget: int,
     return step
 
 
+def run_steps(step, carry, reads, log_base: int, lp, le, GB: int):
+    """``step`` over the rows of ``reads``, each step's G·B log records
+    written into lp/le in place (the body of JAX's lax.scan over a
+    phase). Returns (carry, the log offset after the last step)."""
+    for i in range(reads.shape[0]):
+        carry, (rec_parent, rec_event) = step(carry, reads[i], log_base)
+        lp[log_base:log_base + GB] = rec_parent.reshape(-1)
+        le[log_base:log_base + GB] = rec_event.reshape(-1)
+        log_base += GB
+    return carry, log_base
+
+
 def lock_pool(carry, pool: int, num_reads: int):
     """Transition into a slot-locked phase: scatter each read's SOLE
     live state into slot rid; reads holding >1 state are flagged

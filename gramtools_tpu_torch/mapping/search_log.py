@@ -34,9 +34,10 @@ import torch
 
 from ..ops.locked_step import locked_tail
 from ..ops.rank import PackedOccRows, make_packed_occ_rows
+from ..ops.wide_step import wide_steps
 from .record import replay_device, select_and_record_device
 from .scan_steps import (build_log_step, build_narrow_step, lock_pool,
-                         resize_pool)
+                         resize_pool, run_steps)
 from .search_log_host import LogConfig, _phase4, auto_phases
 
 I32 = torch.int32
@@ -51,6 +52,27 @@ def occ_rows_for(di, blocks, rank: str):
     return make_packed_occ_rows(blocks, di.size)
 
 
+def _runs(plan, narrow_ok, split: bool):
+    """The phase plan grouped into the scan kernels' runs: ("wide",
+    entries) for consecutive wide phases (a narrow phase that narrow_ok
+    refuses runs the wide step, as in JAX), ("tail", entries) for a
+    hole-allocated narrow phase and the locked phase after it, or either
+    alone. ``split``: one run a phase."""
+    runs = []
+    for e in plan:
+        kind = ("wide" if not narrow_ok(e[3])
+                else "locked" if e[4] == "locked" else "narrow")
+        last = runs[-1] if runs and not split else None
+        if last and kind == "wide" and last[0] == "wide":
+            last[1].append(e)
+        elif (last and kind == "locked" and last[0] == "tail"
+              and len(last[1]) == 1 and last[1][0][4] != "locked"):
+            last[1].append(e)
+        else:
+            runs.append(("wide" if kind == "wide" else "tail", [e]))
+    return runs
+
+
 def _scan_phases(di, reads, carry, phases, num_reads: int, occ_rows,
                  lp: torch.Tensor, le: torch.Tensor, narrow_rows=None,
                  collect_live: bool = False):
@@ -60,67 +82,71 @@ def _scan_phases(di, reads, carry, phases, num_reads: int, occ_rows,
     each), and returns the final carry with its (num_reads,) overflow.
     occ_rows / narrow_rows: the occ and narrow_tab gathers (None = the
     dense tables in di; occ_rows may be the packed rank, a
-    ``PackedOccRows``). A locked phase over the index's own tables (the
-    dense occ or the packed rank, no injected gather) is one
-    ``ops/locked_step.locked_tail`` call (on CUDA one kernel launch);
-    injected gathers (the SA-range-sharded index, parallel/
-    sharded_index.py) keep the torch locked step. collect_live=True
-    also returns the live-state count after each phase, a (n_phases,)
-    int64 device tensor."""
+    ``PackedOccRows``). Over the index's own tables (the dense occ or the
+    packed rank, no injected gather) the plan runs as two calls, each one
+    kernel launch on CUDA: ``ops/wide_step.wide_steps`` for the wide
+    phases and ``ops/locked_step.locked_tail`` for the hole-allocated
+    narrow phase and the locked phase after it. Injected gathers (the
+    SA-range-sharded index, parallel/sharded_index.py) keep the torch
+    steps. collect_live=True also returns the live-state count after each
+    phase, a (n_phases,) int64 device tensor (the kernels then run one
+    phase a call)."""
     dev = di.device
     B = di.n_outcomes
     read_id, lo, hi, pref, overflow = carry
     # one dump slot past the last read: see scan_steps
     overflow = torch.cat([overflow.to(torch.bool),
                           torch.zeros(1, dtype=torch.bool, device=dev)])
-    carry = (read_id, lo, hi, pref, overflow)
+    # the kernels read row-major reads and carry fields (a transposed
+    # read matrix or a strided carry is copied once; else no copy)
+    reads = reads.contiguous()
+    carry = tuple(a.contiguous() for a in (read_id, lo, hi, pref)) + (
+        overflow,)
+    plan = [_phase4(e) for e in phases]
+    narrow_ok = lambda w: w > 0 and (
+        narrow_rows is not None or di.narrow_tab.shape[0] == di.size)
+    kernels = narrow_rows is None and (occ_rows is None
+                                       or isinstance(occ_rows, PackedOccRows))
+    blocks = occ_rows.blocks if kernels and occ_rows is not None else None
     live = []
     log_base = 0
     offset = 0
-    for entry in phases:
-        n_steps, pool, hits, narrow_w, kind = _phase4(entry)
-        cfg = LogConfig(pool=pool, hits=hits)
-        narrow_ok = narrow_w > 0 and (
-            narrow_rows is not None or di.narrow_tab.shape[0] == di.size)
-        GB = hits * B
-        if (kind == "locked" and narrow_ok and narrow_rows is None
-                and (occ_rows is None or isinstance(occ_rows, PackedOccRows))):
-            # the whole locked phase in one call (a kernel launch on CUDA)
-            if pool != num_reads:
-                raise ValueError(f"locked phase needs pool == num_reads, "
-                                 f"got {pool} and {num_reads}")
-            rid, lo, hi, pref, ovf = carry
-            carry = locked_tail(
-                di, reads[offset:offset + n_steps].contiguous(),
-                (rid.contiguous(), lo.contiguous(), hi.contiguous(),
-                 pref.contiguous(), ovf), log_base, lp, le, hits, narrow_w,
-                blocks=None if occ_rows is None else occ_rows.blocks)
-            log_base += n_steps * GB
-            offset += n_steps
-            if collect_live:
-                live.append((carry[0] >= 0).sum())
-            continue
-        if kind == "locked" and narrow_ok:
-            # injected gathers (the SA-range-sharded index): the torch step
-            carry = lock_pool(carry, pool, num_reads)
-            step = build_narrow_step(di, cfg, num_reads, narrow_w,
-                                     occ_rows=occ_rows, locked=True,
-                                     narrow_rows=narrow_rows)
-        elif narrow_ok:
-            carry = resize_pool(carry, pool, num_reads)
-            step = build_narrow_step(di, cfg, num_reads, narrow_w,
-                                     occ_rows=occ_rows,
-                                     narrow_rows=narrow_rows)
+    for kind, run in _runs(plan, narrow_ok, collect_live or not kernels):
+        n_run = sum(e[0] for e in run)
+        rows = reads[offset:offset + n_run]
+        if not kernels:
+            n_steps, pool, hits, narrow_w, phase_kind = run[0]
+            cfg = LogConfig(pool=pool, hits=hits)
+            if phase_kind == "locked" and narrow_ok(narrow_w):
+                carry = lock_pool(carry, pool, num_reads)
+                step = build_narrow_step(di, cfg, num_reads, narrow_w,
+                                         occ_rows=occ_rows, locked=True,
+                                         narrow_rows=narrow_rows)
+            elif narrow_ok(narrow_w):
+                carry = resize_pool(carry, pool, num_reads)
+                step = build_narrow_step(di, cfg, num_reads, narrow_w,
+                                         occ_rows=occ_rows,
+                                         narrow_rows=narrow_rows)
+            else:
+                carry = resize_pool(carry, pool, num_reads)
+                step = build_log_step(di, cfg, num_reads, occ_rows=occ_rows)
+            carry, _ = run_steps(step, carry, rows, log_base, lp, le,
+                                 hits * B)
+        elif kind == "wide":
+            carry = wide_steps(di, rows, carry, [e[:3] for e in run],
+                               log_base, lp, le, blocks=blocks)
         else:
-            carry = resize_pool(carry, pool, num_reads)
-            step = build_log_step(di, cfg, num_reads, occ_rows=occ_rows)
-        for i in range(n_steps):
-            carry, (rec_parent, rec_event) = step(
-                carry, reads[offset + i], log_base)
-            lp[log_base:log_base + GB] = rec_parent.reshape(-1)
-            le[log_base:log_base + GB] = rec_event.reshape(-1)
-            log_base += GB
-        offset += n_steps
+            narrow = None if run[0][4] == "locked" else run[0][:4]
+            locked = run[-1] if run[-1][4] == "locked" else None
+            if locked is not None and locked[1] != num_reads:
+                raise ValueError(f"locked phase needs pool == num_reads, "
+                                 f"got {locked[1]} and {num_reads}")
+            hits, wide_budget = (locked or narrow)[2:4]
+            carry = locked_tail(di, rows, carry, log_base, lp, le, hits,
+                                wide_budget, blocks=blocks,
+                                lock=locked is not None, narrow=narrow)
+        log_base += sum(e[0] * e[2] for e in run) * B
+        offset += n_run
         if collect_live:
             live.append((carry[0] >= 0).sum())
     rid, lo, hi, pref, overflow = carry

@@ -1,33 +1,41 @@
-"""The slot-locked scan tail (K3 locked): the CUDA kernel and its plain
-torch twin.
+"""The scan's narrow tail (K3): the CUDA kernel and its plain torch twin.
 
-Port of gramtools_tpu/mapping/search_jax_log.py::_lock_pool followed by
-``_build_narrow_step(locked=True)`` scanned over a range of steps
-(XLA-lowered jnp on the TPU, not Pallas). ``locked_tail`` takes
+Port of gramtools_tpu/mapping/search_jax_log.py::_resize_pool and
+``_build_narrow_step(locked=False)`` scanned over the hole-allocated
+narrow phase, then ``_lock_pool`` and ``_build_narrow_step(locked=True)``
+scanned over the slot-locked phase (XLA-lowered jnp on the TPU, not
+Pallas). ``locked_tail`` takes
 
-  * ``reads`` (S, R) int32: the base row of each of the S steps (R
-    reads = R pool slots, slot i is read i);
+  * ``reads`` (S, R) int32: the base row of each of the S steps, the
+    hole-allocated ones first (R reads; in the locked steps pool slot i
+    is read i);
   * ``carry`` (read_id, lo, hi, pref) int32 of the incoming pool and
     ``overflow`` (R + 1,) bool (the last entry is the scan's dump slot,
     see mapping/scan_steps.py);
   * ``log_base``, the log offset of the first step, and the log halves
-    ``lp``, ``le`` (int32, 1-D), whose records [log_base, log_base +
-    S·G·B) the steps write in place;
-  * the hit budget ``hits`` (G), the wide-state budget ``wide_budget``
-    (W), and the occ source: ``blocks`` (the packed rank records) or
-    None for the dense ``di.occ`` table;
-  * ``lock``: True locks the pool first (``lock_pool``), False takes a
-    carry that is locked already (a later range of steps);
+    ``lp``, ``le`` (int32, 1-D), whose records from log_base on the steps
+    write in place;
+  * ``narrow``: None, or (steps, pool, hits, wide budget) of the leading
+    hole-allocated steps, run after resizing the pool to ``pool``;
+  * the slot-locked steps' hit budget ``hits`` (G) and wide-state budget
+    ``wide_budget`` (W), and the occ source: ``blocks`` (the packed rank
+    records) or None for the dense ``di.occ`` table;
+  * ``lock``: True locks the pool before the slot-locked steps
+    (``lock_pool``), False takes a carry that is locked already (a later
+    range of steps) or, after the hole-allocated steps, leaves the pool
+    unlocked when no slot-locked step follows;
 
 and returns the final carry with its (R + 1,) overflow. The inputs are
 never written.
 
 ``locked_tail`` routes by device: CPU tensors take the twin,
-``locked_tail_torch`` (``scan_steps.lock_pool``, then the torch locked
-step stepped over the range, with the plain packed rank); CUDA tensors
-launch ``csrc/locked_step.cu``, one cooperative launch for the whole
-range, which needs no host synchronisation. ``locked_tail.launches``
-counts kernel launches.
+``locked_tail_torch`` (``scan_steps.resize_pool`` and the torch
+hole-allocated step, then ``lock_pool`` and the torch locked step, each
+stepped over its range, with the plain packed rank); CUDA tensors launch
+``csrc/locked_step.cu``, one cooperative launch for the whole range,
+which needs no host synchronisation. ``locked_tail.launches`` counts
+kernel launches, ``locked_tail.narrow_launches`` those that ran
+hole-allocated steps.
 """
 from __future__ import annotations
 
@@ -35,9 +43,11 @@ import ctypes
 
 import torch
 
-from ..mapping.scan_steps import build_narrow_step, lock_pool
+from ..mapping.scan_steps import (build_narrow_step, lock_pool, resize_pool,
+                                  run_steps)
 from ..mapping.search_log_host import LogConfig
-from .rank import BLOCK, WORDS, packed_occ_rows_torch
+from . import rank
+from .rank import BLOCK, WORDS
 
 I32 = torch.int32
 
@@ -46,30 +56,32 @@ I32 = torch.int32
 # plain torch twin
 # --------------------------------------------------------------------------
 
-def _plain_packed_rows(blocks: torch.Tensor, size: int):
-    def occ_rows(rows: torch.Tensor) -> torch.Tensor:
-        shape = tuple(rows.shape)
-        return packed_occ_rows_torch(blocks, rows.reshape(-1),
-                                     size).reshape(shape + (4,))
-    return occ_rows
-
-
 def locked_tail_torch(di, reads, carry, log_base: int, lp, le, hits: int,
-                      wide_budget: int, blocks=None, lock: bool = True):
-    """``lock_pool``, then the torch slot-locked step over the rows of
-    ``reads``, each step's log records written into lp/le in place."""
+                      wide_budget: int, blocks=None, lock: bool = True,
+                      narrow=None):
+    """``resize_pool`` and the torch hole-allocated step over the first
+    ``narrow[0]`` rows of ``reads``, then ``lock_pool`` and the torch
+    slot-locked step over the rest, each step's log records written into
+    lp/le in place."""
     R = reads.shape[1]
+    B = di.n_outcomes
+    occ_rows = None if blocks is None else rank.plain_packed_rows(blocks,
+                                                                  di.size)
+    n_narrow = 0
+    if narrow is not None:
+        n_narrow, pool, g_n, w_n = narrow
+        carry = resize_pool(carry, pool, R)
+        step = build_narrow_step(di, LogConfig(pool=pool, hits=g_n), R, w_n,
+                                 occ_rows=occ_rows)
+        carry, log_base = run_steps(step, carry, reads[:n_narrow], log_base,
+                                    lp, le, g_n * B)
     if lock:
         carry = lock_pool(carry, R, R)
-    occ_rows = None if blocks is None else _plain_packed_rows(blocks, di.size)
-    step = build_narrow_step(di, LogConfig(pool=R, hits=hits), R, wide_budget,
-                             occ_rows=occ_rows, locked=True)
-    GB = hits * di.n_outcomes
-    for i in range(reads.shape[0]):
-        carry, (rec_parent, rec_event) = step(carry, reads[i], log_base)
-        lp[log_base:log_base + GB] = rec_parent.reshape(-1)
-        le[log_base:log_base + GB] = rec_event.reshape(-1)
-        log_base += GB
+    if reads.shape[0] > n_narrow:
+        step = build_narrow_step(di, LogConfig(pool=R, hits=hits), R,
+                                 wide_budget, occ_rows=occ_rows, locked=True)
+        carry, _ = run_steps(step, carry, reads[n_narrow:], log_base, lp, le,
+                             hits * B)
     return carry
 
 
@@ -84,135 +96,180 @@ def _kernel_lib() -> ctypes.CDLL:
     if lib.locked_tail.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.locked_tail.argtypes = (
-            [p, p, p, p, p, i, i]                # carry in, n_in, lock
-            + [p, i, i]                          # reads, steps, R
+            [p, p, p, p, p, i]                   # carry in, n_in
+            + [p, i, i, i, i, i, i]              # reads, R, narrow range,
+                                                 # lock
+            + [i, i, i]                          # locked steps, G, W
             + [p, i, p, p, p, p]                 # narrow_tab, n, occ, blocks,
                                                  # sym_start, sentinel_row
             + [p, i, p, p, i, i]                 # mrl, outcomes
-            + [i, i, i, p, p]                    # G, W, log_base, lp, le
-            + [p, p, p, i, p])                   # carry, ovf, scratch, grid,
-                                                 # stream
+            + [i, p, p]                          # log_base, lp, le
+            + [p, i, p, p, i, p])                # carry, C, ovf, scratch,
+                                                 # grid, stream
         lib.locked_tail.restype = ctypes.c_int
-        lib.locked_tail_scratch.argtypes = [i, i]
+        lib.locked_tail_scratch.argtypes = [i, i, i]
         lib.locked_tail_scratch.restype = ctypes.c_longlong
-        lib.locked_tail_grid.argtypes = [i, i, i]
+        lib.locked_tail_grid.argtypes = [i, i]
         lib.locked_tail_grid.restype = ctypes.c_int
     return lib
 
 
-def _check(name, t, dtype, shape):
+def check_tensor(fn: str, name: str, t, dtype, shape):
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape``."""
     if t.dtype != dtype:
-        raise TypeError(f"locked_tail_cuda: {name} must be {dtype}, got "
-                        f"{t.dtype}")
+        raise TypeError(f"{fn}: {name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"locked_tail_cuda: {name} must have shape "
-                         f"{tuple(shape)}, got {tuple(t.shape)}")
+        raise ValueError(f"{fn}: {name} must have shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"locked_tail_cuda: {name} must be contiguous")
+        raise ValueError(f"{fn}: {name} must be contiguous")
 
 
-def locked_tail_cuda(di, reads, carry, log_base: int, lp, le, hits: int,
-                     wide_budget: int, blocks=None, lock: bool = True):
-    """Launch csrc/locked_step.cu on PyTorch's current stream. Raises on
-    what the kernel does not take and on a failed build or launch; does
-    not synchronise."""
+def check_scan_args(fn: str, di, reads, carry, lp, le, end: int,
+                    blocks=None):
+    """The checks the scan kernels' wrappers share: every tensor on one
+    CUDA device, reads (S, R) int32, the carry's four (n_in,) int32
+    fields and (R + 1,) overflow, the log halves 1-D int32 holding
+    records up to ``end``, and the index tables the kernels read (the
+    dense occ table or the packed records). Returns (S, R, n_in)."""
     rid, lo, hi, pref, overflow = carry
     B = di.n_outcomes
     n = di.size
     occ = di.occ if blocks is None else blocks
-    tables = [di.narrow_tab, occ, di.sym_start, di.sentinel_row,
-              di.marker_rank_locus, di.out_lo, di.out_hi]
+    tables = [occ, di.sym_start, di.sentinel_row, di.marker_rank_locus,
+              di.out_lo, di.out_hi]
     tensors = [reads, rid, lo, hi, pref, overflow, lp, le] + tables
     dev = reads.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError("locked_tail_cuda: every input must be on one CUDA "
-                         f"device, got {sorted({str(t.device) for t in tensors})}")
+        raise ValueError(f"{fn}: every input must be on one CUDA device, got "
+                         f"{sorted({str(t.device) for t in tensors})}")
     if reads.dim() != 2:
-        raise ValueError("locked_tail_cuda: reads must be (steps, R)")
+        raise ValueError(f"{fn}: reads must be (steps, R)")
     S, R = reads.shape
     n_in = rid.shape[0]
-    if R < 1 or hits < 1 or wide_budget < 0:
-        raise ValueError(f"locked_tail_cuda: needs R >= 1, hits >= 1 and "
-                         f"wide_budget >= 0, got {R}, {hits}, {wide_budget}")
-    if not lock and n_in != R:
-        raise ValueError("locked_tail_cuda: a locked carry has R states")
-    _check("reads", reads, I32, (S, R))
+    if R < 1:
+        raise ValueError(f"{fn}: needs R >= 1")
+    check_tensor(fn, "reads", reads, I32, (S, R))
     for name, t in (("read_id", rid), ("lo", lo), ("hi", hi), ("pref", pref)):
-        _check(name, t, I32, (n_in,))
-    _check("overflow", overflow, torch.bool, (R + 1,))
+        check_tensor(fn, name, t, I32, (n_in,))
+    check_tensor(fn, "overflow", overflow, torch.bool, (R + 1,))
     for name, t in (("lp", lp), ("le", le)):
         if t.dim() != 1:
-            raise ValueError(f"locked_tail_cuda: {name} must be 1-D")
-        _check(name, t, I32, t.shape)
-    end = log_base + S * hits * B
-    if log_base < 0 or end > min(lp.shape[0], le.shape[0]) or end >= 2 ** 31:
-        raise ValueError(f"locked_tail_cuda: log records [{log_base}, {end}) "
-                         f"outside the log ({lp.shape[0]}, {le.shape[0]})")
-    if n >= 2 ** 24:
-        raise ValueError("locked_tail_cuda: the narrow table needs n < 2**24")
-    _check("narrow_tab", di.narrow_tab, I32, (n,))
+            raise ValueError(f"{fn}: {name} must be 1-D")
+        check_tensor(fn, name, t, I32, t.shape)
+    if end > min(lp.shape[0], le.shape[0]) or end >= 2 ** 31:
+        raise ValueError(f"{fn}: log records up to {end} outside the log "
+                         f"({lp.shape[0]}, {le.shape[0]})")
+    if n >= 2 ** 31 - 1:
+        raise ValueError(f"{fn}: the index needs n < 2**31 - 1")
     if blocks is None:
-        _check("occ", occ, I32, (n + 1, 4))
+        check_tensor(fn, "occ", occ, I32, (n + 1, 4))
     else:
-        _check("blocks", occ, I32, (n // BLOCK + 1, WORDS))
+        check_tensor(fn, "blocks", occ, I32, (n // BLOCK + 1, WORDS))
     if di.sym_start.shape[0] < 5:
-        raise ValueError("locked_tail_cuda: sym_start needs 5 entries")
-    _check("sym_start", di.sym_start, I32, (di.sym_start.shape[0],))
+        raise ValueError(f"{fn}: sym_start needs 5 entries")
+    check_tensor(fn, "sym_start", di.sym_start, I32, (di.sym_start.shape[0],))
     if di.sentinel_row.numel() != 1:
-        raise ValueError("locked_tail_cuda: sentinel_row must be one int")
-    _check("sentinel_row", di.sentinel_row, I32, di.sentinel_row.shape)
+        raise ValueError(f"{fn}: sentinel_row must be one int")
+    check_tensor(fn, "sentinel_row", di.sentinel_row, I32,
+                 di.sentinel_row.shape)
     n_mrl = di.marker_rank_locus.shape[0]
     if n_mrl < 1:
-        raise ValueError("locked_tail_cuda: marker_rank_locus is empty")
-    _check("marker_rank_locus", di.marker_rank_locus, I32, (n_mrl,))
+        raise ValueError(f"{fn}: marker_rank_locus is empty")
+    check_tensor(fn, "marker_rank_locus", di.marker_rank_locus, I32, (n_mrl,))
     L = di.out_lo.shape[0]
-    _check("out_lo", di.out_lo, I32, (L, B))
-    _check("out_hi", di.out_hi, I32, (L, B))
+    check_tensor(fn, "out_lo", di.out_lo, I32, (L, B))
+    check_tensor(fn, "out_hi", di.out_hi, I32, (L, B))
     if L < 1:
-        raise ValueError("locked_tail_cuda: the jump table has no locus")
+        raise ValueError(f"{fn}: the jump table has no locus")
+    return S, R, n_in
+
+
+def index_args(di, blocks=None):
+    """The index tables' kernel arguments after the narrow table: occ,
+    blocks, sym_start, sentinel_row, mrl, n_mrl, out_lo, out_hi, L, B."""
+    return [di.occ.data_ptr() if blocks is None else None,
+            None if blocks is None else blocks.data_ptr(),
+            di.sym_start.data_ptr(), di.sentinel_row.data_ptr(),
+            di.marker_rank_locus.data_ptr(), di.marker_rank_locus.shape[0],
+            di.out_lo.data_ptr(), di.out_hi.data_ptr(), di.out_lo.shape[0],
+            di.n_outcomes]
+
+
+def locked_tail_cuda(di, reads, carry, log_base: int, lp, le, hits: int,
+                     wide_budget: int, blocks=None, lock: bool = True,
+                     narrow=None):
+    """Launch csrc/locked_step.cu on PyTorch's current stream. Raises on
+    what the kernel does not take and on a failed build or launch; does
+    not synchronise."""
+    fn = "locked_tail_cuda"
+    B = di.n_outcomes
+    n_narrow, pool, g_n, w_n = (0, 0, 0, 0) if narrow is None else narrow
+    n_locked = reads.shape[0] - n_narrow if reads.dim() == 2 else 0
+    end = log_base + n_narrow * g_n * B + n_locked * hits * B
+    S, R, n_in = check_scan_args(fn, di, reads, carry, lp, le, end, blocks)
+    if log_base < 0 or hits < 1 or wide_budget < 0:
+        raise ValueError(f"{fn}: needs log_base >= 0, hits >= 1 and "
+                         f"wide_budget >= 0, got {log_base}, {hits}, "
+                         f"{wide_budget}")
+    if narrow is not None and not (0 <= n_narrow <= S and pool >= 1
+                                   and g_n >= 1 and w_n >= 0):
+        raise ValueError(f"{fn}: narrow must be (steps <= {S}, pool >= 1, "
+                         f"hits >= 1, wide budget >= 0), got {narrow}")
+    n_pool = pool if narrow is not None else n_in
+    if n_locked and not lock and n_pool != R:
+        raise ValueError(f"{fn}: a locked carry has R states")
+    n = di.size
+    if n >= 2 ** 24:
+        raise ValueError(f"{fn}: the narrow table needs n < 2**24")
+    check_tensor(fn, "narrow_tab", di.narrow_tab, I32, (n,))
 
     lib = _kernel_lib()
-    out = torch.empty((2, 4, R), dtype=I32, device=dev)
-    ovf = torch.empty(R + 1, dtype=torch.bool, device=dev)
-    scratch = torch.empty(lib.locked_tail_scratch(R, hits), dtype=I32,
-                          device=dev)
-    with torch.cuda.device(dev):
-        grid = lib.locked_tail_grid(R, n_in, hits * B)
+    C = max(n_in, pool, R)
+    K = max(g_n, hits) * B
+    out = torch.empty((2, 4, C), dtype=I32, device=reads.device)
+    ovf = torch.empty(R + 1, dtype=torch.bool, device=reads.device)
+    scratch = torch.empty(lib.locked_tail_scratch(C, K, max(g_n, hits)),
+                          dtype=I32, device=reads.device)
+    rid, lo, hi, pref, overflow = carry
+    with torch.cuda.device(reads.device):
+        grid = lib.locked_tail_grid(C, K)
         if grid < 1:
-            raise RuntimeError(f"locked_tail: no cooperative grid on {dev}: "
-                               f"CUDA error {-grid}")
+            raise RuntimeError(f"locked_tail: no cooperative grid on "
+                               f"{reads.device}: CUDA error {-grid}")
         err = lib.locked_tail(
             rid.data_ptr(), lo.data_ptr(), hi.data_ptr(), pref.data_ptr(),
-            overflow.data_ptr(), n_in, int(lock),
-            reads.data_ptr(), S, R,
-            di.narrow_tab.data_ptr(), n,
-            occ.data_ptr() if blocks is None else None,
-            occ.data_ptr() if blocks is not None else None,
-            di.sym_start.data_ptr(), di.sentinel_row.data_ptr(),
-            di.marker_rank_locus.data_ptr(), n_mrl, di.out_lo.data_ptr(),
-            di.out_hi.data_ptr(), L, B, hits, wide_budget, log_base,
-            lp.data_ptr(), le.data_ptr(), out.data_ptr(), ovf.data_ptr(),
-            scratch.data_ptr(), grid,
-            torch.cuda.current_stream(dev).cuda_stream)
+            overflow.data_ptr(), n_in,
+            reads.data_ptr(), R, n_narrow, pool, g_n, w_n, int(lock),
+            n_locked, hits, wide_budget,
+            di.narrow_tab.data_ptr(), n, *index_args(di, blocks),
+            log_base, lp.data_ptr(), le.data_ptr(), out.data_ptr(), C,
+            ovf.data_ptr(), scratch.data_ptr(), grid,
+            torch.cuda.current_stream(reads.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"locked_tail kernel launch failed: CUDA error "
                            f"{err}")
     locked_tail.launches += 1
-    last = out[S % 2]
-    return last[0], last[1], last[2], last[3], ovf
+    locked_tail.narrow_launches += n_narrow > 0
+    last = out[(n_narrow + int(lock) + n_locked) % 2]
+    n_out = R if lock or n_locked else n_pool
+    return (last[0, :n_out], last[1, :n_out], last[2, :n_out],
+            last[3, :n_out], ovf)
 
 
 def locked_tail(di, reads, carry, log_base: int, lp, le, hits: int,
-                wide_budget: int, blocks=None, lock: bool = True):
+                wide_budget: int, blocks=None, lock: bool = True,
+                narrow=None):
     """CPU tensors take the plain twin; CUDA tensors launch the kernel
     or raise."""
     if reads.device.type == "cpu":
         return locked_tail_torch(di, reads, carry, log_base, lp, le, hits,
-                                 wide_budget, blocks, lock)
+                                 wide_budget, blocks, lock, narrow)
     if reads.device.type == "cuda":
         return locked_tail_cuda(di, reads, carry, log_base, lp, le, hits,
-                                wide_budget, blocks, lock)
+                                wide_budget, blocks, lock, narrow)
     raise ValueError(f"locked_tail: unsupported device {reads.device}")
 
 
 locked_tail.launches = 0
+locked_tail.narrow_launches = 0

@@ -221,7 +221,7 @@ class PackedOccRows:
     (2N,) or (2G, B), through ``packed_rank``: a drop-in for the dense
     di.occ gather in the scan steps. It carries its ``blocks`` and
     ``size``, so a caller can hand the records themselves to a kernel
-    that folds the rank in (ops/locked_step.py)."""
+    that folds the rank in (ops/wide_step.py, ops/locked_step.py)."""
 
     def __init__(self, blocks: torch.Tensor, size: int):
         self.blocks = blocks
@@ -236,3 +236,13 @@ class PackedOccRows:
 def make_packed_occ_rows(blocks: torch.Tensor, size: int) -> PackedOccRows:
     """The packed-rank occ gather over ``blocks`` (PackedOccRows)."""
     return PackedOccRows(blocks, size)
+
+
+def plain_packed_rows(blocks: torch.Tensor, size: int):
+    """The packed-rank occ gather through the plain twin on any device:
+    the occ source of the scan kernels' twins."""
+    def occ_rows(rows: torch.Tensor) -> torch.Tensor:
+        shape = tuple(rows.shape)
+        return packed_occ_rows_torch(blocks, rows.reshape(-1),
+                                     size).reshape(shape + (4,))
+    return occ_rows

@@ -1,6 +1,7 @@
 """The port on a CUDA device: the packed-rank (K1), genealogy-replay
-(K7) and locked-tail (K3 locked) kernels and the per-base recorder's
-kernels (K9) against their plain torch versions,
+(K7), wide-step (K2) and narrow-tail (K3: hole-allocated and locked
+steps) kernels and the per-base recorder's kernels (K9) against their
+plain torch versions,
 the scan and the fused record program on CUDA against the CPU, the
 engine against the host oracle, the mesh engine and the index-sharded
 scan on one card and, where the machine has two cards or more, across
@@ -41,7 +42,7 @@ from gramtools_tpu_torch.mapping.search_log import (log_search_packed,
 from gramtools_tpu_torch.mapping.search_log_host import (FB_EMIT, FB_WALK,
                                                          TCAP, LogConfig,
                                                          buffer_caps)
-from gramtools_tpu_torch.ops import locked_step, rank, replay, walk
+from gramtools_tpu_torch.ops import locked_step, rank, replay, walk, wide_step
 
 pytestmark = pytest.mark.cuda
 
@@ -128,13 +129,18 @@ def test_scan_flat_result_equal_on_cuda_and_cpu(cuda, rank_kind,
     kmer_index = build_kmer_index(idx, k)
     engine = LogBatchedEngine(idx, k, LogConfig(pool=4096, hits=16),
                               device=cuda)
-    before = locked_step.locked_tail.launches
+    before = (locked_step.locked_tail.launches,
+              locked_step.locked_tail.narrow_launches,
+              wide_step.wide_steps.launches)
     token = engine.scan_submit(_reads(idx, 200, 60, 3), kmer_index, k,
                                QuasimapStats())
     (pending, phases, R), carry, reads_T = token[2], token[5], token[6]
     got = pending.get()
     assert phases[-1][4] == "locked"
-    assert locked_step.locked_tail.launches == before + 1
+    # the whole scan in two launches: the wide phases, then the tail
+    assert (locked_step.locked_tail.launches,
+            locked_step.locked_tail.narrow_launches,
+            wide_step.wide_steps.launches) == tuple(b + 1 for b in before)
     di_cpu = DeviceIndex.build(idx, engine.jt, "cpu")
     blocks = engine.blocks.cpu() if engine.blocks is not None else None
     want = log_search_packed(
@@ -154,10 +160,15 @@ def test_engine_on_cuda_matches_host_oracle(cuda, rank_kind, monkeypatch):
                               device=cuda)
     engine.retry_min = 1
     reads = _reads(idx, 200, 60, 5)
-    before = rank.packed_rank.launches
+    before = (rank.packed_rank.launches, wide_step.wide_steps.launches,
+              locked_step.locked_tail.launches)
     results = engine.search_buffer(reads, kmer_index, k, QuasimapStats())
     assert engine.device_mapped > 0 and engine.device_retried > 0
-    assert (rank.packed_rank.launches > before) == (rank_kind == "packed")
+    # the scan kernels fold the packed rank in: no standalone K1 call
+    after = (rank.packed_rank.launches, wide_step.wide_steps.launches,
+             locked_step.locked_tail.launches)
+    assert after[0] == before[0] and all(
+        a > b for a, b in zip(after[1:], before[1:]))
     key = lambda st: sorted((s.lo, s.hi, s.traversed, s.traversing)
                             for s in st)
     for i, read in enumerate(reads):
@@ -545,6 +556,208 @@ def test_locked_tail_does_not_synchronise(cuda):
 
 
 # --------------------------------------------------------------------------
+# the wide steps (K2) and the hole-allocated narrow steps (K3 narrow)
+# --------------------------------------------------------------------------
+
+def _pool_case(rank_kind, R, n_in, seed, steps):
+    """(DeviceIndex, reads (steps, R), carry of n_in random states, front
+    packed (the live states first, as a wide step leaves them), blocks)
+    on the CPU; one all-zero step (no hit at all)."""
+    di, reads, carry, blocks = _locked_case(rank_kind, R, seed, steps)
+    rng = np.random.RandomState(seed + 1)
+    n = di.size
+    live = min(n_in, int(0.8 * n_in) + 1)
+    rid = np.full(n_in, -1)
+    rid[:live] = rng.randint(0, R, size=live)
+    lo = rng.randint(0, n, size=n_in)
+    hi = np.minimum(lo + rng.choice([0, 0, 1, 2, 5, 40, 300], size=n_in),
+                    n - 1)
+    pref = rng.randint(-60, 900, size=n_in)
+    carry = tuple(torch.from_numpy(a.astype(np.int32))
+                  for a in (rid, lo, hi, pref)) + (carry[4],)
+    return di, reads, carry, blocks
+
+
+# (R, incoming states, phases ((steps, pool, hits), ...)): a shrink and
+# a grow between phases, spilling budgets, and a warm-sized pool
+WIDE_CASES = {
+    "small": (300, 1000, ((2, 1024, 64), (3, 500, 8))),
+    "grow": (300, 200, ((1, 256, 4), (2, 640, 300))),
+    "tight": (1000, 4000, ((2, 1200, 2), (2, 900, 1))),
+    "path": (8192, 30000, ((2, 32768, 4096), (4, 12288, 1024))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WIDE_CASES))
+@pytest.mark.parametrize("rank_kind", ["dense", "packed"])
+def test_wide_steps_kernel_matches_twin(cuda, rank_kind, case):
+    R, n_in, phases = WIDE_CASES[case]
+    S = sum(p[0] for p in phases)
+    di, reads, carry, blocks = _pool_case(rank_kind, R, n_in, R + n_in, S)
+    B = di.n_outcomes
+    base = 21
+    n_log = base + sum(s * g for s, _, g in phases) * B + 5
+    lp, le = _log_pair(n_log, "cpu")
+    want = wide_step.wide_steps(di, reads, carry, phases, base, lp, le,
+                                blocks=blocks)
+    cdi, creads, ccarry, cblocks = _locked_on(cuda, di, reads, carry, blocks)
+    clp, cle = _log_pair(n_log, cuda)
+    before = wide_step.wide_steps.launches
+    got = wide_step.wide_steps(cdi, creads, ccarry, phases, base, clp, cle,
+                               blocks=cblocks)
+    torch.cuda.synchronize()
+    assert wide_step.wide_steps.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g.cpu(), w)
+    assert torch.equal(clp.cpu(), lp) and torch.equal(cle.cpu(), le)
+    for a, b in zip(ccarry, carry):                # inputs never written
+        assert torch.equal(a.cpu(), b)
+
+
+# (R, incoming states, narrow (steps, pool, hits, W), locked steps, G, W)
+NARROW_CASES = {
+    "small": (300, 500, (3, 384, 64, 64), 3, 64, 64),
+    "tight": (1000, 1600, (3, 1250, 2, 4), 2, 2, 4),
+    "grow": (500, 300, (2, 640, 16, 32), 2, 8, 16),
+    "alone": (600, 900, (4, 768, 32, 32), 0, 32, 32),
+    "path": (8192, 12288, (8, 10240, 512, 512), 6, 512, 512),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NARROW_CASES))
+@pytest.mark.parametrize("rank_kind", ["dense", "packed"])
+def test_narrow_tail_kernel_matches_twin(cuda, rank_kind, case):
+    R, n_in, narrow, n_locked, G, W = NARROW_CASES[case]
+    lock = n_locked > 0
+    di, reads, carry, blocks = _pool_case(rank_kind, R, n_in, R + n_in,
+                                          narrow[0] + n_locked)
+    B = di.n_outcomes
+    base = 17
+    n_log = base + (narrow[0] * narrow[2] + n_locked * G) * B + 5
+    lp, le = _log_pair(n_log, "cpu")
+    want = locked_step.locked_tail(di, reads, carry, base, lp, le, G, W,
+                                   blocks=blocks, lock=lock, narrow=narrow)
+    cdi, creads, ccarry, cblocks = _locked_on(cuda, di, reads, carry, blocks)
+    clp, cle = _log_pair(n_log, cuda)
+    before = (locked_step.locked_tail.launches,
+              locked_step.locked_tail.narrow_launches)
+    got = locked_step.locked_tail(cdi, creads, ccarry, base, clp, cle, G, W,
+                                  blocks=cblocks, lock=lock, narrow=narrow)
+    torch.cuda.synchronize()
+    assert (locked_step.locked_tail.launches,
+            locked_step.locked_tail.narrow_launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g.cpu(), w)
+    assert torch.equal(clp.cpu(), lp) and torch.equal(cle.cpu(), le)
+    for a, b in zip(ccarry, carry):
+        assert torch.equal(a.cpu(), b)
+    assert got[0].shape == ((R,) if lock else (narrow[1],))
+
+
+@pytest.mark.parametrize("rank_kind", ["dense", "packed"])
+def test_scan_kernels_range_split(cuda, rank_kind):
+    """The wide phases one call each, then the narrow range alone and the
+    locked range alone: the carry and log of one call over each run."""
+    R, n_in, phases = WIDE_CASES["small"]
+    narrow, G, W = (3, 384, 32, 32), 16, 24
+    S_w = sum(p[0] for p in phases)
+    di, reads, carry, blocks = _pool_case(rank_kind, R, n_in, 3,
+                                          S_w + narrow[0] + 4)
+    cdi, creads, ccarry, cblocks = _locked_on(cuda, di, reads, carry, blocks)
+    B = di.n_outcomes
+    n_w = sum(s * g for s, _, g in phases) * B
+    n_log = n_w + (narrow[0] * narrow[2] + 4 * G) * B
+
+    def run(split):
+        lp, le = _log_pair(n_log, cuda)
+        c, off, base = ccarry, 0, 0
+        for ph in (phases if split else [phases]):
+            ph = [ph] if split else ph
+            s = sum(p[0] for p in ph)
+            c = wide_step.wide_steps(cdi, creads[off:off + s], c, ph, base,
+                                     lp, le, blocks=cblocks)
+            off, base = off + s, base + sum(p[0] * p[2] for p in ph) * B
+        if split:
+            c = locked_step.locked_tail(
+                cdi, creads[off:off + narrow[0]], c, base, lp, le, G, W,
+                blocks=cblocks, lock=False, narrow=narrow)
+            c = locked_step.locked_tail(
+                cdi, creads[off + narrow[0]:], c,
+                base + narrow[0] * narrow[2] * B, lp, le, G, W,
+                blocks=cblocks)
+        else:
+            c = locked_step.locked_tail(cdi, creads[off:], c, base, lp, le,
+                                        G, W, blocks=cblocks, narrow=narrow)
+        return c, lp, le
+
+    whole, split = run(False), run(True)
+    for a, b in zip(whole[0] + whole[1:], split[0] + split[1:]):
+        assert torch.equal(a, b)
+
+
+def test_scan_kernel_wrappers_check_inputs(cuda):
+    R, n_in, phases = WIDE_CASES["small"]
+    di, reads, carry, blocks = _pool_case("packed", R, n_in, 5, 5)
+    cdi, creads, ccarry, cblocks = _locked_on(cuda, di, reads, carry, blocks)
+    lp, le = _log_pair(152 * di.n_outcomes, cuda)     # the phases' records
+    wide = lambda **kw: wide_step.wide_steps_cuda(**{**dict(
+        di=cdi, reads=creads, carry=ccarry, phases=phases, log_base=0, lp=lp,
+        le=le, blocks=cblocks), **kw})
+    wide()                                     # the good call launches
+    with pytest.raises(ValueError):            # steps != the reads' rows
+        wide(phases=((2, 1024, 64),))
+    with pytest.raises(ValueError):            # a zero hit budget
+        wide(phases=((2, 1024, 0), (3, 500, 8)))
+    with pytest.raises(ValueError):            # more phases than it takes
+        wide(phases=((1, 64, 1),) * 17, reads=torch.zeros(
+            (17, R), dtype=torch.int32, device=cuda))
+    with pytest.raises(TypeError):
+        wide(reads=creads.long())
+    with pytest.raises(ValueError):            # records past the log's end
+        wide(log_base=1)
+    with pytest.raises(ValueError):            # a CPU tensor
+        wide_step.wide_steps_cuda(di, reads, carry, phases, 0, lp.cpu(),
+                                  le.cpu(), blocks=blocks)
+    tail = lambda **kw: locked_step.locked_tail_cuda(**{**dict(
+        di=cdi, reads=creads, carry=ccarry, log_base=0, lp=lp, le=le,
+        hits=16, wide_budget=8, blocks=cblocks, narrow=(2, 384, 16, 8)),
+        **kw})
+    tail()
+    with pytest.raises(ValueError):            # more narrow steps than rows
+        tail(narrow=(6, 384, 16, 8))
+    with pytest.raises(ValueError):            # a zero narrow hit budget
+        tail(narrow=(2, 384, 0, 8))
+    with pytest.raises(ValueError):            # locked steps need the lock
+        tail(lock=False)                       # (pool 384 != R)
+
+
+def test_scan_kernels_do_not_synchronise(cuda):
+    R, n_in, phases = WIDE_CASES["small"]
+    narrow = (3, 384, 32, 32)
+    di, reads, carry, blocks = _pool_case("packed", R, n_in, 9, 10)
+    cdi, creads, ccarry, cblocks = _locked_on(cuda, di, reads, carry, blocks)
+    lp, le = _log_pair(10 * 64 * di.n_outcomes, cuda)
+
+    def both():
+        c = wide_step.wide_steps(cdi, creads[:5], ccarry, phases, 0, lp, le,
+                                 blocks=cblocks)
+        return locked_step.locked_tail(cdi, creads[5:], c,
+                                       152 * di.n_outcomes, lp, le, 16, 16,
+                                       blocks=cblocks, narrow=narrow)
+
+    both()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = both()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert out[0].shape == (R,)
+
+
+# --------------------------------------------------------------------------
 # the fused record program and engine
 # --------------------------------------------------------------------------
 
@@ -604,8 +817,8 @@ def test_fused_record_flat_result_equal_on_cuda_and_cpu(cuda, monkeypatch):
 def test_fused_engine_on_cuda_matches_host_engine(cuda, monkeypatch,
                                                   tmp_path):
     """Whole quasimap runs, retries recorded on the card included: the
-    fused engine on CUDA gives the host engine's coverage, and K1, K7,
-    K9 and the locked tail all launched."""
+    fused engine on CUDA gives the host engine's coverage, and K2, K3
+    (its hole-allocated and locked steps), K7 and K9 all launched."""
     monkeypatch.setenv("GRAMTOOLS_TPU_RANK", "packed")
     monkeypatch.setenv("GRAMTOOLS_TPU_RETRY_MIN", "1")
     idx_d, reads = _haplotype_reads(np.random.RandomState(4), 400)
@@ -617,13 +830,15 @@ def test_fused_engine_on_cuda_matches_host_engine(cuda, monkeypatch,
             fh.write(f"@r{i}\n{''.join(lut[r])}\n+\n{'I' * r.size}\n")
     engine = LogBatchedEngine(idx_d, k, LogConfig(pool=4096, hits=16),
                               device=cuda)
-    counted = (rank.packed_rank, replay.replay, walk.per_base_cuda,
-               locked_step.locked_tail)
-    before = tuple(fn.launches for fn in counted)
+    counted = lambda: (wide_step.wide_steps.launches,
+                       locked_step.locked_tail.launches,
+                       locked_step.locked_tail.narrow_launches,
+                       replay.replay.launches, walk.per_base_cuda.launches)
+    before = counted()
     stats_d, cov_d = quasimap_reads(
         [str(fq)], build_kmer_index_vectorised(idx_d, k), idx_d, k, seed=1,
         engine=engine, buffer_size=100)
-    after = tuple(fn.launches for fn in counted)
+    after = counted()
     assert all(a > b for a, b in zip(after, before)), (before, after)
     assert engine.device_mapped > 0 and engine.device_retried > 0
     idx_h = _haplotype_reads(np.random.RandomState(4), 400)[0]
@@ -678,15 +893,16 @@ def _mesh_quasimap(devices, tmp_path, name):
 
 def test_mesh_engine_on_cuda_matches_cpu_mesh(cuda, monkeypatch, tmp_path):
     """Two shards on the card (one device listed twice) give the CPU
-    2-shard engine's stats and coverage, retries included, and K1, K7
-    and K9 launch."""
+    2-shard engine's stats and coverage, retries included, and K2, K3,
+    K7 and K9 launch (K1's rank runs inside K2 and K3)."""
     monkeypatch.setenv("GRAMTOOLS_TPU_RANK", "packed")
     monkeypatch.setenv("GRAMTOOLS_TPU_RETRY_MIN", "1")
-    before = (rank.packed_rank.launches, replay.replay.launches,
-              walk.per_base_cuda.launches)
+    counted = lambda: (wide_step.wide_steps.launches,
+                       locked_step.locked_tail.launches,
+                       replay.replay.launches, walk.per_base_cuda.launches)
+    before = counted()
     got = _mesh_quasimap([cuda, cuda], tmp_path, "cuda")
-    after = (rank.packed_rank.launches, replay.replay.launches,
-             walk.per_base_cuda.launches)
+    after = counted()
     assert all(a > b for a, b in zip(after, before)), (before, after)
     want = _mesh_quasimap(["cpu", "cpu"], tmp_path, "cpu")
     assert got[0].as_dict() == want[0].as_dict()

@@ -26,6 +26,8 @@ def test_port_modules_listed():
                  "gramtools_tpu_torch.ops.rank",
                  "gramtools_tpu_torch.ops.replay",
                  "gramtools_tpu_torch.ops.walk",
+                 "gramtools_tpu_torch.ops.wide_step",
+                 "gramtools_tpu_torch.ops.locked_step",
                  "gramtools_tpu_torch.mapping.record",
                  "gramtools_tpu_torch.mapping.search_log",
                  "gramtools_tpu_torch.mapping.engine",

@@ -9,9 +9,9 @@ tolerance 0). Dense and packed rank (JAX's packed rank runs the K1
 Pallas kernel in interpret mode), a marker-site graph and a nested one,
 and budgets tight enough that wide states and hits spill, newborns
 conflict, reads hold two states at lock time and a step has no hit at
-all. Then the phase loop: a locked phase goes through ``locked_tail``
-once, and the flat result equals ``_log_search_packed``'s; injected
-gathers keep the torch locked step.
+all. Then the phase loop: the narrow and locked phases go through one
+``locked_tail`` call, and the flat result equals
+``_log_search_packed``'s; injected gathers keep the torch locked step.
 """
 import numpy as np
 import pytest
@@ -182,10 +182,10 @@ def test_locked_tail_range_split_equals_whole(rank):
 @pytest.mark.parametrize("rank", ["dense", "packed"])
 def test_scan_phases_runs_locked_phase_through_locked_tail(rank, budget,
                                                            monkeypatch):
-    """log_search_packed on a buffer whose plan ends in a locked phase
-    (auto_phases' budgets, or hits 4 and wide budget 2 there): one
-    locked_tail call for the phase, and the flat result equal to JAX's
-    _log_search_packed."""
+    """log_search_packed on a buffer whose plan ends in a hole-allocated
+    narrow phase and a locked phase (auto_phases' budgets, or hits 4 and
+    wide budget 2 in the locked phase): one locked_tail call for both
+    phases, and the flat result equal to JAX's _log_search_packed."""
     monkeypatch.setenv("GRAMTOOLS_TORCH_DEVICE", "cpu")
     monkeypatch.setenv("GRAMTOOLS_TPU_RANK", rank)
     j_idx, idx = _graph("sites")
@@ -203,7 +203,7 @@ def test_scan_phases_runs_locked_phase_through_locked_tail(rank, budget,
     tail = search_log.locked_tail
 
     def counted(*args, **kwargs):
-        calls.append(args[1].shape)
+        calls.append((tuple(args[1].shape), kwargs["narrow"]))
         return tail(*args, **kwargs)
 
     monkeypatch.setattr(search_log, "locked_tail", counted)
@@ -212,7 +212,9 @@ def test_scan_phases_runs_locked_phase_through_locked_tail(rank, budget,
     got = log_search_packed(tdi, torch.from_numpy(reads_T),
                             tuple(torch.from_numpy(a) for a in carry), phases,
                             Rb, blocks=blocks, rank=rank).numpy()
-    assert calls == [(phases[-1][0], Rb)]
+    narrow = jsl._phase4(phases[-2])
+    assert narrow[3] > 0 and narrow[4] == ""
+    assert calls == [((narrow[0] + phases[-1][0], Rb), narrow[:4])]
     jdi = JaxDeviceIndex.build(j_idx, build_jump_table(j_idx))
     j_blocks = (jnp.asarray(jax_packed_occ(j_idx.fm)) if rank == "packed"
                 else None)
