@@ -14,8 +14,9 @@ gramtools_tpu_torch/common/workload.py, seeded). Phases, in
 this order, each printing one line or a few:
 
   0. the card (nvidia-smi name and power limit), the build of the
-     five kernel sources and of the cursor-walk probe (one nvcc each,
-     all started together);
+     five kernel sources and of the probes (the cursor walk and the
+     narrow-table chase in one file; K3 with its stage stamps; one nvcc
+     each, all started together);
   1. the packed-rank kernel (K1) against its plain torch twin, on a
      small FM index (every prefix length) and on the 4.4 Mb graph's
      records (524,288 random rows plus edge rows; the warm steps'
@@ -59,6 +60,8 @@ this order, each printing one line or a few:
      sleep of the card so the host's enqueue does not show), its bound
      (the bytes its inputs need, read once, and its outputs, written
      once, over the HBM rate) and its share of the bound are printed;
+     so are K6's (the 2-bit read unpack, plain torch) device time and
+     byte bound on buffer 1's packed rows;
   1e. the profiling stages on buffer 1's kept inputs: K7 at stages 1
      (the chase), 2 (+ the seed gather) and 99 (+ the ops apply), each
      equal bit for bit to its twin at that stage and timed by queued
@@ -78,7 +81,11 @@ this order, each printing one line or a few:
      range, then the locked range) and its locked range in two ranges
      of steps; each timed by queued events beside the plain version,
      with its bound and share, K3's two ranges traced alone, and K2's
-     time in buffer 2's trace;
+     time in buffer 2's trace; the locked range's time a step, its
+     latency floor (its steps times one dependent narrow-table load,
+     timed by a one-thread chase probe), the K3 kernel's registers and
+     the locked range's time by stage (a build of csrc/locked_step.cu
+     with -DK3_STAMPS, whose output must equal the kernel's);
   2. scan parity on one 4,096-read buffer: the flat result of the scan
      on CUDA with the packed rank, on CUDA with the dense rank (each
      must launch K2 and K3 once) and on the CPU in plain torch
@@ -638,6 +645,7 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
     wide_steps_cuda = wide_step.wide_steps_cuda
     per_base = record._record_per_base_device
     select = search_log.select_and_record_device
+    unpack = search_log.unpack_reads2
     lines, per_buffer = [], []
     for b, start in enumerate(starts):
         timers0 = dict(engine.timers)
@@ -651,6 +659,7 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
             record.replay = keep("replay", replay.replay)
             record._record_per_base_device = keep("per_base", per_base)
             search_log.select_and_record_device = keep("select", select)
+            search_log.unpack_reads2 = keep("unpack", unpack)
             rank.packed_rank_cuda = keep_rank
             locked_step.locked_tail_cuda = keep("locked", locked_tail_cuda)
             wide_step.wide_steps_cuda = keep("wide", wide_steps_cuda)
@@ -667,6 +676,7 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
                 record.replay = replay.replay
                 record._record_per_base_device = per_base
                 search_log.select_and_record_device = select
+                search_log.unpack_reads2 = unpack
                 rank.packed_rank_cuda = packed_rank_cuda
                 locked_step.locked_tail_cuda = locked_tail_cuda
                 wide_step.wide_steps_cuda = wide_steps_cuda
@@ -814,7 +824,41 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
                          "gramtools_tpu/mapping/record_jax.py:714",
                          check_per_base(cfg, captured["per_base"], windows,
                                         sort_fn)))
+    check_unpack(cfg, captured["unpack"], work)
     return entries, captured
+
+
+def check_unpack(cfg: SmokeConfig, call, work: Path):
+    """K6, the 2-bit read unpack (plain torch, search_log.unpack_reads2),
+    on buffer 1's inputs: its device time by queued events and traced
+    once, beside its byte bound (the packed rows and row lengths read
+    once, the (steps, R) int32 bases written once)."""
+    import torch
+
+    from gramtools_tpu_torch.mapping import search_log
+
+    args, kwargs = call
+    reads_p, row_len, steps, _ = args
+    assert not kwargs
+    fn = lambda: search_log.unpack_reads2(*args)
+    out = fn()
+    if not torch.equal(out.cpu(), search_log.unpack_reads2(
+            reads_p.cpu(), row_len.cpu(), *args[2:])):
+        raise AssertionError("unpack_reads2 on the card != on the CPU")
+    ms = time_ms(fn, cfg.timing_runs)
+    window = trace_each([fn], work / "trace_k6")[0]
+    nbytes = (reads_p.numel() * reads_p.element_size()
+              + row_len.numel() * row_len.element_size() + out.numel() * 4)
+    bound = bound_ms(nbytes)
+    say(f"[phase 1d] K6 unpack_reads2 (plain torch) on buffer 1: "
+        f"({reads_p.shape[0]}, {reads_p.shape[1]}) packed rows -> "
+        f"({steps}, {out.shape[1]}) bases, equal on the card and the CPU; "
+        f"{ms:.4f} ms by queued events, "
+        + ("not traced" if window is None else
+           f"{window[1]:.4f} ms device busy over {window[0]} device events "
+           f"traced")
+        + f"; bound {bound:.4f} ms ({nbytes} bytes), at "
+        f"{100 * bound / ms:.2f}% of it by events")
 
 
 def kernel_entry(name, source, replaces, m, per_buffer, trace_ms):
@@ -1266,7 +1310,7 @@ def check_narrow(cfg: SmokeConfig, captured, work: Path):
     return entry, locked_args
 
 
-def phase_locked(cfg: SmokeConfig, captured, args):
+def phase_locked(cfg: SmokeConfig, captured, args, probe):
     """Phase 1f, the locked range: K3 on buffer 1's locked phase (``args``,
     its inputs as the hole-allocated range leaves them): equal bit for
     bit to the plain version (carry, flags, every log record) there and
@@ -1274,8 +1318,10 @@ def phase_locked(cfg: SmokeConfig, captured, args):
     in two ranges (the lock and the first half, then the rest on the
     locked carry); its time by queued CUDA events, its bound and share;
     the buffer's device events and busy time with the scan kernels and
-    with the torch steps they replace (phase 1d's trace). Returns its
-    entry of the kernels line."""
+    with the torch steps they replace (phase 1d's trace); its time a
+    step, its latency floor (the steps times one dependent narrow-table
+    load, timed by the chase probe) and the kernel's registers. Returns
+    its entry of the kernels line."""
     import torch
 
     from gramtools_tpu_torch.ops import locked_step
@@ -1356,13 +1402,48 @@ def phase_locked(cfg: SmokeConfig, captured, args):
            f"{trace_ms['locked_step']:.4f} ms a buffer in phase 1d's trace"
            if trace_ms["locked_step"] is not None else "")
         + f"; one buffer's scan_submit in one trace: {tail}")
+    # the latency floor: S dependent steps, each at least one narrow-table
+    # load after its carry (from a live state's row of the locked range)
+    live = torch.nonzero(carry[0] >= 0)
+    start = int(carry[1][live[0, 0]]) if live.numel() else 0
+    load_us = narrow_load_us(cfg, probe, di.narrow_tab, start)
+    floor_ms = S * load_us / 1000.0
+    attrs = locked_step.kernel_attrs()
+    step_us = None if trace is None else 1000.0 * trace / S
+
+    def stamped():
+        lp_s, le_s = torch.full_like(lp, -7), torch.full_like(lp, -7)
+        return tuple(locked_step.locked_tail_cuda(
+            di, reads, carry, log_base, lp_s, le_s, G, W, blocks,
+            lock)) + (lp_s, le_s)
+
+    stages = locked_stages(probe, stamped, got, S)
+    say(f"[phase 1f] K3 locked range a step: "
+        + ("not traced" if trace is None else
+           f"{step_us:.3f} us traced alone ({trace:.4f} ms / {S} steps)")
+        + f", {1000.0 * m['ms'] / S:.3f} us by queued events; latency floor "
+        f"{floor_ms:.4f} ms = {S} dependent steps x {load_us:.4f} us, one "
+        f"narrow-table load each (a one-thread chase of {CHASE_STEPS} "
+        f"dependent loads through the narrow table, warm in L2), the "
+        f"kernel at "
+        + ("-" if trace is None else f"{100 * floor_ms / trace:.2f}%")
+        + f" of it traced; byte bound {m['bound_ms']:.4f} ms; "
+        f"locked_tail_kernel {attrs['registers']} registers a thread, "
+        f"{attrs['local_bytes']} local (spill) bytes, "
+        f"{attrs['shared_bytes']} static shared bytes a block")
+    say(f"[phase 1f] K3 locked range by stage (its -DK3_STAMPS build, the "
+        f"same output; median ns a step): {stages}")
     trace_ms = dict(trace_ms, locked_step=trace)
-    return kernel_entry("locked_step", "gramtools_tpu_torch/csrc/locked_step.cu",
-                        "gramtools_tpu/mapping/search_jax_log.py:232", m,
-                        captured["per_buffer"], trace_ms)
+    entry = kernel_entry("locked_step",
+                         "gramtools_tpu_torch/csrc/locked_step.cu",
+                         "gramtools_tpu/mapping/search_jax_log.py:232", m,
+                         captured["per_buffer"], trace_ms)
+    entry.update(step_us=step_us, latency_floor_ms=floor_ms,
+                 registers=attrs["registers"])
+    return entry
 
 
-def phase_scan_kernels(cfg: SmokeConfig, captured, work: Path):
+def phase_scan_kernels(cfg: SmokeConfig, captured, work: Path, probe):
     """Phase 1f: the scan kernels on buffer 1's own inputs, K2 (the wide
     phases, csrc/wide_step.cu) and K3 (the narrow and locked phases,
     csrc/locked_step.cu), each held to the path's own call and to its
@@ -1373,7 +1454,7 @@ def phase_scan_kernels(cfg: SmokeConfig, captured, work: Path):
         raise AssertionError("a phase 1d buffer launched the standalone K1")
     wide = check_wide(cfg, captured, work)
     narrow, locked_args = check_narrow(cfg, captured, work)
-    return [wide, narrow, phase_locked(cfg, captured, locked_args)]
+    return [wide, narrow, phase_locked(cfg, captured, locked_args, probe)]
 
 
 REPLAY_STAGES = (1, 2, 99)       # the chase; + the seed gather; + the apply
@@ -1754,19 +1835,147 @@ extern "C" int cursor_walk(int unique, int lanes, const void* valid,
 """
 
 
+# One thread chasing dependent loads through the narrow table, as a
+# single state's slot-locked steps chain them (a word's LF destination
+# for a DNA symbol, else a hashed row): the latency of one narrow-table
+# load after the carry, which floors K3's locked range. A probe only.
+NARROW_CHASE_SRC = r"""
+__global__ void narrow_chase_kernel(const int* __restrict__ tab, int n,
+                                    int start, int steps, int* out) {
+  int r = start;
+  for (int s = 0; s < steps; ++s) {
+    const int t = __ldg(tab + r);
+    const int sym = t >> 24;
+    const unsigned next = (sym >= 1 && sym <= 4)
+        ? (unsigned)(t & 0xFFFFFF) : (unsigned)r * 2654435761u + 1u;
+    r = (int)(next % (unsigned)n);
+  }
+  *out = r;
+}
+extern "C" int narrow_chase(const void* tab, int n, int start, int steps,
+                            void* out, void* stream) {
+  narrow_chase_kernel<<<1, 1, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      (const int*)tab, n, start, steps, (int*)out);
+  return (int)cudaGetLastError();
+}
+"""
+
+
 def start_probe_build():
-    """Start nvcc on CURSOR_WALK_SRC (into the package's git-ignored build
-    directory); returns (process, library path)."""
+    """Start nvcc on the probes (into the package's git-ignored build
+    directory), all together: CURSOR_WALK_SRC and NARROW_CHASE_SRC in one
+    file, and csrc/locked_step.cu with -DK3_STAMPS (K3's stage stamps).
+    Returns {name: (process, library path)}."""
     from gramtools_tpu_torch.ops import _build
 
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src = _build.BUILD_DIR / "cursor_walk_probe.cu"
-    src.write_text(CURSOR_WALK_SRC)
-    lib = _build.BUILD_DIR / "libcursor_walk_probe.so"
-    return subprocess.Popen([_build._nvcc()] + _build.NVCC_FLAGS
-                            + ["-o", str(lib), str(src)],
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True), lib
+    src = _build.BUILD_DIR / "smoke_probes.cu"
+    src.write_text(CURSOR_WALK_SRC + NARROW_CHASE_SRC)
+    jobs = {}
+    for name, cu, flags in (
+            ("probes", src, []),
+            ("stamps", _build.CSRC_DIR / "locked_step.cu", ["-DK3_STAMPS"])):
+        lib = _build.BUILD_DIR / f"libsmoke_{name}.so"
+        jobs[name] = (subprocess.Popen(
+            [_build._nvcc()] + _build.NVCC_FLAGS + flags
+            + ["-o", str(lib), str(cu)], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True), lib)
+    return jobs
+
+
+_PROBES = {}
+
+
+def probe_lib(probe, name: str = "probes"):
+    """A probe library, its build waited for once."""
+    import ctypes
+
+    if name not in _PROBES:
+        proc, path = probe[name]
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the {name} probe:\n{err}")
+        lib = ctypes.CDLL(str(path))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        if name == "probes":
+            lib.narrow_chase.argtypes = [p, i, i, i, p, p]
+            lib.narrow_chase.restype = ctypes.c_int
+        else:
+            lib.locked_tail_stamps.argtypes = [p]
+            lib.locked_tail_stamps.restype = ctypes.c_int
+        _PROBES[name] = lib
+    return _PROBES[name]
+
+
+# K3's stamp points a locked step (csrc/locked_step.cu, -DK3_STAMPS): the
+# step's start, its base and narrow loads in, its cnt scan done, the last
+# warp's look-back done, the block at its pairs, the pairs done, the step
+# done; and thread 0's first pair done
+STAGES = (("loads", 0, 1), ("wide rank + cnt scan", 1, 2),
+          ("look-back (last warp)", 2, 3), ("first pairs (thread 0)", 2, 7),
+          ("until the pairs' barrier", 2, 4), ("records + empty records", 4, 5),
+          ("placement", 5, 6))
+STAMP_STEPS = 256                 # csrc/locked_step.cu kStampSteps
+
+
+def locked_stages(probe, call, want, S: int) -> str:
+    """K3's locked range once with the stamps build, its output equal to
+    ``want``: each stage's median nanoseconds a step in tiles 0, T / 2
+    and T - 1 (the global timer), and their median step."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from gramtools_tpu_torch.ops import _build, locked_step
+
+    lib = probe_lib(probe, "stamps")
+    path_lib = _build._LIBS["locked_step"]
+    _build._LIBS["locked_step"] = lib
+    try:
+        locked_step._kernel_lib()
+        got = call()
+        torch.cuda.synchronize()
+    finally:
+        _build._LIBS["locked_step"] = path_lib
+    _equal(got, want)
+    buf = (ctypes.c_ulonglong * (STAMP_STEPS * 3 * 8))()
+    err = lib.locked_tail_stamps(buf)
+    if err:
+        raise RuntimeError(f"locked_tail_stamps failed: CUDA error {err}")
+    a = np.frombuffer(buf, dtype=np.uint64).reshape(STAMP_STEPS, 3, 8)
+    a = a[:min(S, STAMP_STEPS)].astype(np.int64)
+    parts = []
+    for sel, label in enumerate(("tile 0", "tile T/2", "tile T-1")):
+        x = a[:, sel, :]
+        parts.append(f"{label}: " + ", ".join(
+            f"{name} {np.median(x[:, j] - x[:, i]):.0f}"
+            for name, i, j in STAGES)
+            + f"; step {np.median(np.diff(x[:, 0])):.0f}")
+    return "; ".join(parts)
+
+
+def narrow_load_us(cfg: SmokeConfig, probe, narrow_tab, start: int) -> float:
+    """Microseconds of one dependent narrow-table load on the card: one
+    thread's chase of CHASE_STEPS loads from row ``start``, timed by
+    queued events after a warm-up call (the table's lines then sit in L2,
+    as the scan leaves them), over the loads."""
+    import torch
+
+    lib = probe_lib(probe)
+    out = torch.empty(1, dtype=torch.int32, device=narrow_tab.device)
+
+    def chase():
+        err = lib.narrow_chase(narrow_tab.data_ptr(), narrow_tab.shape[0],
+                               start, CHASE_STEPS, out.data_ptr(),
+                               torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"narrow chase probe launch failed: {err}")
+
+    return 1000.0 * time_ms(chase, 3) / CHASE_STEPS
+
+
+CHASE_STEPS = 8192
 
 
 def probe_cursor_walk(cfg: SmokeConfig, probe, walk_args):
@@ -1782,11 +1991,7 @@ def probe_cursor_walk(cfg: SmokeConfig, probe, walk_args):
 
     from gramtools_tpu_torch.ops import walk
 
-    proc, path = probe
-    _, err = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for the cursor walk probe:\n{err}")
-    lib = ctypes.CDLL(str(path))
+    lib = probe_lib(probe)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.cursor_walk.argtypes = ([i, i] + [p] * 8
                                 + [p, i, p, p, i, i, i, p, p, p, p])
@@ -2287,7 +2492,7 @@ def run(cfg: SmokeConfig, device) -> dict:
         entries, captured = phase_path(cfg, idx, kmer_index, reads, device,
                                        work, dense, k1_b, probe)
         phase_stages(cfg, captured, work)
-        entries += phase_scan_kernels(cfg, captured, work)
+        entries += phase_scan_kernels(cfg, captured, work, probe)
         del captured
         entries[0]["max_abs_err"] = max(entries[0]["max_abs_err"], err)
         del dense

@@ -4,7 +4,8 @@
 // slot-locked narrow steps of _build_narrow_step).
 //
 // Both run one thread a pool slot in tiles of kThreads slots and split a
-// step into stages by grid syncs. What they share:
+// step into stages by grid syncs (all but K3's slot-locked steps, which
+// take none: locked_step.cu). What they share:
 //   * the index tables (Index) and the occ-row fetch, from the dense
 //     (n + 1, 4) table or through K1's per-row count (packed_rank.cuh);
 //   * lf_extend: the LF extension of [lo, hi] by one base and the marker

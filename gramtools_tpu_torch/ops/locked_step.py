@@ -33,7 +33,10 @@ never written.
 hole-allocated step, then ``lock_pool`` and the torch locked step, each
 stepped over its range, with the plain packed rank); CUDA tensors launch
 ``csrc/locked_step.cu``, one cooperative launch for the whole range,
-which needs no host synchronisation. ``locked_tail.launches`` counts
+which needs no host synchronisation (its slot-locked steps take no grid
+barrier: the wide rank and the hit prefix come from chained scans with
+decoupled look-back, each tile's hits and newborns from its own block;
+the kernel's source note). ``locked_tail.launches`` counts
 kernel launches, ``locked_tail.narrow_launches`` those that ran
 hole-allocated steps.
 """
@@ -107,11 +110,24 @@ def _kernel_lib() -> ctypes.CDLL:
             + [p, i, p, p, i, p])                # carry, C, ovf, scratch,
                                                  # grid, stream
         lib.locked_tail.restype = ctypes.c_int
-        lib.locked_tail_scratch.argtypes = [i, i, i]
+        lib.locked_tail_scratch.argtypes = [i, i, i, i, i]
         lib.locked_tail_scratch.restype = ctypes.c_longlong
         lib.locked_tail_grid.argtypes = [i, i]
         lib.locked_tail_grid.restype = ctypes.c_int
+        lib.locked_tail_attrs.argtypes = [p]
+        lib.locked_tail_attrs.restype = ctypes.c_int
     return lib
+
+
+def kernel_attrs() -> dict:
+    """The built kernel's registers a thread, local (spill) bytes a
+    thread and static shared bytes a block (cudaFuncGetAttributes)."""
+    out = (ctypes.c_int * 3)()
+    err = _kernel_lib().locked_tail_attrs(out)
+    if err != 0:
+        raise RuntimeError(f"locked_tail_attrs failed: CUDA error {err}")
+    return {"registers": out[0], "local_bytes": out[1],
+            "shared_bytes": out[2]}
 
 
 def check_tensor(fn: str, name: str, t, dtype, shape):
@@ -229,7 +245,8 @@ def locked_tail_cuda(di, reads, carry, log_base: int, lp, le, hits: int,
     K = max(g_n, hits) * B
     out = torch.empty((2, 4, C), dtype=I32, device=reads.device)
     ovf = torch.empty(R + 1, dtype=torch.bool, device=reads.device)
-    scratch = torch.empty(lib.locked_tail_scratch(C, K, max(g_n, hits)),
+    scratch = torch.empty(lib.locked_tail_scratch(C, K, max(g_n, hits),
+                                                  n_locked, R),
                           dtype=I32, device=reads.device)
     rid, lo, hi, pref, overflow = carry
     with torch.cuda.device(reads.device):

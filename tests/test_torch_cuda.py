@@ -1,7 +1,8 @@
 """The port on a CUDA device: the packed-rank (K1), genealogy-replay
 (K7), wide-step (K2) and narrow-tail (K3: hole-allocated and locked
 steps) kernels and the per-base recorder's kernels (K9) against their
-plain torch versions,
+plain torch versions (K3's barrier-free locked range also on the cases
+its chained scans must get right, and over repeated launches),
 the scan and the fused record program on CUDA against the CPU, the
 engine against the host oracle, the mesh engine and the index-sharded
 scan on one card and, where the machine has two cards or more, across
@@ -553,6 +554,157 @@ def test_locked_tail_does_not_synchronise(cuda):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert out[0].shape == (2000,)
+
+
+# The locked range's design cases: the chained scans' look-back across
+# tiles and blocks, the owning block's hit pairs, the closing tile's empty
+# records. Each case says what it forces; the test checks that it did.
+THREADS = 256          # slots a tile (csrc/scan_common.cuh kThreads)
+
+
+def _step_hits(di, carry, row, W):
+    """Each slot's marker hits in a locked step from its (locked) carry,
+    in numpy from the dense tables: 1 for a single state at a marker, the
+    markers of a covered wide state's interval, 0 otherwise."""
+    rid, lo, hi = (a.numpy().astype(np.int64) for a in carry[:3])
+    occ = di.occ.numpy().astype(np.int64)
+    n = di.size
+    sent = int(di.sentinel_row)
+    active = (rid >= 0) & (row.numpy() > 0)
+    single = lo == hi
+    wide = active & ~single
+    covered = single | (wide & (np.cumsum(wide) - wide < W))
+    sym = di.narrow_tab.numpy()[np.clip(lo, 0, n - 1)] >> 24
+    hi1 = hi + 1
+    markers = ((hi1 - occ[np.clip(hi1, 0, n)].sum(1) - (hi1 > sent))
+               - (lo - occ[np.clip(lo, 0, n)].sum(1) - (lo > sent)))
+    return np.where(active & covered, np.where(single, sym == 5, markers), 0)
+
+
+def _locked_design_case(name, rank_kind):
+    """(DeviceIndex, reads, carry, blocks, G, W, lock) of one case, on the
+    CPU, with the case's claim checked on its first step; every case's
+    second step has no hit at all (an all-zero row)."""
+    from gramtools_tpu_torch.mapping.scan_steps import lock_pool
+
+    R = {"many_tiles": 262_144, "pairs_over_threads": 1024, "over_G": 5000,
+         "w_mid_tile": 2048, "last_far": 2560}[name]
+    S = 3 if name == "many_tiles" else 4
+    di, reads, carry, blocks = _locked_case(rank_kind, R, len(name), S)
+    G = 8 if name == "over_G" else 4096
+    W, lock = R, True
+    B = di.n_outcomes
+    T = (R + THREADS - 1) // THREADS
+    locked = lock_pool(carry, R, R)
+    if name == "pairs_over_threads":
+        # tile 0's first slots live and wide over thousands of rows
+        rid, lo, hi, pref, ovf = (a.clone() for a in locked)
+        for i in range(8):
+            rid[i], lo[i] = i, 1 + 7 * i
+            hi[i] = lo[i] + min(3000, di.size - 60)
+        carry = locked = (rid, lo, hi, pref, ovf)
+        lock = False
+        reads[0, :8] = 1 + torch.arange(8, dtype=torch.int32) % 4
+    elif name == "last_far":           # no active slot past tile 1
+        reads[:, 2 * THREADS:] = 0
+    elif name == "w_mid_tile":         # W binds in the middle of tile 1
+        rid, lo, hi = (a.numpy() for a in locked[:3])
+        w_slots = np.flatnonzero((rid >= 0) & (reads[0].numpy() > 0)
+                                 & (lo != hi))
+        W = int((w_slots < THREADS + THREADS // 2).sum())
+        assert W < w_slots.size and w_slots[W] // THREADS == 1
+        assert 0 < w_slots[W] % THREADS < THREADS - 1
+    cnt = _step_hits(di, locked, reads[0], W)
+    if name == "pairs_over_threads":
+        assert int(cnt[:THREADS].sum()) * B > THREADS and cnt.sum() < G
+    elif name == "over_G":
+        assert int(cnt.sum()) > G
+    elif name == "last_far":
+        last = int(np.flatnonzero(cnt > 0)[-1])
+        assert T - 1 - last // THREADS >= 2 and cnt.sum() < G
+    elif name == "many_tiles":
+        with torch.cuda.device(0):
+            grid = locked_step._kernel_lib().locked_tail_grid(
+                carry[0].shape[0], G * B)
+        assert 0 < grid < T
+    assert not bool((reads[1] > 0).any())
+    return di, reads, carry, blocks, G, W, lock
+
+
+LOCKED_DESIGN_CASES = ["many_tiles", "pairs_over_threads", "over_G",
+                       "w_mid_tile", "last_far"]
+
+
+@pytest.mark.parametrize("case", LOCKED_DESIGN_CASES)
+@pytest.mark.parametrize("rank_kind", ["dense", "packed"])
+def test_locked_range_design_cases_match_twin(cuda, rank_kind, case):
+    """The locked range equal bit for bit (carry, flags, every log record)
+    to the twin where each block owns several tiles, a tile holds more
+    hit pairs than threads, a step has more hits than G (and one has
+    none), W binds in the middle of a tile, and the last slot with hits
+    lies several tiles before the tile that closes the step."""
+    di, reads, carry, blocks, G, W, lock = _locked_design_case(case,
+                                                                rank_kind)
+    B = di.n_outcomes
+    S = reads.shape[0]
+    base = 9
+    n_log = base + S * G * B + 3
+    lp, le = _log_pair(n_log, "cpu")
+    want = locked_step.locked_tail(di, reads, carry, base, lp, le, G, W,
+                                   blocks=blocks, lock=lock)
+    cdi, creads, ccarry, cblocks = _locked_on(cuda, di, reads, carry, blocks)
+    clp, cle = _log_pair(n_log, cuda)
+    got = locked_step.locked_tail(cdi, creads, ccarry, base, clp, cle, G, W,
+                                  blocks=cblocks, lock=lock)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g.cpu(), w)
+    assert torch.equal(clp.cpu(), lp) and torch.equal(cle.cpu(), le)
+
+
+@pytest.mark.parametrize("R,S,G", [(30_720, 12, 1792), (262_144, 4, 4096)])
+def test_locked_range_repeated_launches_identical(cuda, R, S, G):
+    """20 launches on the same inputs give the same carry, flags and log
+    (no race in the chained scans), equal to the twin's."""
+    di, reads, carry, blocks = _locked_case("packed", R, 5, S)
+    cdi, creads, ccarry, cblocks = _locked_on(cuda, di, reads, carry, blocks)
+    n_log = S * G * di.n_outcomes
+    runs = []
+    for _ in range(20):
+        lp, le = _log_pair(n_log, cuda)
+        out = locked_step.locked_tail(cdi, creads, ccarry, 0, lp, le, G, G,
+                                      blocks=cblocks)
+        runs.append(tuple(out) + (lp, le))
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        for a, b in zip(run, runs[0]):
+            assert torch.equal(a, b)
+    lp, le = _log_pair(n_log, "cpu")
+    want = locked_step.locked_tail(di, reads, carry, 0, lp, le, G, G,
+                                   blocks=blocks)
+    for a, b in zip(runs[0], tuple(want) + (lp, le)):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_locked_range_split_with_many_tiles(cuda):
+    """Where each block owns several tiles: steps [0, 2) with the lock,
+    then [2, 5) on the kernel's locked carry, equal to one call."""
+    G, W = 2048, 1024
+    di, reads, carry, blocks = _locked_case("packed", 262_144, 7, 5)
+    cdi, creads, ccarry, cblocks = _locked_on(cuda, di, reads, carry, blocks)
+    B = di.n_outcomes
+    n_log = 5 * G * B
+    lp, le = _log_pair(n_log, cuda)
+    whole = locked_step.locked_tail(cdi, creads, ccarry, 0, lp, le, G, W,
+                                    blocks=cblocks)
+    lp2, le2 = _log_pair(n_log, cuda)
+    part = locked_step.locked_tail(cdi, creads[:2], ccarry, 0, lp2, le2, G, W,
+                                   blocks=cblocks)
+    part = locked_step.locked_tail(cdi, creads[2:], part, 2 * G * B, lp2, le2,
+                                   G, W, blocks=cblocks, lock=False)
+    for a, b in zip(whole, part):
+        assert torch.equal(a, b)
+    assert torch.equal(lp, lp2) and torch.equal(le, le2)
 
 
 # --------------------------------------------------------------------------

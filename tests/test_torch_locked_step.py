@@ -12,6 +12,11 @@ conflict, reads hold two states at lock time and a step has no hit at
 all. Then the phase loop: the narrow and locked phases go through one
 ``locked_tail`` call, and the flat result equals
 ``_log_search_packed``'s; injected gathers keep the torch locked step.
+Last, what the CUDA kernel's barrier-free locked range rests on, held on
+the JAX package's steps and on the twin alike: a dead slot stays dead;
+with budgets that do not bind, a slot's read_id, lo, hi and overflow
+flag do not depend on the other slots; the empty hit records carry the
+pref of the last slot with hits (slot 0's when a step has none).
 """
 import numpy as np
 import pytest
@@ -252,3 +257,166 @@ def test_injected_gathers_keep_the_torch_locked_step(monkeypatch):
     assert len(calls) == 1
     for a, b in zip(own[0] + own[1], injected[0] + injected[1]):
         assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# what the CUDA kernel's locked range rests on: a locked step is
+# slot-local but for the wide rank, the hit rank and the empty hit records
+# --------------------------------------------------------------------------
+
+IMPLS = ["jax", "twin"]
+
+
+def _locked_steps(impl, jdi, tdi, j_rows, blocks, carry, reads, G, W,
+                  kill=None):
+    """The lock, then the locked steps one by one, on ``impl``: the JAX
+    package's _lock_pool and locked step under lax.scan, or the twin
+    (``locked_tail`` a step at a time). ``kill`` (R,) bool clears those
+    slots' read_id right after the lock. Returns (the carry before each
+    step and after the last, as numpy tuples; log parents and events,
+    (steps, G·B) each)."""
+    B = jdi.n_outcomes
+    S = reads.shape[0]
+    if impl == "jax":
+        step = jsl._build_narrow_step(jdi, jsl.LogConfig(pool=R, hits=G), R,
+                                      W, occ_rows=j_rows, locked=True)
+        bases = LOG_BASE + np.arange(S, dtype=np.int32) * (G * B)
+
+        @jax.jit
+        def run(c, xs):
+            c = jsl._lock_pool(c, R, R)
+            if kill is not None:
+                c = (jnp.where(jnp.asarray(kill), -1, c[0]),) + tuple(c[1:])
+
+            def body(c, x):
+                c2, recs = step(c, x)
+                return c2, (c, recs)
+
+            return jax.lax.scan(body, c, xs)
+
+        last, (before, (par, ev)) = run(_to_jax(carry),
+                                        (jnp.asarray(reads),
+                                         jnp.asarray(bases)))
+        carries = [tuple(np.asarray(a[t]) for a in before) for t in range(S)]
+        carries.append(tuple(np.asarray(a) for a in last))
+        return carries, (np.asarray(par).reshape(S, -1),
+                         np.asarray(ev).reshape(S, -1))
+    lp, le = _log(G, B, S)
+    t_reads = torch.from_numpy(reads)
+    c = locked_step.locked_tail(tdi, t_reads[:0], _to_torch(carry), LOG_BASE,
+                                lp, le, G, W, blocks=blocks)
+    if kill is not None:
+        c = (torch.where(torch.from_numpy(kill), -1, c[0]),) + tuple(c[1:])
+    carries = [c]
+    for t in range(S):
+        c = locked_step.locked_tail(tdi, t_reads[t:t + 1], c,
+                                    LOG_BASE + t * G * B, lp, le, G, W,
+                                    blocks=blocks, lock=False)
+        carries.append(c)
+    carries = [tuple(a.numpy()[:R] for a in c) for c in carries]
+    end = LOG_BASE + S * G * B
+    return carries, (lp[LOG_BASE:end].numpy().reshape(S, -1),
+                     le[LOG_BASE:end].numpy().reshape(S, -1))
+
+
+def _hit_counts(jdi, carry, row, W):
+    """Each slot's marker hits in one locked step from the carry before
+    it, computed in numpy from the dense tables: a single state at a
+    marker has one, a covered wide state the markers of its interval."""
+    rid, lo, hi = (np.asarray(a).astype(np.int64) for a in carry[:3])
+    occ = np.asarray(jdi.occ).astype(np.int64)
+    n = jdi.size
+    sent = int(np.asarray(jdi.sentinel_row))
+    active = (rid >= 0) & (row > 0)
+    single = lo == hi
+    wide = active & ~single
+    covered = single | (wide & (np.cumsum(wide) - wide < W))
+    sym = np.asarray(jdi.narrow_tab)[np.clip(lo, 0, n - 1)] >> 24
+    hi1 = hi + 1
+    markers = ((hi1 - occ[np.clip(hi1, 0, n)].sum(1) - (hi1 > sent))
+               - (lo - occ[np.clip(lo, 0, n)].sum(1) - (lo > sent)))
+    return np.where(active & covered,
+                    np.where(single, sym == 5, markers), 0)
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("rank", ["dense", "packed"])
+@pytest.mark.parametrize("kind", ["sites", "nested"])
+def test_locked_dead_slot_stays_dead(kind, rank, impl):
+    """A slot dead after the lock, or after any locked step, keeps its
+    row (read_id -1, lo, hi, pref) and its overflow flag to the end of
+    the range: no newborn lands in it, since a newborn lands in its
+    owner's slot and a dead slot owns no hit."""
+    G, W = BUDGETS["roomy"]
+    jdi, tdi, j_rows, carry, reads, blocks = _case(kind, rank, "roomy")
+    carries, _ = _locked_steps(impl, jdi, tdi, j_rows, blocks, carry, reads,
+                               G, W)
+    died_later = 0
+    for t in range(len(carries) - 1):
+        dead = carries[t][0] < 0
+        for c in carries[t + 1:]:
+            for a, b in zip(carries[t], c):
+                np.testing.assert_array_equal(np.asarray(b)[dead],
+                                              np.asarray(a)[dead])
+        if t > 0:
+            died_later += int((dead & ~(carries[t - 1][0] < 0)).sum())
+    assert (carries[0][0] < 0).any() and died_later > 0
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("rank", ["dense", "packed"])
+@pytest.mark.parametrize("kind", ["sites", "nested"])
+def test_locked_slot_independent_of_other_slots(kind, rank, impl):
+    """With budgets that do not bind (W = R, G above every step's hits),
+    a slot's read_id, lo, hi and overflow flag after each step, the last
+    included, are the same when every other slot is killed at the lock:
+    only pref and the log positions depend on the other slots, through
+    the hit rank."""
+    G, W = 2048, R
+    jdi, tdi, j_rows, carry, reads, blocks = _case(kind, rank, "free")
+    kill = np.arange(R) % 2 == 1
+    full, log = _locked_steps(impl, jdi, tdi, j_rows, blocks, carry, reads,
+                              G, W)
+    alone, log_alone = _locked_steps(impl, jdi, tdi, j_rows, blocks, carry,
+                                     reads, G, W, kill=kill)
+    for t, c in enumerate(full[:-1]):         # the budgets never bind
+        assert _hit_counts(jdi, c, reads[t], W).sum() < G
+    kept = ~kill
+    for a, b in zip(alone[1:], full[1:]):     # after each step
+        for f in (0, 1, 2, 4):                # read_id, lo, hi, overflow
+            np.testing.assert_array_equal(np.asarray(a[f])[kept],
+                                          np.asarray(b[f])[kept])
+    assert (full[1][0][kept] >= 0).any()
+    # the log does depend on the killed slots' hits
+    assert not np.array_equal(log[0], log_alone[0])
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("rank", ["dense", "packed"])
+@pytest.mark.parametrize("kind", ["sites", "nested"])
+def test_locked_empty_hit_records_carry_last_pref(kind, rank, impl):
+    """The hit records g in [min(total, G), G) of each locked step carry
+    the pref of the last slot with hits (of slot 0 when the step has no
+    hit) and the event of locus 0: the broadcast the kernel's chained
+    scan carries to the tile that closes the step."""
+    G, W = BUDGETS["roomy"]
+    jdi, tdi, j_rows, carry, reads, blocks = _case(kind, rank, "roomy")
+    B = jdi.n_outcomes
+    carries, (par, ev) = _locked_steps(impl, jdi, tdi, j_rows, blocks, carry,
+                                       reads, G, W)
+    seen = set()
+    for t in range(reads.shape[0]):
+        cnt = _hit_counts(jdi, carries[t], reads[t], W)
+        total = int(cnt.sum())
+        nz = np.flatnonzero(cnt > 0)
+        last = nz[-1] if total else 0
+        lo_k = min(total, G) * B
+        np.testing.assert_array_equal(
+            par[t][lo_k:], np.full(G * B - lo_k, carries[t][3][last]))
+        np.testing.assert_array_equal(ev[t][lo_k:],
+                                      np.arange(lo_k, G * B) % B)
+        # the records before it are the hits', each owner a slot with hits
+        assert np.isin(par[t][:lo_k], carries[t][3][nz]).all()
+        seen.add("none" if total == 0 else
+                 "last before the end" if last < R - 1 else "last at end")
+    assert {"none", "last before the end"} <= seen
