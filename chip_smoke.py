@@ -83,9 +83,15 @@ this order, each printing one line or a few:
      with its bound and share, K3's two ranges traced alone, and K2's
      time in buffer 2's trace; the locked range's time a step, its
      latency floor (its steps times one dependent narrow-table load,
-     timed by a one-thread chase probe), the K3 kernel's registers and
-     the locked range's time by stage (a build of csrc/locked_step.cu
-     with -DK3_STAMPS, whose output must equal the kernel's);
+     timed by a one-thread chase probe); both scan kernels' registers,
+     spills and shared memory (cudaFuncGetAttributes, and nvcc
+     -Xptxas -v on each path source), their grid syncs a step and their
+     time by stage (builds of csrc/wide_step.cu with -DK2_STAMPS and of
+     csrc/locked_step.cu with -DK3_STAMPS, whose outputs must equal the
+     kernels': the global timer at each stage of tiles 0, T/2 and T-1,
+     every tile's publish times and SM, the grid syncs counted), and each
+     wide and hole-allocated step's hits and the most hit pairs a tile
+     holds;
   2. scan parity on one 4,096-read buffer: the flat result of the scan
      on CUDA with the packed rank, on CUDA with the dense rank (each
      must launch K2 and K3 once) and on the CPU in plain torch
@@ -127,6 +133,10 @@ this order, each printing one line or a few:
   5c. ``genotype --engine device --max_threads 2`` on the 4,000 parity
      reads (spawned workers, since CUDA is initialised) must write files
      byte-equal to phase 4's host engine run.
+
+``python3 chip_smoke.py --scan-only`` runs phases 0, 1, 1d and 1f and
+stops there, printing the kernels line but no ``ok`` line (a quick
+check of the scan kernels; it is not the smoke run).
 
 The second-to-last line is a JSON object with one entry per kernel of
 the path (K1's numbers are those of its largest call on the path;
@@ -1056,6 +1066,80 @@ def wide_bytes(args, le) -> int:
             + log_bytes(di, le, log_base, records, row))
 
 
+def step_cnts(di, c, row, occ_rows, W=None, locked=False):
+    """Each slot's marker hits in one step from the carry ``c`` (the
+    plain version's rules): a wide step's active states (W None), or a
+    narrow step's singles at a marker and its covered wide states."""
+    import torch
+
+    from gramtools_tpu_torch.mapping import scan_steps
+
+    R = row.shape[0]
+    rid, lo, hi = c[:3]
+    valid = rid >= 0
+    base = torch.where(valid, row if locked else row[rid.clamp(0, R - 1)], 0)
+    active = valid & (base > 0)
+    k = scan_steps._Consts(di, 1, 1)
+    _, _, m_lo, m_hi = scan_steps._lf_extend(di, k, occ_rows, lo, hi, base)
+    if W is None:
+        return torch.where(active, m_hi - m_lo, 0)
+    single = lo == hi
+    sym = di.narrow_tab[lo.clamp(0, di.size - 1)] >> 24
+    wide = active & ~single
+    covered = single | (wide & (torch.cumsum(wide.int(), 0) - wide.int() < W))
+    return torch.where(active & covered,
+                       torch.where(single, (sym == 5).int(), m_hi - m_lo), 0)
+
+
+def wide_cnts(args):
+    """[(each slot's hits, G)] of every step of K2's inputs ``args``,
+    stepping the plain version."""
+    from gramtools_tpu_torch.mapping.scan_steps import (build_log_step,
+                                                        dense_occ_rows,
+                                                        resize_pool)
+    from gramtools_tpu_torch.mapping.search_log_host import LogConfig
+    from gramtools_tpu_torch.ops import rank
+
+    di, reads, carry, phases, log_base, _, _, blocks = args
+    R = reads.shape[1]
+    occ_rows = (dense_occ_rows(di) if blocks is None
+                else rank.plain_packed_rows(blocks, di.size))
+    c, off, out = carry, 0, []
+    for n_steps, pool, g in phases:
+        c = resize_pool(c, pool, R)
+        step = build_log_step(di, LogConfig(pool=pool, hits=g), R,
+                              occ_rows=occ_rows)
+        for i in range(n_steps):
+            out.append((step_cnts(di, c, reads[off + i], occ_rows), g))
+            c, _ = step(c, reads[off + i], log_base)
+        off += n_steps
+    return out
+
+
+def narrow_cnts(args):
+    """[(each slot's hits, G)] of every hole-allocated step of K3's
+    inputs ``args``, stepping the plain version."""
+    from gramtools_tpu_torch.mapping.scan_steps import (build_narrow_step,
+                                                        dense_occ_rows,
+                                                        resize_pool)
+    from gramtools_tpu_torch.mapping.search_log_host import LogConfig
+    from gramtools_tpu_torch.ops import rank
+
+    di, reads, carry, log_base, _, _, _, _, blocks, _, narrow = args
+    n, pool, g, w = narrow
+    R = reads.shape[1]
+    occ_rows = (dense_occ_rows(di) if blocks is None
+                else rank.plain_packed_rows(blocks, di.size))
+    c = resize_pool(carry, pool, R)
+    step = build_narrow_step(di, LogConfig(pool=pool, hits=g), R, w,
+                             occ_rows=occ_rows)
+    out = []
+    for i in range(n):
+        out.append((step_cnts(di, c, reads[i], occ_rows, W=w), g))
+        c, _ = step(c, reads[i], log_base)
+    return out
+
+
 def tail_bytes(args, le) -> int:
     """K3's bytes for these inputs (a lower bound): the reads rows, the
     incoming carry and flags read once, the final carry and flags
@@ -1134,7 +1218,7 @@ def trace_each(fns, trace_dir: Path):
     return windows if len(windows) == len(fns) else [None] * len(fns)
 
 
-def check_wide(cfg: SmokeConfig, captured, work: Path):
+def check_wide(cfg: SmokeConfig, captured, work: Path, probe):
     """K2 on buffer 1's wide phases: equal bit for bit (carry, flags,
     every log record) to the path's own call and to the plain version
     there and with every phase's hit budget forced to FORCED_WIDE_HITS;
@@ -1201,12 +1285,30 @@ def check_wide(cfg: SmokeConfig, captured, work: Path):
            f", {trace:.4f} ms in the trace "
            f"({100 * m['bound_ms'] / trace:.2f}%)")
         + f"; launches a buffer {[c['wide_step'] for c in captured['per_buffer']]}")
+    attrs = wide_step.kernel_attrs()
+    lib = probe_run(probe, "wide_stamps", "wide_step", wide_step,
+                    lambda: run(wide_step.wide_steps_cuda, phases), got)
+    syncs = read_syncs(lib.wide_steps_syncs)
+    say(f"[phase 1f] K2 kernel: wide_steps_kernel {attrs['registers']} "
+        f"registers a thread, {attrs['local_bytes']} local (spill) bytes, "
+        f"{attrs['shared_bytes']} static shared bytes a block; ptxas: "
+        f"{ptxas_line(probe, 'wide_ptxas', 'wide_steps_kernel')}; grid "
+        f"syncs (its -DK2_STAMPS build) {syncs[0]} in the launch, "
+        f"{syncs[0] / S:.2f} a step over {S} steps; by step: "
+        f"{tile_pairs(wide_cnts(args), di.n_outcomes)}")
+    stamps = read_stamps(lib.wide_steps_stamps)
+    say(f"[phase 1f] K2 by stage (its -DK2_STAMPS build, the same output; "
+        f"ns a stage: " + "/".join(n for n, _, _ in TILE_STAGES) + "): "
+        + step_stages(stamps, TILE_STAGES, S))
+    tiles = [(pool + 255) // 256 for n, pool, _ in phases for _ in range(n)]
+    say(f"[phase 1f] K2 tiles' publish times (ns from tile 0's start): "
+        + pub_stages(read_pubs(lib.wide_steps_pubs), stamps, tiles, True))
     return kernel_entry("wide_step", "gramtools_tpu_torch/csrc/wide_step.cu",
                         "gramtools_tpu/mapping/search_jax_log.py:77", m,
                         captured["per_buffer"], captured["trace_ms"])
 
 
-def check_narrow(cfg: SmokeConfig, captured, work: Path):
+def check_narrow(cfg: SmokeConfig, captured, work: Path, probe):
     """K3 on buffer 1's narrow and locked phases (the path's one call):
     equal bit for bit to the path's own call and to the plain version
     there and at FORCED_TAIL in both ranges, and as two calls (the
@@ -1303,6 +1405,24 @@ def check_narrow(cfg: SmokeConfig, captured, work: Path):
         f"{windows[0] and windows[0][:2]}, locked {windows[1] and windows[1][:2]}"
         f", whole {windows[2] and windows[2][:2]}; launches a buffer "
         f"{[c['narrow_step'] for c in captured['per_buffer']]}")
+    # (first's log halves now hold the locked range's records too)
+    lib = probe_run(probe, "stamps", "locked_step", locked_step,
+                    lambda: run(locked_step.locked_tail_cuda, narrow_args),
+                    run(locked_step.locked_tail_cuda, narrow_args))
+    syncs = read_syncs(lib.locked_tail_syncs)
+    say(f"[phase 1f] K3 hole-allocated range: grid syncs (its -DK3_STAMPS "
+        f"build) {syncs[0]} from the launch's start to the lock, "
+        f"{syncs[0] / n:.2f} a step over {n} steps; by step: "
+        f"{tile_pairs(narrow_cnts(narrow_args), B)}")
+    say(f"[phase 1f] K3 hole-allocated range by stage (its -DK3_STAMPS "
+        f"build, the same output; ns a stage: "
+        + "/".join(k for k, _, _ in TILE_STAGES) + "): "
+        + step_stages(read_stamps(lib.locked_tail_stamps, 1), TILE_STAGES,
+                      n))
+    say(f"[phase 1f] K3 hole-allocated tiles' publish times (ns from tile "
+        f"0's start): " + pub_stages(read_pubs(lib.locked_tail_pubs),
+                                     read_stamps(lib.locked_tail_stamps, 1),
+                                     [(pool + 255) // 256] * n))
     entry = kernel_entry("narrow_step",
                          "gramtools_tpu_torch/csrc/locked_step.cu",
                          "gramtools_tpu/mapping/search_jax_log.py:419", m,
@@ -1417,7 +1537,8 @@ def phase_locked(cfg: SmokeConfig, captured, args, probe):
             di, reads, carry, log_base, lp_s, le_s, G, W, blocks,
             lock)) + (lp_s, le_s)
 
-    stages = locked_stages(probe, stamped, got, S)
+    lib = probe_run(probe, "stamps", "locked_step", locked_step, stamped, got)
+    stages = median_stages(read_stamps(lib.locked_tail_stamps, 0), STAGES, S)
     say(f"[phase 1f] K3 locked range a step: "
         + ("not traced" if trace is None else
            f"{step_us:.3f} us traced alone ({trace:.4f} ms / {S} steps)")
@@ -1430,7 +1551,8 @@ def phase_locked(cfg: SmokeConfig, captured, args, probe):
         + f" of it traced; byte bound {m['bound_ms']:.4f} ms; "
         f"locked_tail_kernel {attrs['registers']} registers a thread, "
         f"{attrs['local_bytes']} local (spill) bytes, "
-        f"{attrs['shared_bytes']} static shared bytes a block")
+        f"{attrs['shared_bytes']} static shared bytes a block; ptxas: "
+        f"{ptxas_line(probe, 'tail_ptxas', 'locked_tail_kernel')}")
     say(f"[phase 1f] K3 locked range by stage (its -DK3_STAMPS build, the "
         f"same output; median ns a step): {stages}")
     trace_ms = dict(trace_ms, locked_step=trace)
@@ -1452,8 +1574,8 @@ def phase_scan_kernels(cfg: SmokeConfig, captured, work: Path, probe):
     line (K2, K3 narrow, K3 locked)."""
     if any(c["packed_rank"] for c in captured["per_buffer"]):
         raise AssertionError("a phase 1d buffer launched the standalone K1")
-    wide = check_wide(cfg, captured, work)
-    narrow, locked_args = check_narrow(cfg, captured, work)
+    wide = check_wide(cfg, captured, work, probe)
+    narrow, locked_args = check_narrow(cfg, captured, work, probe)
     return [wide, narrow, phase_locked(cfg, captured, locked_args, probe)]
 
 
@@ -1864,21 +1986,28 @@ extern "C" int narrow_chase(const void* tab, int n, int start, int steps,
 def start_probe_build():
     """Start nvcc on the probes (into the package's git-ignored build
     directory), all together: CURSOR_WALK_SRC and NARROW_CHASE_SRC in one
-    file, and csrc/locked_step.cu with -DK3_STAMPS (K3's stage stamps).
-    Returns {name: (process, library path)}."""
+    file; csrc/wide_step.cu with -DK2_STAMPS and csrc/locked_step.cu with
+    -DK3_STAMPS (the scan kernels' stage stamps and grid-sync counts); and
+    the two scan kernels' path builds with -Xptxas -v (their registers,
+    spills and shared memory as ptxas reports them). Returns {name:
+    (process, library path)}."""
     from gramtools_tpu_torch.ops import _build
 
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     src = _build.BUILD_DIR / "smoke_probes.cu"
     src.write_text(CURSOR_WALK_SRC + NARROW_CHASE_SRC)
     jobs = {}
-    for name, cu, flags in (
+    cu = lambda name: _build.CSRC_DIR / f"{name}.cu"
+    for name, source, flags in (
             ("probes", src, []),
-            ("stamps", _build.CSRC_DIR / "locked_step.cu", ["-DK3_STAMPS"])):
+            ("wide_stamps", cu("wide_step"), ["-DK2_STAMPS"]),
+            ("stamps", cu("locked_step"), ["-DK3_STAMPS"]),
+            ("wide_ptxas", cu("wide_step"), ["-Xptxas", "-v"]),
+            ("tail_ptxas", cu("locked_step"), ["-Xptxas", "-v"])):
         lib = _build.BUILD_DIR / f"libsmoke_{name}.so"
         jobs[name] = (subprocess.Popen(
             [_build._nvcc()] + _build.NVCC_FLAGS + flags
-            + ["-o", str(lib), str(cu)], stdout=subprocess.PIPE,
+            + ["-o", str(lib), str(source)], stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True), lib)
     return jobs
 
@@ -1886,72 +2015,229 @@ def start_probe_build():
 _PROBES = {}
 
 
+def probe_wait(probe, name: str) -> str:
+    """Wait for a probe's build once; its compiler output."""
+    if name not in _PROBES:
+        proc, path = probe[name]
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the {name} probe:\n{err}")
+        _PROBES[name] = (None, out + err)
+    return _PROBES[name][1]
+
+
 def probe_lib(probe, name: str = "probes"):
     """A probe library, its build waited for once."""
     import ctypes
 
-    if name not in _PROBES:
-        proc, path = probe[name]
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for the {name} probe:\n{err}")
-        lib = ctypes.CDLL(str(path))
+    text = probe_wait(probe, name)
+    if _PROBES[name][0] is None:
+        lib = ctypes.CDLL(str(probe[name][1]))
         p, i = ctypes.c_void_p, ctypes.c_int
         if name == "probes":
             lib.narrow_chase.argtypes = [p, i, i, i, p, p]
             lib.narrow_chase.restype = ctypes.c_int
-        else:
-            lib.locked_tail_stamps.argtypes = [p]
+        elif name == "stamps":
+            lib.locked_tail_stamps.argtypes = [p, i]
             lib.locked_tail_stamps.restype = ctypes.c_int
-        _PROBES[name] = lib
-    return _PROBES[name]
+            for fn in (lib.locked_tail_syncs, lib.locked_tail_pubs):
+                fn.argtypes = [p]
+                fn.restype = ctypes.c_int
+        else:
+            for fn in (lib.wide_steps_stamps, lib.wide_steps_syncs,
+                       lib.wide_steps_pubs):
+                fn.argtypes = [p]
+                fn.restype = ctypes.c_int
+        _PROBES[name] = (lib, text)
+    return _PROBES[name][0]
 
 
-# K3's stamp points a locked step (csrc/locked_step.cu, -DK3_STAMPS): the
-# step's start, its base and narrow loads in, its cnt scan done, the last
-# warp's look-back done, the block at its pairs, the pairs done, the step
-# done; and thread 0's first pair done
+def ptxas_line(probe, name: str, kernel: str) -> str:
+    """The ptxas report of ``kernel`` in the -Xptxas -v build ``name``:
+    registers, spill stores and loads, static shared bytes."""
+    text = probe_wait(probe, name)
+    lines = text.splitlines()
+    at = [k for k, line in enumerate(lines)
+          if "Compiling entry function" in line and kernel in line]
+    if not at:
+        return f"no ptxas report for {kernel}"
+    rep = " ".join(line.split("ptxas info    :")[-1].strip()
+                   for line in lines[at[0] + 1:at[0] + 4]
+                   if "ptxas info" in line and "Compiling" not in line)
+    return re.sub(r"\s+", " ", rep)
+
+
+def probe_run(probe, name: str, lib_name: str, module, call, want):
+    """``call`` once with the probe build ``name`` in place of the path's
+    csrc/<lib_name>.cu, its output equal to ``want``. Returns the probe
+    library (its stamps and sync counts are the last launch's)."""
+    import torch
+
+    from gramtools_tpu_torch.ops import _build
+
+    lib = probe_lib(probe, name)
+    path_lib = _build._LIBS[lib_name]
+    _build._LIBS[lib_name] = lib
+    try:
+        module._kernel_lib()
+        got = call()
+        torch.cuda.synchronize()
+    finally:
+        _build._LIBS[lib_name] = path_lib
+    _equal(got, want)
+    return lib
+
+
+STAMP_STEPS, STAMP_PTS = 256, 10  # csrc/scan_common.cuh kStampSteps, Pts
+PUB_TILES, PUB_PTS = 1024, 6      # csrc/scan_common.cuh kPubTiles, Pts
+# The stamp points of a step (csrc/*.cu, STAMP / NSTAMP / WSTAMP), as
+# (stage, from point, to point). K3's locked range: the step's start, its
+# base and narrow loads in, its cnt scan done, the last warp's look-back
+# done, the block at its pairs, the pairs done, the step done; and thread
+# 0's first pair done.
 STAGES = (("loads", 0, 1), ("wide rank + cnt scan", 1, 2),
           ("look-back (last warp)", 2, 3), ("first pairs (thread 0)", 2, 7),
           ("until the pairs' barrier", 2, 4), ("records + empty records", 4, 5),
           ("placement", 5, 6))
-STAMP_STEPS = 256                 # csrc/locked_step.cu kStampSteps
+# K2's and K3's hole-allocated steps, by tile (0, T / 2, T - 1): the
+# tile's start, its carry and base loaded, its LF done, its scans done
+# (the wide rank's look-back first, in K3), its last warp's look-back
+# done, the block past the look-back's barrier, the survivors or own rows
+# and the pairs done, the candidates' look-back done, the tile done, and
+# its block's grid sync at the step's end done
+TILE_STAGES = (("carry + base", 0, 9), ("LF", 9, 1), ("scans", 1, 2),
+               ("look-back (last warp)", 2, 3), ("until its barrier", 2, 4),
+               ("rows + pairs", 4, 5), ("candidate look-back", 5, 6),
+               ("stage + empty records", 6, 7), ("to the grid sync's end", 7, 8))
+STAMP_ROWS = ("tile 0", "tile T/2", "tile T-1")
 
 
-def locked_stages(probe, call, want, S: int) -> str:
-    """K3's locked range once with the stamps build, its output equal to
-    ``want``: each stage's median nanoseconds a step in tiles 0, T / 2
-    and T - 1 (the global timer), and their median step."""
+def read_stamps(fn, *args):
+    """The probe's stamps of its last launch: (STAMP_STEPS, 3,
+    STAMP_PTS) int64 nanoseconds."""
     import ctypes
 
     import numpy as np
-    import torch
 
-    from gramtools_tpu_torch.ops import _build, locked_step
-
-    lib = probe_lib(probe, "stamps")
-    path_lib = _build._LIBS["locked_step"]
-    _build._LIBS["locked_step"] = lib
-    try:
-        locked_step._kernel_lib()
-        got = call()
-        torch.cuda.synchronize()
-    finally:
-        _build._LIBS["locked_step"] = path_lib
-    _equal(got, want)
-    buf = (ctypes.c_ulonglong * (STAMP_STEPS * 3 * 8))()
-    err = lib.locked_tail_stamps(buf)
+    buf = (ctypes.c_ulonglong * (STAMP_STEPS * 3 * STAMP_PTS))()
+    err = fn(buf, *args)
     if err:
-        raise RuntimeError(f"locked_tail_stamps failed: CUDA error {err}")
-    a = np.frombuffer(buf, dtype=np.uint64).reshape(STAMP_STEPS, 3, 8)
-    a = a[:min(S, STAMP_STEPS)].astype(np.int64)
+        raise RuntimeError(f"reading the stamps failed: CUDA error {err}")
+    return np.frombuffer(buf, dtype=np.uint64).reshape(
+        STAMP_STEPS, 3, STAMP_PTS).astype(np.int64)
+
+
+def read_syncs(fn):
+    """The probe's grid syncs of its last launch: [in the steps' range,
+    after it]."""
+    import ctypes
+
+    buf = (ctypes.c_ulonglong * 2)()
+    err = fn(buf)
+    if err:
+        raise RuntimeError(f"reading the sync count failed: CUDA error {err}")
+    return [int(buf[0]), int(buf[1])]
+
+
+def read_pubs(fn):
+    """Every tile's publish times of the probe's last launch:
+    (STAMP_STEPS, PUB_TILES, 2) int64 nanoseconds (its payload, its
+    candidate count)."""
+    import ctypes
+
+    import numpy as np
+
+    buf = (ctypes.c_ulonglong * (STAMP_STEPS * PUB_TILES * PUB_PTS))()
+    err = fn(buf)
+    if err:
+        raise RuntimeError(f"reading the publish times failed: CUDA error "
+                           f"{err}")
+    return np.frombuffer(buf, dtype=np.uint64).reshape(
+        STAMP_STEPS, PUB_TILES, PUB_PTS).astype(np.int64)
+
+
+def pub_stages(pubs, stamps, tiles, starts: bool = False) -> str:
+    """Per step (``tiles`` its tile count): when, from tile 0's start,
+    the median and the last tile published its payload and its candidate
+    count, and which tile was last; with ``starts`` (K2), each tile's carry
+    and base and its LF time, median and most."""
+    import numpy as np
+
+    parts = []
+    for t, T in enumerate(tiles[:STAMP_STEPS]):
+        ran = pubs[t, :min(T, PUB_TILES), 0] > 0      # the tiles that ran
+        x = pubs[t, :ran.size][ran] - stamps[t, 0, 0]
+        line = (f"step {t} ({int(ran.sum())} tiles ran): payload median "
+                f"{np.median(x[:, 0]):.0f}, "
+                f"last {x[:, 0].max()} (tile {int(x[:, 0].argmax())}); "
+                f"candidates median {np.median(x[:, 1]):.0f}, last "
+                f"{x[:, 1].max()} (tile {int(x[:, 1].argmax())})")
+        if starts:
+            cb, lf = x[:, 3] - x[:, 2], x[:, 4] - x[:, 3]
+            sm = pubs[t, :ran.size, 5][ran]
+            busy = lf > 1000            # tiles whose LF does real work
+            share = [int((sm[busy] == sm[k]).sum()) for k in
+                     np.flatnonzero(busy)]
+            slow = int(lf.argmax())
+            line += (f"; carry + base median {np.median(cb):.0f}, most "
+                     f"{cb.max()} (tile {int(cb.argmax())}); LF median "
+                     f"{np.median(lf):.0f}, most {lf.max()} (tile {slow}, "
+                     f"SM {sm[slow]}, {int((sm[busy] == sm[slow]).sum())} "
+                     f"busy tiles there); {int(busy.sum())} busy tiles on "
+                     f"{len(set(sm[busy].tolist()))} SMs, at most "
+                     f"{max(share, default=0)} an SM; start median "
+                     f"{np.median(x[:, 2]):.0f}, last {x[:, 2].max()}")
+        parts.append(line)
+    return "; ".join(parts)
+
+
+def median_stages(a, stages, S: int) -> str:
+    """Each stage's median nanoseconds a step over S steps, by stamp row,
+    and the median step."""
+    import numpy as np
+
+    a = a[:min(S, STAMP_STEPS)]
     parts = []
     for sel, label in enumerate(("tile 0", "tile T/2", "tile T-1")):
         x = a[:, sel, :]
         parts.append(f"{label}: " + ", ".join(
             f"{name} {np.median(x[:, j] - x[:, i]):.0f}"
-            for name, i, j in STAGES)
+            for name, i, j in stages)
             + f"; step {np.median(np.diff(x[:, 0])):.0f}")
+    return "; ".join(parts)
+
+
+def step_stages(a, stages, S: int, rows=STAMP_ROWS) -> str:
+    """Each step's stage nanoseconds by stamp row, and the step's span
+    from the first row's start to the latest row's end."""
+    a = a[:min(S, STAMP_STEPS)]
+    last = stages[-1][2]
+    parts = []
+    for t in range(a.shape[0]):
+        rows_t = [f"{label} " + "/".join(
+            f"{a[t, sel, j] - a[t, sel, i]}" for _, i, j in stages)
+            for sel, label in enumerate(rows)]
+        span = int(a[t, :, last].max() - a[t, :, 0].min())
+        parts.append(f"step {t} ({span} ns): " + ", ".join(rows_t))
+    return "; ".join(parts)
+
+
+def tile_pairs(cnts, B: int) -> str:
+    """Per step: total hits, the hit pairs within the budget G of the
+    tile that holds the most (tiles of 256 slots) and the tiles holding
+    any, from each step's per-slot hit counts ``cnts``."""
+    import torch
+
+    parts = []
+    for cnt, g in cnts:
+        cnt = cnt.to(torch.int64).cpu()
+        start = torch.cumsum(cnt, 0) - cnt
+        ok = (torch.clamp(start + cnt, max=g) - start).clamp(min=0)
+        pad = (-ok.shape[0]) % 256
+        tiles = torch.cat([ok, ok.new_zeros(pad)]).view(-1, 256).sum(1)
+        parts.append(f"{int(cnt.sum())} hits, max {int(tiles.max()) * B} "
+                     f"pairs a tile, {int((tiles > 0).sum())}/"
+                     f"{tiles.shape[0]} tiles with pairs")
     return "; ".join(parts)
 
 
@@ -2465,7 +2751,7 @@ def phase_pool(work: Path):
             for k, n in launches_before.items()))
 
 
-def run(cfg: SmokeConfig, device) -> dict:
+def run(cfg: SmokeConfig, device, scan_only: bool = False) -> dict:
     import torch
 
     from gramtools_tpu_torch.ops import (_build, locked_step, rank, replay,
@@ -2491,9 +2777,12 @@ def run(cfg: SmokeConfig, device) -> dict:
             warm_hit_budget(cfg, kmer_index, reads))
         entries, captured = phase_path(cfg, idx, kmer_index, reads, device,
                                        work, dense, k1_b, probe)
-        phase_stages(cfg, captured, work)
+        if not scan_only:
+            phase_stages(cfg, captured, work)
         entries += phase_scan_kernels(cfg, captured, work, probe)
         del captured
+        if scan_only:
+            return {"kernels": entries}
         entries[0]["max_abs_err"] = max(entries[0]["max_abs_err"], err)
         del dense
         phase_scan(cfg, idx, kmer_index, reads, device)
@@ -2534,6 +2823,15 @@ def main() -> int:
     say(f"[phase 0] torch {torch.__version__} (CUDA {torch.version.cuda}) "
         f"on {kind}")
     t0 = time.perf_counter()
+    if sys.argv[1:] == ["--scan-only"]:
+        result = run(SmokeConfig(), torch.device("cuda"), scan_only=True)
+        say(f"[done] phases 0, 1, 1d and 1f (--scan-only) passed in "
+            f"{time.perf_counter() - t0:.1f} s; the other phases not run")
+        print(json.dumps(result), flush=True)
+        return 0
+    if sys.argv[1:]:
+        print(f"usage: {sys.argv[0]} [--scan-only]", file=sys.stderr)
+        return 2
     result = run(SmokeConfig(), torch.device("cuda"))
     say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps(result), flush=True)

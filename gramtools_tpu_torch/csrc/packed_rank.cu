@@ -36,7 +36,7 @@
 // of the random sector reads.
 //
 // The per-row count (count_word, count_vec, the clamp and the record
-// address) lives in packed_rank.cuh, shared with locked_step.cu.
+// address) lives in packed_rank.cuh, shared with the scan kernels.
 //
 // C interface for ctypes (no PyTorch headers): the wrapper passes raw
 // device pointers and PyTorch's current stream; the function returns

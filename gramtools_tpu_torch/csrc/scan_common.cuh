@@ -3,27 +3,35 @@
 // _build_log_step) and locked_step.cu (K3, the hole-allocated and the
 // slot-locked narrow steps of _build_narrow_step).
 //
-// Both run one thread a pool slot in tiles of kThreads slots and split a
-// step into stages by grid syncs (all but K3's slot-locked steps, which
-// take none: locked_step.cu). What they share:
+// Both run one thread a pool slot in tiles of kThreads slots; a block owns
+// tiles place, place + gridDim.x, ... of a step (its place: consecutive
+// places on distinct SMs) and takes them in increasing order. What they
+// share:
 //   * the index tables (Index) and the occ-row fetch, from the dense
 //     (n + 1, 4) table or through K1's per-row count (packed_rank.cuh);
 //   * lf_extend: the LF extension of [lo, hi] by one base and the marker
 //     counts at both ends (scan_steps._lf_extend);
-//   * block_scan / block_sum: the pieces of a grid-wide exclusive scan
-//     (tile sums written before a grid sync, each block sums the earlier
-//     tiles itself, then scans its own tile with warp shuffles), so every
-//     rank equals the integer cumsum the torch twin takes;
-//   * resize: _resize_pool on the double-buffered carry;
-//   * stage (c), own_hits: start_of, the spilled flag and the (G,) hit ->
-//     state table of the global hit enumeration;
-//   * stage (d), hit_pair: one (hit g, outcome b) pair's owner (JAX's
-//     owner search, the empty hit slots included), its jump locus, the
-//     genealogy log record written in place, and the newborn's LF.
+//   * block_scan: a block's exclusive scan with warp shuffles;
+//   * the chained scans with decoupled look-back (Merrill and Garland,
+//     NVIDIA 2016) that rank a step's slots across tiles without a grid
+//     barrier: a count word (state << 32 | count) and a payload descriptor
+//     (a count, the marker hits, the last slot with hits and its pref),
+//     each field a word of its own with the state beside it, so a reader
+//     needs one round trip and no memory ordering; a wait past ~seconds
+//     traps. Every rank equals the integer cumsum the torch twin takes;
+//   * a tile's hit pairs by its own block (tile_pair): a pair finds its
+//     owner by a binary search over the tile's prefix of marker hits in
+//     shared memory, its jump locus, and its newborn's LF, by a team of
+//     1 or 4 lanes (each lane counting the newborn's base in its code
+//     vectors of a packed occ record); staged_pairs writes each pair's log record in place and
+//     compacts the tile's newborn candidates in pair order;
+//   * resize: _resize_pool on the carry, in place;
+//   * the probe builds' stage stamps and grid-sync counts.
 // Every clamp of the JAX code is kept; its dropped writes write nothing.
 
 #pragma once
 
+#include <cuda/atomic>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -34,10 +42,71 @@ namespace scan_dev {
 constexpr int kThreads = 256;             // slots a tile, threads a block
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxDevices = 64;
+constexpr unsigned kAll = 0xFFFFFFFFu;
 
-// per-slot flags
-constexpr int kValid = 1, kActive = 2, kSingle = 4, kWide = 8, kKeep = 16,
-              kSpillW = 32, kSpilled = 64;
+// Stage stamps of a probe build (-DK2_STAMPS, -DK3_STAMPS; never the
+// path's build): the global timer at up to kStampPts points of each of the
+// first kStampSteps steps of a range, for three tiles (0, T / 2, T - 1)
+constexpr int kStampSteps = 256, kStampPts = 10;
+
+__device__ __forceinline__ unsigned long long global_timer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// the stamp row of tile ``tile`` of T, or -1 for a tile not stamped
+__device__ __forceinline__ int stamp_row(int tile, int T) {
+  return tile == 0 ? 0 : tile == T / 2 ? 1 : tile == T - 1 ? 2 : -1;
+}
+
+__device__ __forceinline__ void stamp_at(unsigned long long* stamps, int k,
+                                         int step, int tile, int T) {
+  const int sel = stamp_row(tile, T);
+  if (sel < 0 || step >= kStampSteps) return;
+  stamps[(step * 3 + sel) * kStampPts + k] = global_timer();
+}
+
+// Each tile's times of the first kStampSteps steps, for the first
+// kPubTiles tiles, in a probe build: the global timer into pub[(step ·
+// kPubTiles + tile) · kPubPts + k], k: 0 its payload published, 1 its
+// candidate count published, 2 its start, 3 its carry and base loaded, 4
+// its LF done (the last three by its thread 0; K2 only); and at k = 5 the
+// SM its block runs on
+constexpr int kPubTiles = 1024, kPubPts = 6;
+
+__device__ __forceinline__ void pub_at(unsigned long long* pub, int k,
+                                       int step, int tile) {
+  if (step < kStampSteps && tile < kPubTiles) {
+    unsigned sm;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    unsigned long long* e = pub + ((size_t)step * kPubTiles + tile) * kPubPts;
+    e[k] = global_timer();
+    e[5] = sm;
+  }
+}
+
+// Grid syncs of the launch, counted only in a probe build: [0] in the
+// scan steps' range (the wide steps; K3's start and hole-allocated steps),
+// [1] after it (K3's lock and locked range). Block 0's thread 0 counts, so
+// the count needs no atomics; it zeroes them at the launch's start.
+#if defined(K2_STAMPS) || defined(K3_STAMPS)
+__device__ unsigned long long g_syncs[2];
+#endif
+
+template <class Grid>
+__device__ __forceinline__ void grid_sync(Grid& grid, int range) {
+#if defined(K2_STAMPS) || defined(K3_STAMPS)
+  if (blockIdx.x == 0 && threadIdx.x == 0) ++g_syncs[range];
+#endif
+  grid.sync();
+}
+
+__device__ __forceinline__ void zero_syncs() {
+#if defined(K2_STAMPS) || defined(K3_STAMPS)
+  if (blockIdx.x == 0 && threadIdx.x == 0) g_syncs[0] = g_syncs[1] = 0;
+#endif
+}
 
 // the DeviceIndex tables a step reads
 struct Index {
@@ -68,6 +137,20 @@ __device__ __forceinline__ Carry carry_at(int* carry, int buf, int stride) {
   return Carry{b, b + stride, b + 2 * (size_t)stride, b + 3 * (size_t)stride};
 }
 
+__device__ __forceinline__ int4 carry_row(const Carry& c, int i) {
+  return make_int4(c.rid[i], c.lo[i], c.hi[i], c.pref[i]);
+}
+
+__device__ __forceinline__ void put_row(const Carry& c, int i, int4 v) {
+  c.rid[i] = v.x;
+  c.lo[i] = v.y;
+  c.hi[i] = v.z;
+  c.pref[i] = v.w;
+}
+
+// an empty slot's row
+__device__ __forceinline__ int4 fill_row() { return make_int4(-1, 0, 0, 0); }
+
 __host__ __device__ inline int n_tiles(long long count) {
   return (int)((count + kThreads - 1) / kThreads);
 }
@@ -87,11 +170,6 @@ __device__ __forceinline__ int chan(int4 v, int base) {
                          : base == 4 ? v.w : 0;
 }
 
-__device__ __forceinline__ int4 occ_row(const Index& x, int r) {
-  if (x.blocks != nullptr) return packed_rank_dev::rank_row(x.blocks, r, x.n);
-  return __ldg(x.occ + clampi(r, 0, x.n));
-}
-
 // Exclusive scan of v over the block's threads; *total gets the block's
 // sum. Every thread of the block calls it.
 __device__ int block_scan(int v, int* total) {
@@ -100,7 +178,7 @@ __device__ int block_scan(int v, int* total) {
   int x = v;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(0xFFFFFFFFu, x, d);
+    const int y = __shfl_up_sync(kAll, x, d);
     if (lane >= d) x += y;
   }
   if (lane == 31) warp_sums[warp] = x;
@@ -109,7 +187,7 @@ __device__ int block_scan(int v, int* total) {
     int w = lane < kWarps ? warp_sums[lane] : 0;
 #pragma unroll
     for (int d = 1; d < kWarps; d <<= 1) {
-      const int y = __shfl_up_sync(0xFFFFFFFFu, w, d);
+      const int y = __shfl_up_sync(kAll, w, d);
       if (lane >= d) w += y;
     }
     if (lane < kWarps) warp_sums[lane] = w;
@@ -121,40 +199,32 @@ __device__ int block_scan(int v, int* total) {
   return out;
 }
 
-// sum of a[0:count) (written by other blocks before a grid sync), by the
-// whole block
-__device__ int block_sum(const int* a, int count) {
-  int s = 0;
-  for (int i = threadIdx.x; i < count; i += kThreads) s += a[i];
-  int total;
-  block_scan(s, &total);
-  return total;
-}
-
-// The block's exclusive scan of v with the earlier tiles' sums added (the
-// rank of tile ``tile`` in slot order); *tile_total gets the tile's sum.
-__device__ __forceinline__ int grid_rank(const int* sums, int tile, int v,
-                                         int* tile_total) {
-  const int off = block_sum(sums, tile);
-  return off + block_scan(v, tile_total);
-}
-
 // LF extension of [lo, hi] by base and the marker counts in bwt[0:lo) and
 // bwt[0:hi + 1) (markers = i - #dna(< i) - #sentinel(< i))
 struct LF {
   int nlo, nhi, mlo, mhi;
 };
 
+// (channel base, the sum of the four channels) of occ row r: what
+// lf_extend reads of a row (from the packed records, two nibble masks a
+// code word)
+__device__ __forceinline__ int2 occ_chan_dna(const Index& x, int r, int base) {
+  if (x.blocks != nullptr)
+    return packed_rank_dev::rank_chan_dna(x.blocks, r, x.n, base);
+  const int4 v = __ldg(x.occ + clampi(r, 0, x.n));
+  return make_int2(chan(v, base), v.x + v.y + v.z + v.w);
+}
+
 __device__ __forceinline__ LF lf_extend(const Index& x, int lo, int hi,
                                         int base, int sent) {
   const int hi1 = add_wrap(hi, 1);
-  const int4 rl = occ_row(x, lo), rh = occ_row(x, hi1);
+  const int2 rl = occ_chan_dna(x, lo, base), rh = occ_chan_dna(x, hi1, base);
   const int first = __ldg(x.sym_start + clampi(base, 0, 4));
   LF out;
-  out.nlo = first + chan(rl, base);
-  out.nhi = first + chan(rh, base) - 1;
-  out.mlo = lo - (rl.x + rl.y + rl.z + rl.w) - (lo > sent ? 1 : 0);
-  out.mhi = hi1 - (rh.x + rh.y + rh.z + rh.w) - (hi1 > sent ? 1 : 0);
+  out.nlo = first + rl.x;
+  out.nhi = first + rh.x - 1;
+  out.mlo = lo - rl.y - (lo > sent ? 1 : 0);
+  out.mhi = hi1 - rh.y - (hi1 > sent ? 1 : 0);
   return out;
 }
 
@@ -173,89 +243,395 @@ __device__ void resize(Carry b, int n_from, int n_to, int R,
       if (r < 0) dump = true;
       else if (r <= R) ovf[r] = 1;
     } else if (i >= n_from && i < n_to) {
-      b.rid[i] = -1;
-      b.lo[i] = 0;
-      b.hi[i] = 0;
-      b.pref[i] = 0;
+      put_row(b, i, fill_row());
     }
   }
   if (__syncthreads_or(dump) && threadIdx.x == 0) ovf[R] = 1;
 }
 
-// The per-slot fields the hit stages read and write
-struct Slots {
-  int* flags;     // per slot
-  int* base;
-  int* cnt;       // marker hits of the slot's extension
-  int* hit;       // hitfield: marker rank (wide) or jump locus (single)
-  int* start;     // start_of
-  int* table;     // (G,) hit -> owning state
-  int* csum;      // (tiles,) cnt sum a tile
-  int* last;      // () the last state with hits in the budget
+// ---- the blocks' places -----------------------------------------------------
+// A block owns the tiles place, place + grid, ... of a step. Placed by
+// block index, the busy low tiles of a step with fewer busy tiles than SMs
+// can share SMs while others idle (the launch puts consecutive blocks on
+// one SM), so a block's place ranks it by (its slot on its SM, its SM):
+// places 0 .. (SMs - 1) are on distinct SMs.
+constexpr int kMaxSm = kThreads;          // SM ids below it (one a thread)
+
+__device__ __forceinline__ int sm_id() {
+  unsigned sm;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+  return (int)sm;
+}
+
+// The block's slot on its SM, from the (kMaxSm,) counters ``cnt`` zeroed
+// behind a grid sync; every thread of the block calls it
+__device__ __forceinline__ int sm_slot(int* cnt) {
+  __shared__ int slot;
+  if (threadIdx.x == 0) {
+    const int sm = sm_id();
+    if (sm >= kMaxSm) __trap();
+    slot = atomicAdd(cnt + sm, 1);
+  }
+  __syncthreads();
+  return slot;
+}
+
+// The block's place, once every block's sm_slot is behind a grid sync: the
+// blocks in a lower slot on any SM, then those in its slot on a lower SM.
+// Every thread of the block calls it.
+__device__ __forceinline__ int sm_place(const int* cnt, int slot) {
+  const int s = threadIdx.x, c = cnt[s];
+  int place;
+  block_scan((c < slot ? c : slot) + (s < sm_id() && c > slot ? 1 : 0),
+             &place);
+  return place;
+}
+
+// ---- chained scans with decoupled look-back ------------------------------
+
+constexpr int kLead = (kWarps - 1) * 32;   // the look-back warp's first
+                                           // thread
+// descriptor states
+constexpr int kEmpty = 0, kAggregate = 1, kInclusive = 2;
+constexpr int kMaxSpins = 1 << 26;         // waits for one descriptor
+// a payload descriptor: the aggregate's 4 fields, then the inclusive
+// prefix's, each a word state << 32 | value (so a reader trusts a set of
+// four once each word holds its state: one round trip, no ordering)
+constexpr int kDescWords = 8;
+constexpr int kWordInts = 2;               // ints a count word
+
+using DevWord = cuda::atomic_ref<unsigned long long,
+                                 cuda::thread_scope_device>;
+
+// one descriptor word: state << 32 | value
+__device__ __forceinline__ void put_word(unsigned long long* w, int state,
+                                         int value) {
+  DevWord(*w).store(((unsigned long long)state << 32) | (unsigned)value,
+                    cuda::std::memory_order_relaxed);
+}
+
+__device__ __forceinline__ unsigned long long get_word(
+    const unsigned long long* w) {
+  return DevWord(*const_cast<unsigned long long*>(w))
+      .load(cuda::std::memory_order_relaxed);
+}
+
+// A payload: a count (survivors or holes; 0 where unused), the marker
+// hits, the last slot with hits (-1: none) and its pref (in tile 0's
+// payload without hits: slot 0's, the owner of a step's empty hit records
+// when it has no hit at all)
+struct Payload {
+  int n, sum, last, pref;
 };
 
-// stage (c) for slot i with its exclusive start_of: the spilled flag; a
-// state with cnt > 0 and start_of < G owns hits [start_of, min(start_of +
-// cnt, G)) and writes itself into the table; the last such state is kept
-// apart for the empty hit slots
-__device__ __forceinline__ void own_hits(const Slots& sl, int i, int cnt,
-                                         int start, int total, int G) {
-  const int cum = start + cnt;
-  sl.start[i] = start;
-  const int f = sl.flags[i];
-  if ((f & kActive) && cum > G && cnt > 0) sl.flags[i] = f | kSpilled;
-  if (cnt > 0 && start < G) {
-    const int end = cnt > G - start ? G : start + cnt;
-    for (int g = start; g < end; ++g) sl.table[g] = i;
-    if (cum == total) *sl.last = i;
+// the identity
+__device__ __forceinline__ Payload no_payload() { return {0, 0, -1, 0}; }
+
+// a then b (b the later tiles), right-biased in last/pref: associative
+__device__ __forceinline__ Payload combine(Payload a, Payload b) {
+  return b.last >= 0 ? Payload{a.n + b.n, a.sum + b.sum, b.last, b.pref}
+                     : Payload{a.n + b.n, a.sum + b.sum, a.last, a.pref};
+}
+
+// one wait for a descriptor; a wait past ~seconds is a fault of the
+// kernel, so it traps (a launch error) rather than hang the card
+__device__ __forceinline__ void wait(int spins) {
+  if (spins > kMaxSpins) __trap();
+  __nanosleep(32);
+}
+
+// a hint to bring a's line into L2 (no wait, no fault)
+__device__ __forceinline__ void prefetch_l2(const void* a) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(a));
+}
+
+__device__ __forceinline__ int warp_sum(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kAll, v, o);
+  return v;
+}
+
+// a count word is one 64-bit word: state << 32 | count (one thread)
+__device__ __forceinline__ void publish_count(unsigned long long* d, int state,
+                                              int count) {
+  put_word(d, state, count);
+}
+
+// The counts before tile t > 0 of one step (count words d), by decoupled
+// look-back: lane l reads tile end - l of each window of 32, back to the
+// nearest inclusive prefix. Called by one whole warp.
+__device__ int count_lookback(const unsigned long long* d, int t) {
+  const int lane = threadIdx.x & 31;
+  int excl = 0;
+  for (int end = t - 1;; end -= 32) {
+    const int j = end - lane;
+    unsigned long long w = (unsigned long long)kInclusive << 32;
+    if (j >= 0) {
+      for (int spins = 0;
+           ((w = DevWord(*const_cast<unsigned long long*>(d + j))
+                     .load(cuda::std::memory_order_relaxed)) >> 32)
+           == kEmpty; ++spins)
+        wait(spins);
+    }
+    const unsigned inc = __ballot_sync(kAll, (w >> 32) == kInclusive);
+    const int stop = inc ? __ffs(inc) - 1 : 31;
+    excl += warp_sum(lane <= stop ? (int)(unsigned)w : 0);
+    if (inc) return excl;
   }
 }
 
-// one newborn candidate of stage (d)
-struct Birth {
-  int s;          // the owning state (its slot)
-  int lo, hi;     // the newborn's interval
-  bool ok;        // a valid newborn (locus, outcome and interval)
+// A tile's chained scan over count words d of one step, by the look-back
+// warp (every lane calls it): publish the tile's count (tile 0: as its
+// inclusive prefix), look back for the exclusive prefix and publish the
+// inclusive one. Returns the exclusive prefix.
+__device__ __forceinline__ int count_scan(unsigned long long* d, int tile,
+                                          int count) {
+  if (threadIdx.x == kLead)
+    publish_count(d + tile, tile == 0 ? kInclusive : kAggregate, count);
+  if (tile == 0) return 0;
+  const int e = count_lookback(d, tile);
+  if (threadIdx.x == kLead) publish_count(d + tile, kInclusive, e + count);
+  return e;
+}
+
+// the payload's four words in state ``state`` (one thread)
+__device__ __forceinline__ void publish_payload(unsigned long long* d,
+                                                int state, Payload v) {
+  unsigned long long* f = d + (state == kInclusive ? 4 : 0);
+  put_word(f, state, v.n);
+  put_word(f + 1, state, v.sum);
+  put_word(f + 2, state, v.last);
+  put_word(f + 3, state, v.pref);
+}
+
+// a tile's inclusive payload, read after the grid sync that ends its step
+__device__ __forceinline__ Payload inclusive_payload(
+    const unsigned long long* d) {
+  return Payload{(int)(unsigned)d[4], (int)(unsigned)d[5],
+                 (int)(unsigned)d[6], (int)(unsigned)d[7]};
+}
+
+// Tile e's payload as a reader finds it: its inclusive prefix once its four
+// words are there, else its aggregate, waiting while neither is whole.
+// *inclusive tells which.
+__device__ __forceinline__ Payload read_payload(const unsigned long long* e,
+                                                bool* inclusive) {
+  for (int spins = 0;; ++spins) {
+    const unsigned long long a0 = get_word(e), a1 = get_word(e + 1),
+                             a2 = get_word(e + 2), a3 = get_word(e + 3),
+                             i0 = get_word(e + 4), i1 = get_word(e + 5),
+                             i2 = get_word(e + 6), i3 = get_word(e + 7);
+    const unsigned long long agg = (unsigned long long)kAggregate << 32,
+                             inc = (unsigned long long)kInclusive << 32,
+                             hi = ~0ull << 32;
+    if (((i0 & hi) == inc) && ((i1 & hi) == inc) && ((i2 & hi) == inc)
+        && ((i3 & hi) == inc)) {
+      *inclusive = true;
+      return Payload{(int)(unsigned)i0, (int)(unsigned)i1, (int)(unsigned)i2,
+                     (int)(unsigned)i3};
+    }
+    if (((a0 & hi) == agg) && ((a1 & hi) == agg) && ((a2 & hi) == agg)
+        && ((a3 & hi) == agg)) {
+      *inclusive = false;
+      return Payload{(int)(unsigned)a0, (int)(unsigned)a1, (int)(unsigned)a2,
+                     (int)(unsigned)a3};
+    }
+    wait(spins);
+  }
+}
+
+// The payload of the tiles before tile t > 0 of one step (descriptors
+// d), by decoupled look-back: lane l reads tile end - l of each window of
+// 32, back to the nearest inclusive prefix. Called by one whole warp.
+__device__ Payload payload_lookback(const unsigned long long* d, int t) {
+  const int lane = threadIdx.x & 31;
+  Payload excl = no_payload();
+  for (int end = t - 1;; end -= 32) {
+    const int j = end - lane;
+    bool is_inc = true;
+    Payload v = no_payload();
+    if (j >= 0) v = read_payload(d + (size_t)kDescWords * j, &is_inc);
+    const unsigned inc = __ballot_sync(kAll, is_inc);
+    const int stop = inc ? __ffs(inc) - 1 : 31;
+    const bool take = lane <= stop;
+    const int n = warp_sum(take ? v.n : 0);
+    const int sum = warp_sum(take ? v.sum : 0);
+    // the nearest tile with a last slot, else the farthest taken one
+    const unsigned has = __ballot_sync(kAll, take && v.last >= 0);
+    const int src = has ? __ffs(has) - 1 : stop;
+    const Payload win = {n, sum, __shfl_sync(kAll, v.last, src),
+                         __shfl_sync(kAll, v.pref, src)};
+    excl = combine(win, excl);
+    if (inc) return excl;
+  }
+}
+
+// A tile's chained scan over payload descriptors d of one step, by the
+// look-back warp (every lane calls it): publish the tile's aggregate
+// (tile 0: as its inclusive prefix; tile 0's inclusive prefix must not be
+// combined with the identity, which would drop slot 0's pref), then, if
+// ``need``, look back and publish the inclusive prefix. Returns the
+// exclusive prefix (the identity for tile 0 or without ``need``); *inc
+// gets the inclusive one.
+__device__ __forceinline__ Payload payload_scan(unsigned long long* d,
+                                                int tile, Payload agg,
+                                                bool need, Payload* inc) {
+  unsigned long long* mine = d + (size_t)kDescWords * tile;
+  if (threadIdx.x == kLead)
+    publish_payload(mine, tile == 0 ? kInclusive : kAggregate, agg);
+  *inc = agg;
+  if (tile == 0 || !need) return no_payload();
+  const Payload e = payload_lookback(d, tile);
+  *inc = combine(e, agg);
+  if (threadIdx.x == kLead) publish_payload(mine, kInclusive, *inc);
+  return e;
+}
+
+// ---- a tile's hit pairs ----------------------------------------------------
+
+// the tile's fields that its hit pairs read
+struct PairTile {
+  int incl[kThreads];     // inclusive prefix of the marker hits in the tile
+  int hit[kThreads];      // hitfield: marker rank (wide) or locus (single)
+  int base[kThreads];
+  int single[kThreads];
+  int pref[kThreads];
+  int first[5];           // sym_start
 };
 
-// stage (d) for hit pair k = g·B + b of a step with budget G and total
-// hits: the owner s (the last state with cnt > 0, or state 0 when total ==
-// 0, for g >= min(total, G), as the JAX owner search gives), its jump
-// locus (direct for a single state, marker_rank_locus for a wide one),
-// the log record (pref[s], li·B + b) at log_base + k, the empty slots
-// included, and the LF of the newborn by the owner's base
-__device__ __forceinline__ Birth hit_pair(const Index& x, const Slots& sl,
-                                          const int* pref, int k, int G,
-                                          int total, int log_base, int* lp,
-                                          int* le) {
-  const int B = x.B;
-  const int g = k / B, b = k - g * B;
-  const int hits_ok = total < G ? total : G;
-  Birth out;
-  out.s = g < hits_ok ? sl.table[g] : (total == 0 ? 0 : *sl.last);
-  out.ok = false;
-  int loc = -1;
-  if (g < hits_ok) {
-    const int hf = sl.hit[out.s];
-    loc = (sl.flags[out.s] & kSingle)
-              ? hf
-              : __ldg(x.mrl + clampi(add_wrap(hf, g - sl.start[out.s]), 0,
-                                     x.n_mrl - 1));
+// one hit pair of a tile: its owner slot (in the tile), clamped locus,
+// outcome, and newborn
+struct Pair {
+  int s, li, b;
+  bool ok;
+  int lo, hi;
+};
+
+constexpr int kTeam = 4;   // lanes a pair in a tile with few pairs
+
+// The lanes of a tile's pairs: teams of 4 where the pairs fit in one round
+// of the block (a team spreads the packed count), else one lane a pair
+// (more pairs in flight).
+__device__ __forceinline__ int pair_team(int n_pairs) {
+  return n_pairs <= kThreads / kTeam ? kTeam : 1;
+}
+
+// Channel c of occ row r by a pair's team of ``team`` lanes (1 or 4), the
+// same in each: lane v counts code c in code vectors v, v + team, ... of
+// r's packed record (packed_rank.cuh: one nibble mask a code word, spread
+// over the team); a dense table's row is one load. A c outside 1-4 (a lane
+// without a pair) is 0 and loads nothing. Every lane of the warp calls it
+// together.
+__device__ __forceinline__ int team_chan(const Index& x, int r, int c, int v,
+                                         int team) {
+  using namespace packed_rank_dev;
+  const bool dna = c >= 1 && c <= 4;
+  if (x.blocks == nullptr)
+    return dna ? chan(__ldg(x.occ + clampi(r, 0, x.n)), c) : 0;
+  unsigned n = 0;
+  int ck = 0;
+  if (dna) {                 // loads not behind the offset: one round trip
+    int off;
+    const uint4* rec = record_of(x.blocks, r, x.n, &off);
+    for (int q = v; q < 4; q += team)
+      n += count_vec_code(__ldg(rec + kCodeVec0 + q), off - 32 * q,
+                          (unsigned)c);
+    ck = ckpt_chan(__ldg(rec), c);
   }
-  const int li = clampi(loc, 0, x.L - 1);
-  lp[log_base + k] = pref[out.s];
-  le[log_base + k] = li * B + b;
-  if (loc < 0) return out;
-  const int j_lo = __ldg(x.out_lo + li * B + b);
-  if (j_lo < 0) return out;
-  const int j_hi1 = add_wrap(__ldg(x.out_hi + li * B + b), 1);
-  const int jb = sl.base[out.s];
-  const int4 rl = occ_row(x, j_lo), rh = occ_row(x, j_hi1);
-  const int first = __ldg(x.sym_start + clampi(jb, 0, 4));
-  out.lo = first + chan(rl, jb);
-  out.hi = first + chan(rh, jb) - 1;
-  out.ok = out.lo <= out.hi;
-  return out;
+  if (team > 1) {
+    n += __shfl_xor_sync(kAll, n, 1);
+    n += __shfl_xor_sync(kAll, n, 2);
+  }
+  return ck + (int)n;
+}
+
+// The tile's pair q (its hit q / B, outcome q % B) by its team (this lane
+// is v of it), from the tile's shared fields alone: the owner by a binary
+// search over the prefix of hits, its jump locus (direct for a single
+// state, marker_rank_locus for a wide one: hit - start_of is the owner's
+// own hit index, so the tile's start is not needed), both outcome bounds
+// together, and the newborn's LF by the owner's base. Every lane of the
+// warp calls it together; ``live`` is false for a lane without a pair.
+__device__ __forceinline__ Pair tile_pair(const Index& x, const PairTile& ts,
+                                          int q, int v, int team, bool live) {
+  const int B = x.B;
+  Pair r = {0, 0, 0, false, 0, 0};
+  int j_lo = -1, j_hi1 = 0;
+  if (live) {
+    const int h = q / B;
+    r.b = q - h * B;
+#pragma unroll
+    for (int half = kThreads / 2; half > 0; half >>= 1)   // incl[s] > h
+      if (ts.incl[r.s + half - 1] <= h) r.s += half;
+    const int hf = ts.hit[r.s];
+    const int own = h - (r.s > 0 ? ts.incl[r.s - 1] : 0);
+    const int loc = ts.single[r.s]
+        ? hf : __ldg(x.mrl + clampi(add_wrap(hf, own), 0, x.n_mrl - 1));
+    r.li = clampi(loc, 0, x.L - 1);
+    if (loc >= 0) {
+      j_lo = __ldg(x.out_lo + r.li * B + r.b);
+      j_hi1 = add_wrap(__ldg(x.out_hi + r.li * B + r.b), 1);
+    }
+  }
+  const bool rows = j_lo >= 0;
+  const int jb = rows ? ts.base[r.s] : 0;
+  const int cl = team_chan(x, rows ? j_lo : 0, jb, v, team);
+  const int ch = team_chan(x, rows ? j_hi1 : 0, jb, v, team);
+  if (rows) {
+    const int f = ts.first[clampi(jb, 0, 4)];
+    r.lo = f + cl;
+    r.hi = f + ch - 1;
+    r.ok = r.lo <= r.hi;
+  }
+  return r;
+}
+
+// The first round of a tile's pairs, started before the tile is ranked (a
+// pair needs only the tile's own prefix): pair x / team of n_pairs (the
+// tile's pairs before the budget cuts them). Every thread of a warp calls
+// it together.
+__device__ __forceinline__ Pair early_pair(const Index& x, const PairTile& ts,
+                                           int n_pairs) {
+  const int team = pair_team(n_pairs);
+  const int q = threadIdx.x / team;
+  return tile_pair(x, ts, q, threadIdx.x % team, team, q < n_pairs);
+}
+
+// The tile's pairs q < n_ok, pair q of log record base + q (the tile's
+// hits start at base = log_base + start · B): the record (the owner's
+// pref, locus · B + outcome) written in place, and a newborn candidate
+// (the owner's read ``rid``, its interval, its pref base + q) compacted at
+// cand[j], j its rank among the tile's candidates in pair order. ``early``
+// holds this thread's pair of the first round, from early_pair with
+// n_pairs >= n_ok, for every thread (``early_all``) or for the threads
+// below kLead, the look-back warp working its own now. Returns the tile's
+// candidates. Every thread of the block calls it.
+__device__ int staged_pairs(const Index& x, const PairTile& ts,
+                            const int* rid, int n_pairs, int n_ok, int base,
+                            Pair early, bool early_all, int* lp, int* le,
+                            int4* cand) {
+  const int team = pair_team(n_pairs);
+  const int per_round = kThreads / team;
+  const int v = threadIdx.x % team;
+  int n_c = 0;
+  for (int q0 = 0; q0 < n_ok; q0 += per_round) {
+    const int q = q0 + threadIdx.x / team;
+    const bool live = q < n_ok;
+    Pair r = early;
+    if (q0 > 0 || (!early_all && threadIdx.x >= kLead))
+      r = tile_pair(x, ts, q, v, team, live);
+    const bool lead = live && v == 0;
+    if (lead) {
+      lp[base + q] = ts.pref[r.s];
+      le[base + q] = r.li * x.B + r.b;
+    }
+    const bool c = lead && r.ok;
+    int round;
+    const int j = block_scan(c ? 1 : 0, &round);
+    if (c) cand[n_c + j] = make_int4(rid[r.s], r.lo, r.hi, base + q);
+    n_c += round;
+  }
+  return n_c;
 }
 
 // the blocks of ``kernel`` co-resident on the current device (queried once

@@ -10,35 +10,74 @@
 // _rank_kernel, K1; packed_rank.cuh). In eager PyTorch one wide step is
 // ~200 launches; here the 6 wide steps of a buffer are one launch.
 //
-// The carry (read_id, lo, hi, pref) is double-buffered in ``carry`` (2, 4,
-// C), C >= every pool size and the incoming pool: a step reads one buffer
-// and writes the other; the inputs are never written. ``ovf`` (R + 1,)
-// gets the input flags (the last entry is the scan's dump slot) ORed with
-// every flag the steps raise, and the dump slot wherever the twin's
-// scatter routes an unflagged entry there (every wide step does).
+// A step's output is survivors then newborns then empty slots: a survivor
+// of keep rank r goes to slot r, the newborn candidate of rank c (in (hit,
+// outcome) order) to slot n_keep + c, or flags its read past the pool N;
+// the slots from n_keep + n_cand on take (-1, 0, 0, 0); spilled states
+// flag their read. Its two couplings across the pool: every rank (keep,
+// hits, candidates) is a prefix over all earlier slots, and a newborn's
+// slot needs n_keep, the survivors of the whole pool.
 //
-// The incoming pool is copied into buffer 0; each phase resizes the pool
-// to its size N (scan_common.cuh), then runs its steps, four stages a
-// step split by grid syncs (one thread a slot, tiles of kThreads slots):
-//   (a) rid = clamp(read_id), base = reads[s, rid] where valid, active;
-//       an active state LF-extends [lo, hi] with two occ rows (dense table
-//       or packed records) and counts the markers at both ends; keep,
-//       kept_lo/hi, cnt; each tile's cnt and keep counts;
-//   (c) start_of and the (G,) hit -> state table (own_hits);
-//   (d) one thread a (hit g, outcome b) pair (hit_pair): the log record
-//       written in place, the newborn candidate kept at k = g·B + b; each
-//       tile's candidate count;
-//   (e) the dense repack: a survivor of keep rank r goes to slot r, the
-//       candidate of rank c to slot n_keep + c, or flags its read past N;
-//       slots past n_keep + n_cand take (-1, 0, 0, 0); spilled states
-//       flag their read.
-// The two exclusive scans of (e) are the one scan over the N + G·B flags
-// of the JAX step, split at N.
+// Design: one grid sync a step, none inside it. A block owns tiles place,
+// place + grid, ... of a step, its place ranking it by (its slot on its
+// SM, its SM), so that the few busy tiles of a mid step (the pool's live
+// front) run on distinct SMs, and takes them in order. A tile, on its own:
+//   (a) reads its slots' carry, base, and for an active state the LF of
+//       [lo, hi] (two occ rows: the dense table, or the packed records with
+//       one nibble mask a code word for the base and one for the DNA total)
+//       and its marker hits; keep, kept interval, cnt;
+//   (b) publishes its payload (survivors, hits, last slot with hits and its
+//       pref; tile 0's as its inclusive prefix) and, by its last warp, looks
+//       back for the exclusive prefix (scan_common.cuh), while its other
+//       warps work the first round of its hit pairs (tile_pair: a pair
+//       needs only the tile's own prefix of hits; a tile whose first round
+//       needs every warp works it before the look-back);
+//   (c) writes its survivors at their keep rank into the output buffer and
+//       flags its spilled states;
+//   (d) works the rest of its pairs cut at G: each log record written in
+//       place, the newborn candidates compacted in pair order; candidates
+//       in (hit, outcome) order are in the slot order of their owners, so
+//       the candidate rank is a chained scan in tile order too: the tile
+//       looks back for it and copies its candidates to the step's stage at
+//       their rank;
+//   (e) the tile that closes the step writes the empty hit records
+//       [min(total, G), G) x B (the last slot with hits' pref, slot 0's
+//       when the step has none).
+// Only the tiles below the pool's live front run: a step's output is
+// live-packed (survivors, newborns, then empty slots), the incoming pool's
+// front is its last read (found at the launch's start), and a slot without
+// a read keeps, hits and places nothing (its flag goes to the dump slot).
+// A tile waits only on tiles before it at the same step, each block takes
+// its tiles in order, and the cooperative launch makes every block
+// co-resident: the least tile not done waits on finished tiles only. Then
+// one grid sync. The next step reads slot i as the survivor row i <
+// n_keep, else the staged newborn i - n_keep < n_cand, else an empty slot
+// (n_keep and n_cand from the closing tile's inclusive prefixes), so
+// placement needs no pass of its own. Off each tile's chain, grid-stride
+// loops flag the reads of the last step's dropped newborns (rank >= N -
+// n_keep) and, at a phase's start, of the slots a shrinking resize cuts
+// off (a resize is folded into the next step's reads: slots past the
+// smaller pool read as empty). The launch copies the input flags in and
+// zeroes every step's descriptors behind one grid sync, places the blocks
+// and finds the incoming front behind a second, and packs the last step's
+// carry into one buffer at the end: 2 + (steps) grid syncs, 8 for the 6
+// wide steps of a buffer (the design before this one: 4 a step and 2 a
+// resize, 25).
 //
-// What bounds it on the card: the warm steps' random occ-row reads (two a
-// state, two a newborn, 16 or 32 bytes each) and the grid syncs. Design:
-// as locked_step.cu, the grid is at most the co-resident blocks and no more
-// than the work needs; a block loops over its tiles.
+// What bounds it on the card: each step's slowest chain, not bytes. A
+// block runs its tiles one after another; a tile's chain is its carry,
+// the LF's two packed records and their count (ALU shared by an SM's three
+// blocks at a step with more busy tiles than SMs), the first round of
+// pairs (owner search, locus, outcome bounds, two records), the
+// look-backs' L2 round trips, the stage copy; then the grid sync.
+// Registers: 80 a thread (the cap for three blocks an SM; 48 bytes of
+// stack), 6,268 bytes of static shared memory a block (nvcc -Xptxas -v,
+// CUDA 12.8, sm_90a). ``ovf`` (R + 1,) gets the input flags (the last entry is the scan's dump
+// slot) ORed with every flag the steps raise, and the dump slot wherever
+// the twin's scatter routes an unflagged entry there. Built with
+// -DK2_STAMPS, the kernel also records the global timer at the stages of
+// each step of tiles 0, T / 2 and T - 1 and each tile's times and SM, and
+// counts its grid syncs.
 //
 // C interface for ctypes (no PyTorch headers): the wrapper passes raw
 // device pointers and PyTorch's current stream; wide_steps returns the
@@ -57,6 +96,28 @@ namespace {
 using namespace scan_dev;
 
 constexpr int kMaxPhases = 16;
+// blocks an SM: three (at most 85 registers a thread; with four, 64 and
+// their spills cost more than the blocks gain) so that a warm step's 1,024
+// tiles are ~2.6 a block
+constexpr int kBlocksPerSM = 3;
+
+// Stage timestamps, compiled in only with -DK2_STAMPS (a probe build,
+// never the path's): the global timer at the stages of each step
+// (scan_common.cuh), read back with wide_steps_stamps.
+#ifdef K2_STAMPS
+__device__ unsigned long long g_stamps[kStampSteps * 3 * kStampPts];
+__device__ unsigned long long g_pub[kStampSteps * kPubTiles * kPubPts];
+#define WSTAMP(k, who) \
+  if (threadIdx.x == (who)) stamp_at(g_stamps, k, step, tile, T)
+#define WPUB(k) \
+  if (threadIdx.x == kLead) pub_at(g_pub, k, step, tile)
+#define WPUB0(k) \
+  if (threadIdx.x == 0) pub_at(g_pub, k, step, tile)
+#else
+#define WSTAMP(k, who)
+#define WPUB(k)
+#define WPUB0(k)
+#endif
 
 struct Params {
   Index x;
@@ -78,205 +139,290 @@ struct Params {
   int* carry;                 // (2, 4, C)
   int C;
   unsigned char* ovf;         // (R + 1,)
-  int* scratch;               // scratch_ints(C, K, G_max)
+  int* scratch;               // scratch_ints(...)
+  long long n_tiles_all;      // tiles over every step
 };
 
-__host__ __device__ inline long long scratch_ints(int C, int K, int g_max) {
-  return 7LL * C + 4LL * K + g_max + 2LL * n_tiles(C) + n_tiles(K) + 1;
+// every step's tiles
+__host__ __device__ inline long long step_tiles(int n_phases,
+                                                const int* steps,
+                                                const int* pool) {
+  long long t = 0;
+  for (int ph = 0; ph < n_phases; ++ph)
+    t += (long long)steps[ph] * n_tiles(pool[ph]);
+  return t;
 }
 
-struct Scratch {
-  Slots sl;       // flags, base, cnt, hit, start, table, csum, last
-  int* klo;       // kept_lo / kept_hi
-  int* khi;
-  int* hsum;      // (tiles,) survivors a tile
-  int* cand;      // (K,) newborn candidates
-  int* elo;
-  int* ehi;
-  int* crid;
-  int* ksum;      // (tiles of K,) candidates a tile
+// the stage (two buffers) and the compacted candidates, K int4 each, then
+// every step's count words and payload descriptors, the blocks' slot
+// counters (sm_slot) and the incoming pool's live front
+__host__ __device__ inline long long scratch_ints(long long tiles, int K) {
+  return 12LL * K + (long long)(kWordInts + 2 * kDescWords) * tiles + kMaxSm
+         + 1;
+}
+
+// The carry a step reads: the last step's survivors (slots < nk) in src,
+// its staged newborns (slots nk .. nk + nc - 1), empty slots past them or
+// from lim on (the pool a resize shrank to). No slot from ``front`` on
+// holds a read (a step's output is live-packed; the incoming pool's front
+// is found at the launch's start).
+struct VCarry {
+  Carry src;
+  int nk;
+  const int4* stage;
+  int nc;
+  int lim;
+  int front;
 };
 
-__device__ Scratch scratch_of(const Params& p, int g_max) {
-  Scratch s;
-  const int C = p.C, K = g_max * p.x.B;
-  int* q = p.scratch;
-  int** per_slot[] = {&s.sl.flags, &s.sl.base, &s.sl.cnt, &s.sl.hit,
-                      &s.sl.start, &s.klo, &s.khi};
-  for (int** f : per_slot) { *f = q; q += C; }
-  int** per_pair[] = {&s.cand, &s.elo, &s.ehi, &s.crid};
-  for (int** f : per_pair) { *f = q; q += K; }
-  s.sl.table = q; q += g_max;
-  s.sl.csum = q; q += n_tiles(C);
-  s.hsum = q; q += n_tiles(C);
-  s.ksum = q; q += n_tiles(K);
-  s.sl.last = q;
-  return s;
+__device__ __forceinline__ int4 vread(const VCarry& v, int i) {
+  if (i >= v.lim) return fill_row();
+  if (i < v.nk) return carry_row(v.src, i);
+  if (i - v.nk < v.nc) return v.stage[i - v.nk];
+  return fill_row();
 }
 
-// One wide step over N slots, cur -> nxt (port of _build_log_step); the
-// grid is synchronised before it.
-__device__ void wide_step(const Params& p, const Scratch& sc, Carry cur,
-                          Carry nxt, const int* row, int N, int G,
-                          int log_base, cg::grid_group& grid) {
-  const int R = p.R, GB = G * p.x.B;
-  const int T = n_tiles(N), TK = n_tiles(GB);
-  const int sent = __ldg(p.x.sentinel_row);
+// the block's shared fields of the tile it works on
+struct WideShared {
+  PairTile pt;              // incl, hit, base, single (0), pref, first
+  int rc[kThreads];         // each slot's read, clamped
+  int warp_last[kWarps];    // the last slot with hits in each warp
+  Payload excl, inc;        // the look-backs' broadcasts
+  int c_excl;
+};
 
-  // ---- (a) LF of every active state, keep, cnt ---------------------------
-  for (int tile = blockIdx.x; tile < T; tile += gridDim.x) {
-    const int i = tile * kThreads + threadIdx.x;
-    int cnt = 0, keep = 0;
-    if (i < N) {
-      const int rid = cur.rid[i], lo = cur.lo[i], hi = cur.hi[i];
-      const bool valid = rid >= 0;
-      const int base = valid ? __ldg(row + clampi(rid, 0, R - 1)) : 0;
-      const bool active = valid && base > 0;
-      int klo = lo, khi = hi, mlo = 0;
-      bool alive = false;
-      if (active) {
-        const LF lf = lf_extend(p.x, lo, hi, base, sent);
-        klo = lf.nlo;
-        khi = lf.nhi;
-        mlo = lf.mlo;
-        cnt = lf.mhi - lf.mlo;
-        alive = lf.nlo <= lf.nhi;
-      }
-      keep = (active && alive) || (valid && !active) ? 1 : 0;
-      sc.sl.flags[i] = (valid ? kValid : 0) | (active ? kActive : 0)
-                       | (keep ? kKeep : 0);
-      sc.sl.base[i] = base;
-      sc.sl.cnt[i] = cnt;
-      sc.sl.hit[i] = mlo;
-      sc.klo[i] = klo;
-      sc.khi[i] = khi;
-    }
-    int total;
-    block_scan(cnt, &total);
-    if (threadIdx.x == 0) sc.sl.csum[tile] = total;
-    block_scan(keep, &total);
-    if (threadIdx.x == 0) sc.hsum[tile] = total;
+// One tile of one wide step (port of _build_log_step) over N slots: its
+// survivors into nxt, its candidates staged at their rank; pd, cd the
+// step's payload descriptors and candidate count words.
+__device__ void wide_tile(const Params& p, WideShared& ts, const VCarry& v,
+                          Carry nxt, int4* stage, int4* cand, const int* row,
+                          int N, int G, int log_base, int tile, int T,
+                          unsigned long long* pd, unsigned long long* cd,
+                          int sent, int step) {
+  const int R = p.R, B = p.x.B, x = threadIdx.x;
+  const int i = tile * kThreads + x;
+  const bool in = i < N;
+  WSTAMP(0, 0);
+  WPUB0(2);
+  // (a) the carry, base, LF and marker hits of an active state
+  const int4 c = in ? vread(v, i) : fill_row();
+  const int rid = c.x, lo = c.y, hi = c.z, pref = c.w;
+  const bool valid = rid >= 0;
+  const int rc = clampi(rid, 0, R - 1);
+  const int base = valid ? __ldg(row + rc) : 0;
+  const bool active = valid && base > 0;
+  WSTAMP(9, 0);
+  WPUB0(3);
+  int klo = lo, khi = hi, mlo = 0, cnt = 0;
+  bool alive = false;
+  if (active) {
+    const LF lf = lf_extend(p.x, lo, hi, base, sent);
+    klo = lf.nlo;
+    khi = lf.nhi;
+    mlo = lf.mlo;
+    cnt = lf.mhi - lf.mlo;
+    alive = lf.nlo <= lf.nhi;
   }
-  grid.sync();
+  const bool keep = (active && alive) || (valid && !active);
+  WSTAMP(1, 0);
+  WPUB0(4);
+  const unsigned with_hits = __ballot_sync(kAll, cnt > 0);
+  if ((x & 31) == 0)
+    ts.warp_last[x >> 5] = with_hits ? x + 31 - __clz(with_hits) : -1;
+  int n_keep, tile_cnt;
+  const int keep_rank = block_scan(keep ? 1 : 0, &n_keep);
+  const int excl = block_scan(cnt, &tile_cnt);
+  ts.pt.incl[x] = excl + cnt;
+  ts.pt.hit[x] = mlo;
+  ts.pt.base[x] = base;
+  ts.pt.single[x] = 0;
+  ts.pt.pref[x] = pref;
+  ts.rc[x] = rc;
+  __syncthreads();
+  WSTAMP(2, 0);
 
-  // ---- (c) hit enumeration ----------------------------------------------
-  const int total = block_sum(sc.sl.csum, T);
-  for (int tile = blockIdx.x; tile < T; tile += gridDim.x) {
-    const int i = tile * kThreads + threadIdx.x;
-    const int cnt = i < N ? sc.sl.cnt[i] : 0;
-    int tile_total;
-    const int start = grid_rank(sc.sl.csum, tile, cnt, &tile_total);
-    if (i < N) own_hits(sc.sl, i, cnt, start, total, G);
+  // (b) the payload's chained scan by the last warp while the other warps
+  // work the first round of pairs (a pair needs only the tile's own
+  // prefix); a tile whose first round needs the last warp too works it
+  // whole first
+  const int n_pairs = tile_cnt * B;
+  const bool heavy = n_pairs > kLead / pair_team(n_pairs);
+  Payload agg;
+  if (x >= kLead) {
+    int last = -1;
+    for (int w = 0; w < kWarps; ++w) last = max(last, ts.warp_last[w]);
+    agg = Payload{n_keep, tile_cnt, last < 0 ? -1 : tile * kThreads + last,
+                  last >= 0 ? ts.pt.pref[last]
+                            : (tile == 0 ? ts.pt.pref[0] : 0)};
+    if (x == kLead) {
+      publish_payload(pd + (size_t)kDescWords * tile,
+                      tile == 0 ? kInclusive : kAggregate, agg);
+      WPUB(0);
+    }
   }
-  grid.sync();
+  Pair early{};
+  if (x < kLead ? n_pairs > 0 : heavy) early = early_pair(p.x, ts.pt, n_pairs);
+  if (x >= kLead) {
+    const Payload e = tile > 0 ? payload_lookback(pd, tile) : no_payload();
+    if (x == kLead) {
+      ts.excl = e;
+      ts.inc = tile > 0 ? combine(e, agg) : agg;
+      if (tile > 0)
+        publish_payload(pd + (size_t)kDescWords * tile, kInclusive, ts.inc);
+    }
+    WSTAMP(3, kLead);
+  }
+  __syncthreads();
+  WSTAMP(4, 0);
 
-  // ---- (d) hits x outcomes: log records, newborn candidates --------------
-  for (int tile = blockIdx.x; tile < TK; tile += gridDim.x) {
-    const int k = tile * kThreads + threadIdx.x;
-    int c = 0;
-    if (k < GB) {
-      const Birth nb = hit_pair(p.x, sc.sl, cur.pref, k, G, total, log_base,
-                                p.lp, p.le);
-      if (nb.ok) {
-        c = 1;
-        sc.elo[k] = nb.lo;
-        sc.ehi[k] = nb.hi;
-        sc.crid[k] = clampi(cur.rid[nb.s], 0, R - 1);
-      }
-      sc.cand[k] = c;
-    }
-    int tile_total;
-    block_scan(c, &tile_total);
-    if (threadIdx.x == 0) sc.ksum[tile] = tile_total;
+  // (c) survivors at their keep rank, spilled states' flags
+  const Payload e = ts.excl;
+  if (in && keep) {
+    const int d = e.n + keep_rank;                 // < n_keep <= N
+    nxt.rid[d] = rid;
+    nxt.lo[d] = klo;
+    nxt.hi[d] = khi;
+    nxt.pref[d] = pref;
   }
-  grid.sync();
+  const bool spilled = active && e.sum + excl + cnt > G && cnt > 0;
+  if (spilled) p.ovf[rc] = 1;
+  // the twin's scatter routes an unspilled slot's flag to the dump slot
+  if (__syncthreads_or(in && !spilled) && x == 0) p.ovf[R] = 1;
 
-  // ---- (e) dense repack: survivors, then newborns, then the fill ---------
-  const int n_keep = block_sum(sc.hsum, T);
-  const int n_cand = block_sum(sc.ksum, TK);
-  const int n_fill = n_keep + n_cand < N ? n_keep + n_cand : N;
-  for (int tile = blockIdx.x; tile < T; tile += gridDim.x) {
-    const int i = tile * kThreads + threadIdx.x;
-    const int f = i < N ? sc.sl.flags[i] : 0;
-    int tile_total;
-    const int pos = grid_rank(sc.hsum, tile, (f & kKeep) ? 1 : 0,
-                              &tile_total);
-    if (i >= N) continue;
-    const int rid = cur.rid[i];
-    if (f & kKeep) {                              // pos < n_keep <= N
-      nxt.rid[pos] = rid;
-      nxt.lo[pos] = sc.klo[i];
-      nxt.hi[pos] = sc.khi[i];
-      nxt.pref[pos] = cur.pref[i];
-    }
-    if (f & kSpilled) p.ovf[clampi(rid, 0, R - 1)] = 1;
-    if (i >= n_fill) {
-      nxt.rid[i] = -1;
-      nxt.lo[i] = 0;
-      nxt.hi[i] = 0;
-      nxt.pref[i] = 0;
+  // (d) the pairs within the budget, then the candidates' rank
+  const int g_end = tile_cnt > G - e.sum ? G : e.sum + tile_cnt;
+  const int n_ok = g_end > e.sum ? (g_end - e.sum) * B : 0;
+  const int k0 = n_ok > 0 ? e.sum * B : 0;
+  const int n_c = staged_pairs(p.x, ts.pt, ts.rc, n_pairs, n_ok,
+                               log_base + k0, early, heavy, p.lp, p.le,
+                               cand + k0);
+  WSTAMP(5, 0);
+  if (x >= kLead) {
+    WPUB(1);
+    const int ce = count_scan(cd, tile, n_c);
+    if (x == kLead) ts.c_excl = ce;
+  }
+  __syncthreads();
+  WSTAMP(6, 0);
+  const int ce = ts.c_excl;
+  for (int j = x; j < n_c; j += kThreads) stage[ce + j] = cand[k0 + j];
+  // (e) the empty hit records, by the tile that closes the step
+  if (tile == T - 1 && ts.inc.sum < G) {
+    const Payload inc = ts.inc;
+    for (int k = inc.sum * B + x; k < G * B; k += kThreads) {
+      p.lp[log_base + k] = inc.pref;
+      p.le[log_base + k] = k % B;                 // locus clamped to 0
     }
   }
-  for (int tile = blockIdx.x; tile < TK; tile += gridDim.x) {
-    const int k = tile * kThreads + threadIdx.x;
-    const int c = k < GB ? sc.cand[k] : 0;
-    int tile_total;
-    const int pos = n_keep + grid_rank(sc.ksum, tile, c, &tile_total);
-    if (!c) continue;
-    if (pos < N) {
-      nxt.rid[pos] = sc.crid[k];
-      nxt.lo[pos] = sc.elo[k];
-      nxt.hi[pos] = sc.ehi[k];
-      nxt.pref[pos] = log_base + k;
-    } else {
-      p.ovf[sc.crid[k]] = 1;                      // a dropped newborn
-    }
-  }
-  // the twin's scatter routes every unflagged entry to the dump slot, and
-  // a step with N >= 1 slots always has one
-  if (blockIdx.x == 0 && threadIdx.x == 0) p.ovf[R] = 1;
+  WSTAMP(7, 0);
+  __syncthreads();                 // ts is the next tile's
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 wide_steps_kernel(const Params p) {
   cg::grid_group grid = cg::this_grid();
-  int g_max = 1;
-  for (int ph = 0; ph < p.n_phases; ++ph) g_max = max(g_max, p.hits[ph]);
-  const Scratch sc = scratch_of(p, g_max);
-  const int R = p.R, C = p.C;
+  __shared__ WideShared ts;
+  const int R = p.R, B = p.x.B, C = p.C;
   const int tid = blockIdx.x * kThreads + threadIdx.x;
   const int nthreads = gridDim.x * kThreads;
+  int g_max = 1;
+  for (int ph = 0; ph < p.n_phases; ++ph) g_max = max(g_max, p.hits[ph]);
+  const int K = g_max * B;
+  int4* stages = reinterpret_cast<int4*>(p.scratch);          // (2, K)
+  int4* cand = stages + 2 * (size_t)K;                        // (K,)
+  unsigned long long* words =
+      reinterpret_cast<unsigned long long*>(cand + K);        // (tiles,)
+  unsigned long long* descs = words + p.n_tiles_all;          // (tiles, 8)
+  int* sm_cnt = reinterpret_cast<int*>(descs + p.n_tiles_all * kDescWords);
+  int* front_in = sm_cnt + kMaxSm;                            // ()
+  zero_syncs();
 
-  // ---- the incoming pool and flags copied in ----------------------------
-  {
-    const Carry b = carry_at(p.carry, 0, C);
-    for (int i = tid; i < p.n_in; i += nthreads) {
-      b.rid[i] = __ldg(p.rid_in + i);
-      b.lo[i] = __ldg(p.lo_in + i);
-      b.hi[i] = __ldg(p.hi_in + i);
-      b.pref[i] = __ldg(p.pref_in + i);
-    }
-    for (int i = tid; i <= R; i += nthreads) p.ovf[i] = p.ovf_in[i];
+  // ---- the flags copied in, the descriptors and counters zeroed ----------
+  for (int i = tid; i <= R; i += nthreads) p.ovf[i] = p.ovf_in[i];
+  for (long long i = tid;
+       i < p.n_tiles_all * (kWordInts + 2 * kDescWords) + kMaxSm + 1;
+       i += nthreads)
+    reinterpret_cast<int*>(words)[i] = 0;
+  if (threadIdx.x < 5) ts.pt.first[threadIdx.x] = __ldg(p.x.sym_start +
+                                                        threadIdx.x);
+#ifdef K2_STAMPS
+  for (int i = tid; i < kStampSteps * kPubTiles * kPubPts; i += nthreads)
+    g_pub[i] = 0;
+#endif
+  const int sent = __ldg(p.x.sentinel_row);
+  grid_sync(grid, 0);
+  const int slot = sm_slot(sm_cnt);
+  {                  // the incoming pool's live front: its last read + 1
+    int f = 0;
+    for (int i = tid; i < p.n_in; i += nthreads)
+      if (__ldg(p.rid_in + i) >= 0) f = i + 1;
+    f = __reduce_max_sync(kAll, f);
+    if ((threadIdx.x & 31) == 0 && f > 0) atomicMax(front_in, f);
   }
-  int buf = 0, n_cur = p.n_in, log_base = p.log_base;
+  grid_sync(grid, 0);
+  const int place = sm_place(sm_cnt, slot);
+
+  VCarry v = {Carry{const_cast<int*>(p.rid_in), const_cast<int*>(p.lo_in),
+                    const_cast<int*>(p.hi_in), const_cast<int*>(p.pref_in)},
+              p.n_in, nullptr, 0, p.n_in, *front_in};
+  int n_cur = p.n_in, step = 0, log_base = p.log_base, prev_n = 0, prev_gb = 0;
+  long long tile0 = 0;
   const int* row = p.reads;
+  // the last step's dropped newborns flag their read; its unflagged hit
+  // pairs set the dump slot
+  auto last_step_flags = [&]() {
+    const int room = max(prev_n - v.nk, 0);
+    for (int c = room + tid; c < v.nc; c += nthreads) p.ovf[v.stage[c].x] = 1;
+    if (tid == 0 && prev_gb > max(v.nc - room, 0)) p.ovf[R] = 1;
+  };
   for (int ph = 0; ph < p.n_phases; ++ph) {
     const int N = p.pool[ph], G = p.hits[ph];
-    grid.sync();
-    if (N != n_cur) {
-      resize(carry_at(p.carry, buf, C), n_cur, N, R, p.ovf);
-      n_cur = N;
-      grid.sync();
+    // _resize_pool, folded into the next reads: the cut slots flag their
+    // read (an empty one the dump slot)
+    for (int i = N + tid; i < n_cur; i += nthreads) {
+      const int r = vread(v, i).x;
+      if (r < 0) p.ovf[R] = 1;
+      else if (r <= R) p.ovf[r] = 1;
     }
+    v.lim = min(v.lim, N);
+    n_cur = N;
     for (int s = 0; s < p.steps[ph]; ++s) {
-      if (s > 0) grid.sync();
-      wide_step(p, sc, carry_at(p.carry, buf, C),
-                carry_at(p.carry, buf ^ 1, C), row, N, G, log_base, grid);
-      buf ^= 1;
+      if (step > 0) last_step_flags();
+      const Carry nxt = carry_at(p.carry, (step + 1) & 1, C);
+      int4* stage = stages + (size_t)(step & 1) * K;
+      unsigned long long* cd = words + tile0;
+      unsigned long long* pd = descs + tile0 * kDescWords;
+      // the tiles past the pool's live front hold no read: their slots
+      // keep, hit and place nothing but send their flag to the dump slot
+      // (tile 0 always runs: it closes a step with none)
+      const int T = max(1, n_tiles(min(min(v.lim, N), v.front)));
+      if (T * kThreads < N && blockIdx.x == 0 && threadIdx.x == 0)
+        p.ovf[R] = 1;
+      for (int tile = place; tile < T; tile += gridDim.x)
+        wide_tile(p, ts, v, nxt, stage, cand, row, N, G, log_base, tile, T,
+                  pd, cd, sent, step);
+      grid_sync(grid, 0);
+#ifdef K2_STAMPS
+      for (int tile = place; tile < T; tile += gridDim.x) WSTAMP(8, 0);
+#endif
+      // the step's totals, from the closing tile's inclusive prefixes
+      const Payload tot = inclusive_payload(pd + (size_t)(T - 1) * kDescWords);
+      const int n_cand = (int)(unsigned)cd[T - 1];
+      v = VCarry{nxt, tot.n, stage, n_cand, N, min(N, tot.n + n_cand)};
+      prev_n = N;
+      prev_gb = G * B;
+      tile0 += n_tiles(N);
       row += R;
-      log_base += G * p.x.B;
+      log_base += G * B;
+      ++step;
     }
   }
+  if (step > 0) last_step_flags();
+  // the final carry packed into the buffer the wrapper returns
+  const Carry out = carry_at(p.carry, step & 1, C);
+  const bool in_place = v.src.rid == out.rid;
+  for (int i = tid; i < n_cur; i += nthreads)
+    if (!(in_place && i < v.nk && i < v.lim)) put_row(out, i, vread(v, i));
 }
 
 // co-resident blocks of the kernel on each device, queried once
@@ -286,16 +432,46 @@ int g_max_blocks[kMaxDevices];
 
 extern "C" int wide_steps_max_phases() { return kMaxPhases; }
 
-extern "C" long long wide_steps_scratch(int C, int K, int g_max) {
-  return scratch_ints(C, K, g_max);
+extern "C" long long wide_steps_scratch(int n_phases, const int* steps,
+                                        const int* pool, int K) {
+  return scratch_ints(step_tiles(n_phases, steps, pool), K);
 }
 
-// The grid the launch will use for C slots and K hit pairs: at most the
-// blocks co-resident on the current device (queried once a device), no
-// more than the work needs. Returns -(CUDA error) on failure.
-extern "C" int wide_steps_grid(int C, int K) {
-  return coop_grid(wide_steps_kernel, g_max_blocks,
-                   max(n_tiles(C), n_tiles(K)));
+#ifdef K2_STAMPS
+// the grid syncs of the last launch (g_syncs) into host
+extern "C" int wide_steps_syncs(void* host) {
+  return (int)cudaMemcpyFromSymbol(host, g_syncs, sizeof(g_syncs));
+}
+
+// the stamps of the last launch, (kStampSteps, 3, kStampPts) u64, into host
+extern "C" int wide_steps_stamps(void* host) {
+  return (int)cudaMemcpyFromSymbol(host, g_stamps, sizeof(g_stamps));
+}
+
+// every tile's publish times of the last launch, (kStampSteps, kPubTiles,
+// kPubPts) u64, into host
+extern "C" int wide_steps_pubs(void* host) {
+  return (int)cudaMemcpyFromSymbol(host, g_pub, sizeof(g_pub));
+}
+#endif
+
+// The kernel's registers a thread, local (spill) bytes a thread and
+// static shared bytes a block, into out[0:3]; returns the CUDA error.
+extern "C" int wide_steps_attrs(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, wide_steps_kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  return 0;
+}
+
+// The grid the launch will use for C slots: at most the blocks co-resident
+// on the current device (queried once a device), no more than the largest
+// pool's tiles. Returns -(CUDA error) on failure.
+extern "C" int wide_steps_grid(int C) {
+  return coop_grid(wide_steps_kernel, g_max_blocks, n_tiles(C));
 }
 
 extern "C" int wide_steps(
@@ -344,6 +520,7 @@ extern "C" int wide_steps(
   p.C = C;
   p.ovf = static_cast<unsigned char*>(ovf);
   p.scratch = static_cast<int*>(scratch);
+  p.n_tiles_all = step_tiles(n_phases, steps, pool);
   void* args[] = {&p};
   const cudaError_t err = cudaLaunchCooperativeKernel(
       (const void*)wide_steps_kernel, dim3(grid), dim3(kThreads), args, 0,

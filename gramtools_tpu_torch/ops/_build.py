@@ -108,3 +108,17 @@ def load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(library_path(name)))
     _LIBS[name] = lib
     return lib
+
+
+def kernel_attrs(fn) -> dict:
+    """A kernel's registers a thread, local (spill) bytes a thread and
+    static shared bytes a block (cudaFuncGetAttributes), from its
+    library's ``<name>_attrs(int*)`` function ``fn``."""
+    out = (ctypes.c_int * 3)()
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(out)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} failed: CUDA error {err}")
+    return {"registers": out[0], "local_bytes": out[1],
+            "shared_bytes": out[2]}

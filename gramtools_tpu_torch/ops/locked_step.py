@@ -53,6 +53,9 @@ from . import rank
 from .rank import BLOCK, WORDS
 
 I32 = torch.int32
+GRID_CAP = None
+"""A cap on the kernel's grid (tests set it to run several tiles a block
+at small shapes); None: the blocks co-resident on the card."""
 
 
 # --------------------------------------------------------------------------
@@ -110,24 +113,19 @@ def _kernel_lib() -> ctypes.CDLL:
             + [p, i, p, p, i, p])                # carry, C, ovf, scratch,
                                                  # grid, stream
         lib.locked_tail.restype = ctypes.c_int
-        lib.locked_tail_scratch.argtypes = [i, i, i, i, i]
+        lib.locked_tail_scratch.argtypes = [i, i, i, i, i, i]
         lib.locked_tail_scratch.restype = ctypes.c_longlong
-        lib.locked_tail_grid.argtypes = [i, i]
+        lib.locked_tail_grid.argtypes = [i]
         lib.locked_tail_grid.restype = ctypes.c_int
-        lib.locked_tail_attrs.argtypes = [p]
-        lib.locked_tail_attrs.restype = ctypes.c_int
     return lib
 
 
 def kernel_attrs() -> dict:
     """The built kernel's registers a thread, local (spill) bytes a
-    thread and static shared bytes a block (cudaFuncGetAttributes)."""
-    out = (ctypes.c_int * 3)()
-    err = _kernel_lib().locked_tail_attrs(out)
-    if err != 0:
-        raise RuntimeError(f"locked_tail_attrs failed: CUDA error {err}")
-    return {"registers": out[0], "local_bytes": out[1],
-            "shared_bytes": out[2]}
+    thread and static shared bytes a block."""
+    from . import _build
+
+    return _build.kernel_attrs(_kernel_lib().locked_tail_attrs)
 
 
 def check_tensor(fn: str, name: str, t, dtype, shape):
@@ -242,15 +240,16 @@ def locked_tail_cuda(di, reads, carry, log_base: int, lp, le, hits: int,
 
     lib = _kernel_lib()
     C = max(n_in, pool, R)
-    K = max(g_n, hits) * B
     out = torch.empty((2, 4, C), dtype=I32, device=reads.device)
     ovf = torch.empty(R + 1, dtype=torch.bool, device=reads.device)
-    scratch = torch.empty(lib.locked_tail_scratch(C, K, max(g_n, hits),
+    scratch = torch.empty(lib.locked_tail_scratch(C, g_n * B, n_narrow, pool,
                                                   n_locked, R),
                           dtype=I32, device=reads.device)
     rid, lo, hi, pref, overflow = carry
     with torch.cuda.device(reads.device):
-        grid = lib.locked_tail_grid(C, K)
+        grid = lib.locked_tail_grid(C)
+        if GRID_CAP:
+            grid = min(grid, GRID_CAP)
         if grid < 1:
             raise RuntimeError(f"locked_tail: no cooperative grid on "
                                f"{reads.device}: CUDA error {-grid}")
@@ -272,6 +271,7 @@ def locked_tail_cuda(di, reads, carry, log_base: int, lp, le, hits: int,
     n_out = R if lock or n_locked else n_pool
     return (last[0, :n_out], last[1, :n_out], last[2, :n_out],
             last[3, :n_out], ovf)
+
 
 
 def locked_tail(di, reads, carry, log_base: int, lp, le, hits: int,

@@ -39,6 +39,9 @@ from . import rank
 from .locked_step import check_scan_args, index_args
 
 I32 = torch.int32
+GRID_CAP = None
+"""A cap on the kernel's grid (tests set it to run several tiles a block
+at small shapes); None: the blocks co-resident on the card."""
 
 
 def wide_steps_torch(di, reads, carry, phases, log_base: int, lp, le,
@@ -77,13 +80,21 @@ def _kernel_lib() -> ctypes.CDLL:
             + [p, i, p, p, i, p])                # carry, C, ovf, scratch,
                                                  # grid, stream
         lib.wide_steps.restype = ctypes.c_int
-        lib.wide_steps_scratch.argtypes = [i, i, i]
+        lib.wide_steps_scratch.argtypes = [i, ints, ints, i]
         lib.wide_steps_scratch.restype = ctypes.c_longlong
-        lib.wide_steps_grid.argtypes = [i, i]
+        lib.wide_steps_grid.argtypes = [i]
         lib.wide_steps_grid.restype = ctypes.c_int
         lib.wide_steps_max_phases.argtypes = []
         lib.wide_steps_max_phases.restype = ctypes.c_int
     return lib
+
+
+def kernel_attrs() -> dict:
+    """The built kernel's registers a thread, local (spill) bytes a
+    thread and static shared bytes a block."""
+    from . import _build
+
+    return _build.kernel_attrs(_kernel_lib().wide_steps_attrs)
 
 
 def wide_steps_cuda(di, reads, carry, phases, log_base: int, lp, le,
@@ -111,16 +122,19 @@ def wide_steps_cuda(di, reads, carry, phases, log_base: int, lp, le,
     C = max([n_in] + [pool for _, pool, _ in phases])
     g_max = max(g for _, _, g in phases)
     K = g_max * B
-    out = torch.empty((2, 4, C), dtype=I32, device=reads.device)
-    ovf = torch.empty(R + 1, dtype=torch.bool, device=reads.device)
-    scratch = torch.empty(lib.wide_steps_scratch(C, K, g_max), dtype=I32,
-                          device=reads.device)
     table = (ctypes.c_int * len(phases))
     steps, pools, hits = (table(*col) for col in zip(*phases))
+    out = torch.empty((2, 4, C), dtype=I32, device=reads.device)
+    ovf = torch.empty(R + 1, dtype=torch.bool, device=reads.device)
+    scratch = torch.empty(lib.wide_steps_scratch(len(phases), steps, pools,
+                                                 K),
+                          dtype=I32, device=reads.device)
     rid, lo, hi, pref, overflow = carry
     tables = index_args(di, blocks)
     with torch.cuda.device(reads.device):
-        grid = lib.wide_steps_grid(C, K)
+        grid = lib.wide_steps_grid(C)
+        if GRID_CAP:
+            grid = min(grid, GRID_CAP)
         if grid < 1:
             raise RuntimeError(f"wide_steps: no cooperative grid on "
                                f"{reads.device}: CUDA error {-grid}")
@@ -139,6 +153,7 @@ def wide_steps_cuda(di, reads, carry, phases, log_base: int, lp, le,
     last = out[S % 2]
     N = phases[-1][1]
     return last[0, :N], last[1, :N], last[2, :N], last[3, :N], ovf
+
 
 
 def wide_steps(di, reads, carry, phases, log_base: int, lp, le,

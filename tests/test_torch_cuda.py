@@ -625,7 +625,7 @@ def _locked_design_case(name, rank_kind):
     elif name == "many_tiles":
         with torch.cuda.device(0):
             grid = locked_step._kernel_lib().locked_tail_grid(
-                carry[0].shape[0], G * B)
+                carry[0].shape[0])
         assert 0 < grid < T
     assert not bool((reads[1] > 0).any())
     return di, reads, carry, blocks, G, W, lock
@@ -731,12 +731,17 @@ def _pool_case(rank_kind, R, n_in, seed, steps):
 
 
 # (R, incoming states, phases ((steps, pool, hits), ...)): a shrink and
-# a grow between phases, spilling budgets, and a warm-sized pool
+# a grow between phases, spilling budgets, a pool that survivors and
+# newborns overfill (n_keep + n_cand > N), phases of no step, and pools at
+# the path's sizes (several tiles a block: 1,024 tiles at N = 262,144)
 WIDE_CASES = {
     "small": (300, 1000, ((2, 1024, 64), (3, 500, 8))),
     "grow": (300, 200, ((1, 256, 4), (2, 640, 300))),
     "tight": (1000, 4000, ((2, 1200, 2), (2, 900, 1))),
+    "full": (1000, 2000, ((3, 2000, 4096),)),
+    "empty_phases": (300, 900, ((0, 400, 8), (2, 1000, 64), (0, 700, 4))),
     "path": (8192, 30000, ((2, 32768, 4096), (4, 12288, 1024))),
+    "warm": (30720, 262144, ((2, 262144, 14336), (2, 46080, 3584))),
 }
 
 
@@ -766,13 +771,19 @@ def test_wide_steps_kernel_matches_twin(cuda, rank_kind, case):
         assert torch.equal(a.cpu(), b)
 
 
-# (R, incoming states, narrow (steps, pool, hits, W), locked steps, G, W)
+# (R, incoming states, narrow (steps, pool, hits, W), locked steps, G, W):
+# more candidates than holes, and than HB = hits x B, W binding inside a
+# tile, and the path's shapes
 NARROW_CASES = {
     "small": (300, 500, (3, 384, 64, 64), 3, 64, 64),
     "tight": (1000, 1600, (3, 1250, 2, 4), 2, 2, 4),
     "grow": (500, 300, (2, 640, 16, 32), 2, 8, 16),
     "alone": (600, 900, (4, 768, 32, 32), 0, 32, 32),
+    "few_holes": (1000, 1250, (3, 1250, 512, 1250), 2, 64, 64),
+    "small_hb": (1000, 1250, (3, 1250, 3, 1250), 2, 2, 4),
+    "w_mid": (1000, 1250, (3, 1250, 256, 37), 2, 64, 37),
     "path": (8192, 12288, (8, 10240, 512, 512), 6, 512, 512),
+    "warm": (30720, 46080, (8, 38400, 1792, 1792), 0, 1792, 1792),
 }
 
 
@@ -805,6 +816,85 @@ def test_narrow_tail_kernel_matches_twin(cuda, rank_kind, case):
     for a, b in zip(ccarry, carry):
         assert torch.equal(a.cpu(), b)
     assert got[0].shape == ((R,) if lock else (narrow[1],))
+
+
+def _wide_run(cuda, case, seed, rank_kind="packed"):
+    """K2 on case's inputs on the card: (carry, flags, log halves) and
+    the twin's on the CPU."""
+    R, n_in, phases = WIDE_CASES[case]
+    S = sum(ph[0] for ph in phases)
+    di, reads, carry, blocks = _pool_case(rank_kind, R, n_in, seed, S)
+    n_log = 21 + sum(s * g for s, _, g in phases) * di.n_outcomes
+    lp, le = _log_pair(n_log, "cpu")
+    want = tuple(wide_step.wide_steps(di, reads, carry, phases, 21, lp, le,
+                                      blocks=blocks)) + (lp, le)
+    cdi, creads, ccarry, cblocks = _locked_on(cuda, di, reads, carry, blocks)
+
+    def run():
+        clp, cle = _log_pair(n_log, cuda)
+        return tuple(wide_step.wide_steps(cdi, creads, ccarry, phases, 21,
+                                          clp, cle, blocks=cblocks)) + (
+            clp, cle)
+    return run, want
+
+
+def _narrow_run(cuda, case, seed, rank_kind="packed"):
+    """K3 with its hole-allocated range on case's inputs on the card:
+    (carry, flags, log halves) and the twin's on the CPU."""
+    R, n_in, narrow, n_locked, G, W = NARROW_CASES[case]
+    lock = n_locked > 0
+    di, reads, carry, blocks = _pool_case(rank_kind, R, n_in, seed,
+                                          narrow[0] + n_locked)
+    n_log = 17 + (narrow[0] * narrow[2] + n_locked * G) * di.n_outcomes
+    lp, le = _log_pair(n_log, "cpu")
+    want = tuple(locked_step.locked_tail(
+        di, reads, carry, 17, lp, le, G, W, blocks=blocks, lock=lock,
+        narrow=narrow)) + (lp, le)
+    cdi, creads, ccarry, cblocks = _locked_on(cuda, di, reads, carry, blocks)
+
+    def run():
+        clp, cle = _log_pair(n_log, cuda)
+        return tuple(locked_step.locked_tail(
+            cdi, creads, ccarry, 17, clp, cle, G, W, blocks=cblocks,
+            lock=lock, narrow=narrow)) + (clp, cle)
+    return run, want
+
+
+@pytest.mark.parametrize("kernel,case", [("wide", "small"), ("wide", "full"),
+                                         ("narrow", "small"),
+                                         ("narrow", "few_holes")])
+@pytest.mark.parametrize("rank_kind", ["dense", "packed"])
+def test_scan_kernels_match_twin_on_a_small_grid(cuda, rank_kind, kernel,
+                                                 case, monkeypatch):
+    """K2 and K3's hole-allocated range with the grid forced to 2 blocks
+    (each owning several tiles a step, and waiting on the other's):
+    the twin's carry, flags and log."""
+    run, want = (_wide_run if kernel == "wide" else _narrow_run)(
+        cuda, case, 11, rank_kind)
+    monkeypatch.setattr(wide_step if kernel == "wide" else locked_step,
+                        "GRID_CAP", 2)
+    got = run()
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("kernel,case", [("wide", "path"), ("wide", "warm"),
+                                         ("narrow", "path"),
+                                         ("narrow", "warm")])
+def test_scan_kernels_repeated_launches_identical(cuda, kernel, case):
+    """20 launches of K2, or of K3 with its hole-allocated range, on the
+    same inputs give the same carry, flags and log (no race in the chained
+    scans or the staged newborns), equal to the twin's."""
+    run, want = (_wide_run if kernel == "wide" else _narrow_run)(cuda, case,
+                                                                 5)
+    runs = [run() for _ in range(20)]
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        for a, b in zip(other, runs[0]):
+            assert torch.equal(a, b)
+    for a, b in zip(runs[0], want):
+        assert torch.equal(a.cpu(), b)
 
 
 @pytest.mark.parametrize("rank_kind", ["dense", "packed"])
