@@ -14,7 +14,7 @@ gramtools_tpu_torch/common/workload.py, seeded). Phases, in
 this order, each printing one line or a few:
 
   0. the card (nvidia-smi name and power limit), the build of the
-     five kernel sources and of the probes (the cursor walk and the
+     six kernel sources and of the probes (the cursor walk and the
      narrow-table chase in one file; K3 with its stage stamps; one nvcc
      each, all started together);
   1. the packed-rank kernel (K1) against its plain torch twin, on a
@@ -33,14 +33,14 @@ this order, each printing one line or a few:
      ``torch.cuda.set_sync_debug_mode("error")`` (no host
      synchronisation allowed) and its K1 calls (none: the scan kernels
      fold the rank in) and its wide-step (K2), narrow-tail (K3),
-     genealogy-replay (K7), selection (K8) and per-base recorder (K9)
-     inputs are kept;
+     genealogy-replay (K7), selection (K8, csrc/select.cu's two
+     launches) and per-base recorder (K9) inputs are kept;
      the third runs
      inside ``gramtools_tpu_torch.common.timers.device_trace`` (a
      ``torch.profiler`` Chrome trace: device busy time, device event
      count, the device time split by kernel name, each hand kernel's
-     device time a launch, and the per-base call's device events
-     between two marker kernels); then the first buffer's reads go
+     device time a launch, K8's device events, and the per-base call's
+     device events between two marker kernels); then the first buffer's reads go
      through ``scan_submit`` twice more in one trace, each between
      markers: with the scan as its two kernel launches, and with the
      wide and hole-allocated phases as the torch steps with K1 that K2
@@ -66,10 +66,15 @@ this order, each printing one line or a few:
      (the chase), 2 (+ the seed gather) and 99 (+ the ops apply), each
      equal bit for bit to its twin at that stage and timed by queued
      events, and the three blocks' times as prefix differences; the
-     selection ``select_and_record_device`` (K8, plain torch, K9 inside
-     from stage 6) at stages 0-6 and 99, stage 99 equal to the path's
-     own call, each timed by queued events and traced once between
-     markers (device events and busy time by stage), with K8's bound;
+     selection ``select_and_record_device`` (K8: csrc/select.cu's two
+     cooperative launches, K9 between them from stage 6) at stages 0-6
+     and 99, each equal bit for bit to the plain version
+     (``record.select_torch``) at that stage, stage 99 also to the
+     path's own call, and at forced budgets (ecap, trcap, lcap, wcap,
+     emitcap, KCAP, trip_cap, first draws in the rejection branch); each
+     stage timed by queued events and traced once between markers
+     (device events and busy time by stage), the plain version timed
+     and traced at stage 99, with K8's bound, share and registers;
   1f. the scan kernels on buffer 1's kept inputs: K2 (csrc/wide_step.cu,
      every wide phase in one cooperative launch) and K3 (csrc/
      locked_step.cu, the hole-allocated narrow phase, the lock and the
@@ -105,9 +110,9 @@ this order, each printing one line or a few:
   3. end to end: build the graph, then genotype 40,000 reads (two
      20,000-read buffers, so submit and complete overlap), its phase
      seconds read from the run's "Timer report" log lines; the launch
-     counts of K2, K3 (its hole-allocated and locked steps), K7 and K9
-     are reset just before and read just after, and each must be above
-     0, the standalone K1's must be 0;
+     counts of K2, K3 (its hole-allocated and locked steps), K7, K8 and
+     K9 are reset just before and read just after, and each must be
+     above 0, the standalone K1's must be 0;
   4. output parity: on the first 4,000 reads, the port's device run
      on CUDA, with the fused recorder and with
      ``GRAMTOOLS_TPU_DEVICE_RECORD=0``, and the port's own host engine
@@ -144,7 +149,9 @@ the path (K1's numbers are those of its largest call on the path;
 1d's buffers, ``trace_ms`` the device time a launch in phase 1d's
 trace; K9's launch is one call of the whole per-base recorder, four
 kernels; K2's is one launch a buffer, every wide phase; K3 narrow's and
-K3 locked's are the same launch, one a buffer); the last is
+K3 locked's are the same launch, one a buffer; K8's are its two
+launches a buffer, and its times (phase 1e) are the whole function's,
+K9 inside); the last is
 ``{"ok": true, "device": {...}}``. Any failed
 check raises, and the script exits non-zero; it also exits non-zero,
 printing no result, when no CUDA device is available. It imports no
@@ -165,8 +172,8 @@ from dataclasses import dataclass
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-LIBS = ("packed_rank", "replay", "walk", "wide_step",
-        "locked_step")                                   # csrc/<name>.cu
+LIBS = ("packed_rank", "replay", "walk", "wide_step", "locked_step",
+        "select")                                        # csrc/<name>.cu
 # each entry of the kernels line: its __global__ functions (trace names
 # read "(anonymous namespace)::<name>_kernel(...)"); K3's hole-allocated
 # and locked steps share one kernel and one launch on the path
@@ -174,11 +181,11 @@ KERNELS = {"packed_rank": ("packed_rank",), "replay": ("replay",),
            "per_base": ("per_base_init", "per_base_expand", "per_base_walk",
                         "per_base_apply"),
            "wide_step": ("wide_steps",), "narrow_step": ("locked_tail",),
-           "locked_step": ("locked_tail",)}
+           "locked_step": ("locked_tail",), "select": ("select", "triples")}
 # the standalone K1 runs on no path since the scan kernels fold its rank
 # in; every other kernel must launch on each path
 PATH_KERNELS = ("replay", "per_base", "wide_step", "narrow_step",
-                "locked_step")
+                "locked_step", "select")
 LABEL = "per_base"        # the record_function around the per-base call
 # the profiling knobs: set, they change the main path's output files
 STAGE_KNOBS = ("GRAMTOOLS_TPU_REPLAY_STAGE", "GRAMTOOLS_TPU_RECORD_STAGE")
@@ -768,9 +775,12 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
         ours = {k: sum(ms for name, ms, _ in top
                        if any(f"::{g}_kernel(" in name for g in KERNELS[k]))
                 for k in KERNELS}
-        for k in ("packed_rank", "replay", "wide_step", "locked_step"):
+        for k in ("packed_rank", "replay", "wide_step", "locked_step",
+                  "select"):
             if per_buffer[2][k]:
                 trace_ms[k] = ours[k] / per_buffer[2][k]
+        k8_events = sum(n for name, _, n in top if any(
+            f"::{g}_kernel(" in name for g in KERNELS["select"]))
         if windows[0] is not None:
             trace_ms["per_base"] = windows[0][1]
         say(f"[phase 1d] trace of buffer 2 (device_trace, Chrome trace): "
@@ -779,6 +789,9 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
             f"K1 {ours['packed_rank']:.3f} ms, K7 {ours['replay']:.3f} ms, "
             f"K2 {ours['wide_step']:.3f} ms, "
             f"K3 (narrow and locked) {ours['locked_step']:.3f} ms, "
+            f"K8 {ours['select']:.3f} ms over {k8_events} device events "
+            f"(its 2 launches; with K9's 4 inside, "
+            f"{k8_events + len(KERNELS['per_base'])} events), "
             f"K9 {trace_ms['per_base'] or float('nan'):.4f} ms (its 4 "
             f"kernels, the marked call; "
             f"the trace also holds the two per-base calls after the buffer, "
@@ -1589,6 +1602,19 @@ SELECT_BLOCKS = {0: "floor (inputs, chain flags)",
                  99: "triples sort"}
 
 
+# phase 1e's forced budgets of the selection on buffer 1's inputs, each
+# with the fallback bit it should set (search_log_host.FB_*)
+FORCED_SELECT = {
+    "ecap 64": dict(caps=dict(ecap=64), bit=2),
+    "trcap 64": dict(caps=dict(trcap=64), bit=8),
+    "lcap 4096": dict(caps=dict(lcap=4096), bit=1024),
+    "wcap 2048": dict(caps=dict(wcap=2048), bit=256),
+    "emitcap 4096": dict(caps=dict(emitcap=4096), bit=512),
+    "KCAP 1": dict(kcap=1, bit=16),
+    "trip_cap 1024": dict(trip_cap=1024, bit=128),
+    "first draws 2^32-1": dict(rng=True, bit=64)}
+
+
 def select_bytes(select_args, per_base_args) -> int:
     """K8's bytes for these inputs (a lower bound): each pool state's
     rid, lo, hi, path lengths and bad flag, the path slots its live
@@ -1616,15 +1642,19 @@ def phase_stages(cfg: SmokeConfig, captured, work: Path):
     """Phase 1e: the profiling stages on buffer 1's own inputs. K7 at
     stages 1, 2 and 99, each equal bit for bit to the twin at the same
     stage and timed by queued CUDA events; then the selection
-    (``select_and_record_device``, K8, plain torch with K9 inside) at
-    stages 0-6 and 99, stage 99 equal to the path's own call, each timed
-    by queued events (a few calls) and traced once between markers in
-    one torch.profiler session: device events and busy time by stage,
-    and each block's share as the difference of two prefixes."""
+    (``select_and_record_device``, K8: csrc/select.cu's two launches with
+    K9 between them) at stages 0-6 and 99, each equal bit for bit to the
+    plain version (``record.select_torch`` on the same tensors) at that
+    stage, stage 99 also to the path's own call; at forced budgets
+    (``FORCED_SELECT``) likewise; each stage timed by queued events and
+    traced once between markers in one torch.profiler session (device
+    events and busy time by stage, each block's share as the difference
+    of two prefixes), the plain version timed (single calls) and traced
+    at stage 99. Returns K8's entry of the kernels line."""
     import torch
 
     from gramtools_tpu_torch.mapping import record
-    from gramtools_tpu_torch.ops import replay
+    from gramtools_tpu_torch.ops import replay, select
 
     args = captured["replay"][0][:8]
     ms, lines = {}, []
@@ -1646,30 +1676,80 @@ def phase_stages(cfg: SmokeConfig, captured, work: Path):
     # cov_diff (argument 13): a scratch copy, added into by every call
     sargs = list(sargs[:13]) + [torch.zeros_like(sargs[13])]
     trip_cap = skw["trip_cap"]
+    R = sargs[10].shape[0]
 
-    def call(stage):
-        return record.select_and_record_device(*sargs, trip_cap=trip_cap,
-                                               stage=stage)
+    def call(stage, a=sargs, cap=trip_cap):
+        return record.select_and_record_device(*a, trip_cap=cap, stage=stage)
+
+    def both(stage, a=sargs, cap=trip_cap):
+        """(kernels' outputs + cov_diff, the plain version's), each on a
+        zeroed cov_diff."""
+        outs = []
+        for plain in (False, True):
+            b = list(a[:13]) + [torch.zeros_like(a[13])]
+            out = (record.select_torch(*b, cap, stage) if plain
+                   else record.select_and_record_device(*b, trip_cap=cap,
+                                                        stage=stage))
+            outs.append(list(out) + [b[13]])
+        return outs
+
+    def compare(what, got, want):
+        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                  if g.numel() else 0 for g, w in zip(got, want))
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"selection kernels != plain version "
+                                 f"({what}; max abs err {err})")
+        return err
 
     got = call(99)
     if not all(torch.equal(g, w) for g, w in zip(got, want)):
         raise AssertionError("selection at stage 99 != the path's own call")
-    sel_ms = {st: time_each_ms(lambda: call(st), 5) for st in SELECT_STAGES}
+    err = max(compare(f"stage {st}", *both(st)) for st in SELECT_STAGES)
+    forced = []
+    caps0, kcap0 = record.buffer_caps, record.KCAP
+    for name, spec in FORCED_SELECT.items():
+        a, cap = sargs, spec.get("trip_cap", trip_cap)
+        if "caps" in spec:
+            over = spec["caps"]
+            record.buffer_caps = lambda n, over=over: tuple(
+                over.get(k, v) for k, v in zip(
+                    ("ecap", "trcap", "wcap", "emitcap", "lcap"), caps0(n)))
+        record.KCAP = spec.get("kcap", kcap0)
+        if spec.get("rng"):
+            a = list(sargs)
+            a[11] = a[11].clone()
+            a[11][::3] = (1 << 32) - 1
+        try:
+            got, plain = both(99, a, cap)
+        finally:
+            record.buffer_caps, record.KCAP = caps0, kcap0
+        err = max(err, compare(name, got, plain))
+        bit = spec["bit"]
+        forced.append(f"{name} {int(((got[0] & bit) != 0).sum())} rows "
+                      f"flagged")
+    torch.cuda.synchronize()
+    sel_ms = {st: time_ms(lambda: call(st), cfg.timing_runs)
+              for st in SELECT_STAGES}
+    plain_ms = time_each_ms(lambda: record.select_torch(
+        *sargs, trip_cap, 99), 5)
 
     def traced():
         call(99)            # unmarked: the session's first events
         torch.cuda.synchronize()
         for st in SELECT_STAGES:
             marked(call)(st)
+        marked(record.select_torch)(*sargs, trip_cap, 99)
 
     busy, _, _, timeline = _profile_device(traced, work / "trace_k8")
     windows = marked_windows(timeline) if busy is not None else []
-    if len(windows) != len(SELECT_STAGES):
-        say(f"[phase 1e] trace: {len(windows)} marked windows, not "
-            f"{len(SELECT_STAGES)} ({sum(MARK in n for _, _, n in timeline)}"
-            f" markers in {len(timeline)} device events)")
-        windows = [None] * len(SELECT_STAGES)
+    n_win = len(SELECT_STAGES) + 1
+    if len(windows) != n_win:
+        say(f"[phase 1e] trace: {len(windows)} marked windows, not {n_win} "
+            f"({sum(MARK in n for _, _, n in timeline)} markers in "
+            f"{len(timeline)} device events)")
+        windows = [None] * n_win
     nbytes = select_bytes(sargs, captured["per_base"][0])
+    bound = bound_ms(nbytes)
     prev_ms, prev_w = 0.0, (0, 0.0, 0.0)
     for st, w in zip(SELECT_STAGES, windows):
         trace = ("not in the trace" if w is None else
@@ -1679,13 +1759,29 @@ def phase_stages(cfg: SmokeConfig, captured, work: Path):
         lines.append(f"stage {st} [{SELECT_BLOCKS[st]}] {sel_ms[st]:.4f} ms "
                      f"({sel_ms[st] - prev_ms:+.4f}), {trace}")
         prev_ms, prev_w = sel_ms[st], (w or prev_w)
-    say(f"[phase 1e] K8, select_and_record_device by stage on buffer 1's "
-        f"inputs (stage 99 == the path's call), queued events (the median "
-        f"of 5 single calls), and one call a stage in one torch.profiler "
-        f"trace (change on the "
+    attrs = select.kernel_attrs()
+    k8, pl = windows[-2], windows[-1]
+    say(f"[phase 1e] K8, select_and_record_device on buffer 1's inputs "
+        f"(R={R}, trip_cap={trip_cap}): the kernels (csrc/select.cu, K9 "
+        f"between its two launches) == the plain version at every stage "
+        f"and at forced budgets ({'; '.join(forced)}), stage 99 == the "
+        f"path's call; by stage, queued events ({cfg.timing_runs} calls) "
+        f"and one call a stage in one torch.profiler trace (change on the "
         f"stage before): " + "; ".join(lines)
-        + f"; bound {bound_ms(nbytes):.4f} ms ({nbytes} bytes), the whole "
-        f"function at {100 * bound_ms(nbytes) / sel_ms[99]:.3f}% of it")
+        + f"; the plain version {plain_ms:.4f} ms (median of 5 single "
+        f"calls)" + ("" if pl is None else
+                     f", {pl[0]} device events, {pl[1]:.4f} ms busy traced")
+        + f"; bound {bound:.4f} ms ({nbytes} bytes), the kernels at "
+        f"{100 * bound / sel_ms[99]:.2f}% of it by events"
+        + ("" if k8 is None else f", {100 * bound / k8[1]:.2f}% by trace")
+        + f"; select_kernel {attrs['registers']} registers, "
+        f"{attrs['local_bytes']} bytes of stack, {attrs['shared_bytes']} "
+        f"bytes of shared memory")
+    m = {"max_abs_err": err, "ms": sel_ms[99], "plain_ms": plain_ms,
+         "bound_ms": bound, "library_ms": None}
+    return kernel_entry("select", "gramtools_tpu_torch/csrc/select.cu",
+                        "gramtools_tpu/mapping/record_jax.py:438", m,
+                        captured["per_buffer"], captured["trace_ms"])
 
 
 def fresh_cov(args, **over):
@@ -2378,7 +2474,7 @@ def phase_fused_parity(cfg: SmokeConfig, idx, kmer_index, reads, device):
     say(f"[phase 2b] fused program on {len(token[1])} rows (R={R}, "
         f"trip_cap={trip_cap}): flat result ({flat_cuda.size} int32) and "
         f"cov_diff ({cov_cpu.numel()} int32, {int((cov_cpu != 0).sum())} "
-        f"non-zero) equal on cuda (K2, K3, K7 and K9 launched) "
+        f"non-zero) equal on cuda (K2, K3, K7, K8 and K9 launched) "
         f"and cpu; {int(flat_cuda[2 * R:3 * R].sum())}"
         f" rows mapped, {int((fb != 0).sum())} flagged, "
         f"{int((flat_cuda[3 * R:3 * R + trip_cap] < R).sum())} loci triples;"
@@ -2410,14 +2506,15 @@ def _counted():
     """The kernels' launch counts, by name: each wrapper's ``launches``;
     K3 narrow's is the narrow-tail launches that ran hole-allocated
     steps."""
-    from gramtools_tpu_torch.ops import (locked_step, rank, replay, walk,
-                                         wide_step)
+    from gramtools_tpu_torch.ops import (locked_step, rank, replay, select,
+                                         walk, wide_step)
 
     return {"packed_rank": rank.packed_rank, "replay": replay.replay,
             "per_base": walk.per_base_cuda,
             "wide_step": wide_step.wide_steps,
             "narrow_step": _Count(locked_step.locked_tail, "narrow_launches"),
-            "locked_step": locked_step.locked_tail}
+            "locked_step": locked_step.locked_tail,
+            "select": select.select_cuda}
 
 
 class TimerLines(logging.Handler):
@@ -2755,12 +2852,12 @@ def run(cfg: SmokeConfig, device, scan_only: bool = False) -> dict:
     import torch
 
     from gramtools_tpu_torch.ops import (_build, locked_step, rank, replay,
-                                         walk, wide_step)
+                                         select, walk, wide_step)
 
     t0 = time.perf_counter()
     probe = start_probe_build()
     _build.build_all(LIBS)
-    for mod in (rank, replay, walk, wide_step, locked_step):
+    for mod in (rank, replay, walk, wide_step, locked_step, select):
         mod._kernel_lib()
     say(f"[phase 0] csrc/{{{','.join(LIBS)}}}.cu built together in "
         f"{_build.build_seconds[LIBS[0]]:.2f} s "
@@ -2778,7 +2875,7 @@ def run(cfg: SmokeConfig, device, scan_only: bool = False) -> dict:
         entries, captured = phase_path(cfg, idx, kmer_index, reads, device,
                                        work, dense, k1_b, probe)
         if not scan_only:
-            phase_stages(cfg, captured, work)
+            entries.append(phase_stages(cfg, captured, work))
         entries += phase_scan_kernels(cfg, captured, work, probe)
         del captured
         if scan_only:

@@ -8,7 +8,7 @@ for torch. ``--engine auto`` means the device engine when
 ``GRAMTOOLS_TPU_MESH_DEVICES=n`` (n > 1) runs the device engine over a
 mesh of the first n CUDA devices, and raises where fewer exist. The
 mesh is slower than one card for now: one host thread enqueues every
-shard's launches (some 30,000 a buffer each), so the host's enqueue
+shard's launches (about 70 a 20,000-read buffer each), so the host's enqueue
 grows with n while each card idles (PERF.md; ROADMAP Queue 1 item 8
 tracks one host thread per card or a captured step loop).
 ``--max_threads N`` records with N worker processes beside any engine

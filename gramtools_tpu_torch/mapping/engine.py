@@ -57,7 +57,8 @@ to turn a key into a device time, so on CUDA:
     are host work: the kmer screen, seeding, 2-bit packing, and the
     scan path's carry placement;
   * ``submit_dispatch`` is the host's enqueue of the device program
-    (some 30,000 launches a buffer), not the device's run;
+    (about 70 device events a 20,000-read buffer, chip_smoke.py phase
+    1d), not the device's run;
   * ``complete_get`` is the wait for the flat result: the device time
     that the host's work since the submit did not hide, then the copy
     home (and, on the scan path, its unpacking);

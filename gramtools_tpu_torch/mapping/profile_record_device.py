@@ -18,8 +18,8 @@ consistent log, ~1% with an SA interval wider than one row
   * ``record.replay_device`` (K7) at each replay stage of
     ``PROF_RSTAGES`` (default ``1,2,99``: the chase, + the seed gather,
     + the ops apply);
-  * ``record.select_and_record_device`` (K8, with K9 inside from stage
-    6 on) at each select stage of ``PROF_STAGES`` (default
+  * ``record.select_and_record_device`` (K8, csrc/select.cu's kernels
+    on CUDA, with K9 inside from stage 6 on) at each select stage of ``PROF_STAGES`` (default
     ``0,1,2,3,4,5,6,99``), on the full replay's outputs,
 
 each as the median of ``--runs`` single calls between two CUDA events,

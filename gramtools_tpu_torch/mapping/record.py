@@ -9,7 +9,9 @@ the same device and without a host round trip,
      non-variant occurrences, build each state's loci with their
      ancestor chains, flag duplicate sites and allele conflicts, group
      states into classes by their base-site key rows and pick one class
-     per read with the mt19937 first draw (``select_and_record_device``);
+     per read with the mt19937 first draw (``select_and_record_device``,
+     K8: on CUDA the hand kernels of csrc/select.cu through
+     ops/select.py, on the CPU the plain version ``select_torch``);
   3. walk every selected occurrence base by base and add its per-node
      envelopes into the persistent ``cov_diff`` array
      (``_record_per_base_device``, K9: on CUDA the hand kernels of
@@ -29,7 +31,10 @@ bit for bit; what differs, and why:
     come out in another order than XLA's; what is read from them (the
     selected states, the per-(row, node) envelopes) does not depend on
     that order. The CUDA per-base recorder does not sort at all: it
-    folds the emissions into a (row, node) table (ops/walk.py).
+    folds the emissions into a (row, node) table (ops/walk.py). The
+    CUDA selection sorts the loci lanes twice by radix on packed keys,
+    and ranks each row's states' key rows a row at a time
+    (csrc/select.cu).
   * The uint32 selection pick is done in int64 (every value < 2**32).
   * ``cov_diff`` is updated in place, which stands in for JAX's buffer
     donation.
@@ -47,6 +52,7 @@ from .coverage_fast import SiteMeta
 from .search import PrgIndex
 
 from ..ops.replay import JumpOps, SeedPaths, replay
+from ..ops.select import select_cuda, triples_cuda
 from ..ops.walk import BIG, per_base_cuda, walk_torch
 from .device_index import _as_i32 as _i32
 from .search_log_host import (FB_CHAIN, FB_CONFLICT, FB_DUP_SITE, FB_EMIT,
@@ -298,19 +304,66 @@ def select_and_record_device(di, rt: RecordTables,
     value below 99 returns after the numbered block, with the fallback
     bits so far, ``mapped`` all False, ``trip_row`` all R + 1 and zero
     sites and alleles, so that a block's device time is the difference
-    of two prefixes. ``cov_diff`` is added into from stage 6 on."""
+    of two prefixes. ``cov_diff`` is added into from stage 6 on.
+
+    CUDA tensors run K8's hand kernels (ops/select.py, csrc/select.cu)
+    with K9 between their two launches; CPU tensors the plain version,
+    ``select_torch``; the two are the same function. The budgets
+    (``buffer_caps``) and ``KCAP`` are read here at each call."""
     if trip_cap <= 0:
         trip_cap = 16 * row_ok.shape[0]
+    args = (di, rt, f_rid, f_lo, f_hi, trav, n_trav, ing, n_ing, state_bad,
+            row_ok, row_first_raw, row_len, cov_diff, trip_cap, stage)
+    if f_rid.device.type == "cuda":
+        return _select_cuda(*args)
+    if f_rid.device.type == "cpu":
+        return select_torch(*args)
+    raise ValueError(f"selection: unsupported device {f_rid.device}")
+
+
+def _stage_out(fallback, trip_cap: int):
+    """A stage's early return: the fallback bits so far, nothing mapped,
+    no triples."""
+    R, dev = fallback.shape[0], fallback.device
+    z = torch.zeros(trip_cap, dtype=I32, device=dev)
+    return (fallback, torch.zeros(R, dtype=torch.bool, device=dev),
+            torch.full((trip_cap,), R + 1, dtype=I32, device=dev), z,
+            z.clone())
+
+
+def _select_cuda(di, rt: RecordTables, f_rid, f_lo, f_hi, trav, n_trav,
+                 ing, n_ing, state_bad, row_ok, row_first_raw, row_len,
+                 cov_diff, trip_cap: int, stage: int):
+    """K8 on CUDA: stages 0-5 in ``select_cuda``'s launch, K9
+    (``_record_per_base_device``) on its state table and selected
+    states, then the triples in ``triples_cuda``'s launch."""
+    R = row_ok.shape[0]
+    ecap, trcap, wcap, emitcap, lcap = buffer_caps(R)
+    sel = select_cuda(
+        di.sa[:di.size], rt.ra_node, rt.nt_site, rt.nt_allele, rt.anc_len,
+        rt.anc_site, rt.anc_allele, rt.base_site, max(rt.max_anc, 0),
+        f_rid, f_lo, f_hi, trav, n_trav, ing, n_ing, state_bad, row_ok,
+        row_first_raw.to(I64), ecap, lcap, trcap, KCAP, trip_cap,
+        stage if stage <= 5 else 99)
+    if stage <= 5:
+        return _stage_out(sel.fallback, trip_cap)
+    fallback = _record_per_base_device(
+        di, rt, sel.ps_row, sel.ps_lo, sel.ps_hi, sel.ps_trav, sel.ps_ntrav,
+        sel.st_selected, row_len, sel.fallback, cov_diff, wcap, emitcap)
+    if stage <= 6:
+        return _stage_out(fallback, trip_cap)
+    return (fallback, sel.mapped) + triples_cuda(sel, fallback, trip_cap)
+
+
+def select_torch(di, rt: RecordTables, f_rid, f_lo, f_hi, trav, n_trav,
+                 ing, n_ing, state_bad, row_ok, row_first_raw, row_len,
+                 cov_diff, trip_cap: int, stage: int):
+    """The plain version of ``select_and_record_device`` (its arguments,
+    ``trip_cap`` > 0), in torch ops."""
     dev = f_rid.device
     N = f_rid.shape[0]
     R = row_ok.shape[0]
     ecap, trcap, wcap, emitcap, lcap = buffer_caps(R)
-
-    def _stage_out(fallback):
-        z = torch.zeros(trip_cap, dtype=I32, device=dev)
-        return (fallback, torch.zeros(R, dtype=torch.bool, device=dev),
-                torch.full((trip_cap,), R + 1, dtype=I32, device=dev), z,
-                z.clone())
 
     n_ra = rt.ra_node.shape[0]
     ar_n = _arange(N, dev, I64)
@@ -318,7 +371,7 @@ def select_and_record_device(di, rt: RecordTables,
     alive = (f_rid >= 0) & row_ok[rid_c]
     fallback = _flag_rows_bit(R, state_bad & alive, rid_c, FB_CHAIN)
     if stage <= 0:                     # the floor: the inputs' plumbing
-        return _stage_out(fallback)
+        return _stage_out(fallback, trip_cap)
 
     has_path = (n_trav > 0) | (n_ing > 0)
 
@@ -368,7 +421,7 @@ def select_and_record_device(di, rt: RecordTables,
     ing_parent = torch.cat([torch.where(n_ing > 0, ing[ar_n, last_i, 0], 0),
                             torch.zeros(ecap, dtype=I32, device=dev)])
     if stage <= 1:                     # + encapsulated split, state table
-        return _stage_out(fallback)
+        return _stage_out(fallback, trip_cap)
 
     # ---- site-uniqueness (duplicate site within one state's own path) ------
     slot = _arange(TCAP, dev)[None, :]
@@ -382,7 +435,7 @@ def select_and_record_device(di, rt: RecordTables,
     dup_site = (own[:, 1:] == own[:, :-1]).any(dim=1) & ps_live
     fallback |= _flag_rows_bit(R, dup_site, ps_row, FB_DUP_SITE)
     if stage <= 2:                     # + duplicate-site check
-        return _stage_out(fallback)
+        return _stage_out(fallback, trip_cap)
 
     # ---- loci: traversed + traversing-derived + ancestors -------------------
     t_counts = torch.where(ps_live, ps_ntrav, 0)
@@ -430,7 +483,7 @@ def select_and_record_device(di, rt: RecordTables,
     fallback |= _flag_rows_bit(R, same_ss, ps_row[trip_state], FB_CONFLICT)
     LT = trip_state.shape[0]
     if stage <= 3:                     # + loci, ancestors, dedup sort
-        return _stage_out(fallback)
+        return _stage_out(fallback, trip_cap)
 
     # ---- base-site key rows per state ---------------------------------------
     b_base = rt.base_site[torch.div(trip_site - 5, 2, rounding_mode="floor")
@@ -491,7 +544,7 @@ def select_and_record_device(di, rt: RecordTables,
 
     mapped = _flag_rows(R, alive, rid_c)  # any live state => "mapped"
     if stage <= 4:                     # + key rows, class sort, pick
-        return _stage_out(fallback)
+        return _stage_out(fallback, trip_cap)
 
     # ---- preliminary triple-capacity check (BEFORE per-base recording, so
     # spilled rows can still fall back cleanly with zero device traces) ----
@@ -503,14 +556,14 @@ def select_and_record_device(di, rt: RecordTables,
         fallback |= _flag_rows_bit(R, over <= R, over.clamp(0, R - 1),
                                    FB_TRIPS)
     if stage <= 5:                     # + preliminary triple check
-        return _stage_out(fallback)
+        return _stage_out(fallback, trip_cap)
 
     # ---- per-base coverage (may add fallback rows; do it before triples) ---
     fallback = _record_per_base_device(
         di, rt, ps_row, ps_lo, ps_hi, ps_trav, ps_ntrav, st_selected,
         row_len, fallback, cov_diff, wcap, emitcap)
     if stage <= 6:                     # + per-base coverage (K9)
-        return _stage_out(fallback)
+        return _stage_out(fallback, trip_cap)
 
     # ---- triples of the chosen classes, compact prefix of the sort ----------
     t_sel = trip_keep & st_selected[trip_state] & (fallback[t_row] == 0)

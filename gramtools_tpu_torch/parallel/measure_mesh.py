@@ -40,7 +40,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-KERNELS = ("packed_rank", "replay", "walk", "wide_step", "locked_step")
+KERNELS = ("packed_rank", "replay", "walk", "wide_step", "locked_step",
+           "select")
 
 # Run in each checkout (one whose port carries its own index loader and
 # quasimap driver): its single-device engine through its quasimap_reads,

@@ -1112,6 +1112,251 @@ def test_fused_scan_submit_does_not_synchronise(cuda, monkeypatch):
 
 
 # --------------------------------------------------------------------------
+# the selection (K8)
+# --------------------------------------------------------------------------
+
+NESTED_PRGS = ["A[[A[CCC,C],T],G]TA", "A[T[TT,T]T,A[AT,]A]G[C,G]",
+               "T[A[C,G][C,G],]T"]
+
+
+def _nested_prg(rng, n_blocks=12):
+    """Nested and plain sites between random 6-12 bp stretches."""
+    parts = []
+    for b in range(n_blocks):
+        parts.append("".join(rng.choice(list("ACGT"), rng.randint(6, 13))))
+        parts.append(NESTED_PRGS[b % 3] if b % 2 == 0 else
+                     "[" + ",".join(rng.choice(list("ACGT"), 2)) + "]")
+    return "".join(parts)
+
+
+def _select_captured(kind, cuda, monkeypatch):
+    """The arguments of one fused buffer's select_and_record_device on
+    the card ("sites": the M. tuberculosis-density graph, 80 bp reads;
+    "nested": nested sites, short reads, wide steps to the end so rows
+    keep several states), and the graph's index."""
+    from gramtools_tpu_torch.mapping import search_log
+
+    rng = np.random.RandomState(21)
+    if kind == "sites":
+        idx, reads = _haplotype_reads(rng, 300)
+        k = 7
+    else:
+        idx = build_prg_index(PrgString(prg_string_to_ints(_nested_prg(rng))))
+        dna = idx.prg[(idx.prg >= 1) & (idx.prg <= 4)].astype(np.uint8)
+        reads = [dna[s:s + ln].copy() for s, ln in zip(
+            rng.randint(0, dna.size - 16, 120), rng.randint(5, 15, 120))]
+        k = 3
+        monkeypatch.setenv("GRAMTOOLS_TPU_NARROW", "0")
+    captured = {}
+    select = search_log.select_and_record_device
+
+    def capture(*args, **kwargs):
+        captured["args"], captured["kwargs"] = args, kwargs
+        return select(*args, **kwargs)
+
+    monkeypatch.setattr(search_log, "select_and_record_device", capture)
+    engine = LogBatchedEngine(idx, k, LogConfig(pool=4096, hits=1024),
+                              device=cuda)
+    first = first_raw_draws(np.asarray(RandomInclusiveInt(5).raw_block(
+        len(reads)), dtype=np.uint32))
+    engine.scan_submit(reads, build_kmer_index_vectorised(idx, k), k,
+                       QuasimapStats(), first_raws=first)[2][1].get()
+    monkeypatch.undo()
+    args = captured["args"]
+    return idx, list(args[2:13]), captured["kwargs"]["trip_cap"]
+
+
+def _select_random(seed, cuda, N=3000, R=500):
+    """Random well-formed selection inputs on a nested graph: states on
+    random rows (some dead), SA intervals of 1-4 rows, paths of up to
+    TCAP loci at the graph's sites with alleles 0..1, traversing paths of
+    0-2 sites, a few bad states and rows not ok, random first draws,
+    reads of 1-29 bases."""
+    rng = np.random.RandomState(seed)
+    idx = build_prg_index(PrgString(prg_string_to_ints(_nested_prg(rng))))
+    n_sites = RecordTables.build(idx, "cpu").anc_len.shape[0]
+    i32 = lambda a: torch.from_numpy(np.asarray(a, dtype=np.int32))
+    n = idx.fm.size
+    lo = rng.randint(0, n, N)
+    markers = lambda shape: 5 + 2 * rng.randint(0, n_sites, shape)
+    trav = np.stack([markers((N, TCAP)), rng.randint(0, 2, (N, TCAP))], -1)
+    ing = np.stack([markers((N, TCAP)), np.full((N, TCAP), -1)], -1)
+    n_trav = np.where(rng.rand(N) < 0.3, 0, rng.randint(0, TCAP + 1, N))
+    n_ing = np.where(rng.rand(N) < 0.6, 0, rng.randint(0, 3, N))
+    args = [i32(rng.randint(-1, R, N)), i32(lo),
+            i32(np.minimum(lo + rng.randint(0, 4, N), n - 1)), i32(trav),
+            i32(n_trav), i32(ing), i32(n_ing),
+            torch.from_numpy(rng.rand(N) < 0.05),
+            torch.from_numpy(rng.rand(R) < 0.9),
+            torch.from_numpy(rng.randint(0, 1 << 32, R, dtype=np.int64)),
+            i32(rng.randint(1, 30, R))]
+    return idx, [a.to(cuda) for a in args], 4 * R
+
+
+def _select_both(idx, args, trip_cap, stage=99):
+    """select_and_record_device on the card (K8's kernels) and on the CPU
+    (the plain version): ([outputs..., cov_diff], [...]), on the CPU."""
+    cuda = args[0].device
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        di = DeviceIndex.build(idx, device=dev)
+        rt = RecordTables.build(idx, dev)
+        cov = torch.zeros(rt.cov_size + 1, dtype=torch.int32, device=dev)
+        out = record.select_and_record_device(
+            di, rt, *(a.to(dev) for a in args), cov, trip_cap=trip_cap,
+            stage=stage)
+        outs.append([o.cpu() for o in out] + [cov.cpu()])
+    return outs
+
+
+SELECT_BUDGETS = {
+    "default": {}, "ecap2": dict(caps=dict(ecap=2)),
+    "trcap2": dict(caps=dict(trcap=2)), "lcap8": dict(caps=dict(lcap=8)),
+    "wcap8": dict(caps=dict(wcap=8)), "emitcap4": dict(caps=dict(emitcap=4)),
+    "kcap1": dict(kcap=1), "trip16": dict(trip_cap=16), "rng": dict(rng=True)}
+
+
+def _select_budget(name, monkeypatch, args, trip_cap):
+    """SELECT_BUDGETS[name] patched into the port (caps, KCAP), or the
+    inputs' trip_cap and first draws replaced; returns (args, trip_cap)."""
+    spec = SELECT_BUDGETS[name]
+    if "caps" in spec:
+        base = buffer_caps
+        over = spec["caps"]
+        keys = ("ecap", "trcap", "wcap", "emitcap", "lcap")
+        monkeypatch.setattr(record, "buffer_caps", lambda R: tuple(
+            over.get(k, v) for k, v in zip(keys, base(R))))
+    if "kcap" in spec:
+        monkeypatch.setattr(record, "KCAP", spec["kcap"])
+    if spec.get("rng"):
+        args = list(args)
+        raw = args[9].clone()
+        raw[::3] = (1 << 32) - 1
+        args[9] = raw
+    return args, spec.get("trip_cap", trip_cap)
+
+
+@pytest.mark.parametrize("budget", sorted(SELECT_BUDGETS))
+@pytest.mark.parametrize("kind", ["sites", "nested", "random"])
+def test_select_kernels_match_plain(cuda, monkeypatch, kind, budget):
+    """K8's kernels (csrc/select.cu, K9 between them) against the plain
+    version on the CPU: fallback, mapped, the whole triple arrays and
+    cov_diff bit for bit, on a fused buffer's own inputs and on random
+    well-formed ones, at every forced budget."""
+    if kind == "random":
+        idx, args, trip_cap = _select_random(3, cuda)
+    else:
+        idx, args, trip_cap = _select_captured(kind, cuda, monkeypatch)
+    args, trip_cap = _select_budget(budget, monkeypatch, args, trip_cap)
+    from gramtools_tpu_torch.ops import select
+
+    before = select.select_cuda.launches
+    got, want = _select_both(idx, args, trip_cap)
+    assert select.select_cuda.launches == before + 2
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), f"output {i}"
+    assert want[1].any()                            # rows mapped
+    if kind != "random" and budget == "default":    # triples, coverage
+        assert (want[2] <= args[8].shape[0]).any() and want[-1].any()
+
+
+@pytest.mark.parametrize("stage", [0, 1, 2, 3, 4, 5, 6, 99])
+@pytest.mark.parametrize("kind", ["sites", "random"])
+def test_select_kernels_each_stage(cuda, monkeypatch, kind, stage):
+    """Each profiling stage on the card equals the plain version at that
+    stage (a trip_cap below the lanes, so stage 5 checks)."""
+    if kind == "random":
+        idx, args, _ = _select_random(4, cuda)
+    else:
+        idx, args, _ = _select_captured(kind, cuda, monkeypatch)
+    got, want = _select_both(idx, args, 64, stage=stage)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), f"stage {stage}, output {i}"
+
+
+def test_select_kernels_on_a_small_grid(cuda, monkeypatch):
+    """Three blocks: every chunked scan and sort runs many chunks and
+    tiles a block."""
+    from gramtools_tpu_torch.ops import select
+
+    monkeypatch.setattr(select, "GRID_CAP", 3)
+    idx, args, trip_cap = _select_random(5, cuda)
+    got, want = _select_both(idx, args, trip_cap)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_select_repeated_launches_identical(cuda, monkeypatch):
+    """20 launches on the same inputs (atomics, races): equal outputs."""
+    idx, args, trip_cap = _select_captured("sites", cuda, monkeypatch)
+    di = DeviceIndex.build(idx, device=cuda)
+    rt = RecordTables.build(idx, cuda)
+    runs = []
+    for _ in range(20):
+        cov = torch.zeros(rt.cov_size + 1, dtype=torch.int32, device=cuda)
+        out = record.select_and_record_device(di, rt, *args, cov,
+                                              trip_cap=trip_cap)
+        runs.append([o.cpu() for o in out] + [cov.cpu()])
+    for run in runs[1:]:
+        for g, w in zip(run, runs[0]):
+            assert torch.equal(g, w)
+
+
+def test_select_does_not_synchronise(cuda, monkeypatch):
+    """select_and_record_device on CUDA (both launches and K9) enqueues
+    without a host synchronisation and never runs the plain version."""
+    idx, args, trip_cap = _select_captured("sites", cuda, monkeypatch)
+    di = DeviceIndex.build(idx, device=cuda)
+    rt = RecordTables.build(idx, cuda)
+    cov = torch.zeros(rt.cov_size + 1, dtype=torch.int32, device=cuda)
+    record.select_and_record_device(di, rt, *args, cov, trip_cap=trip_cap)
+    torch.cuda.synchronize()
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(record, "select_torch", plain)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = record.select_and_record_device(di, rt, *args, cov,
+                                              trip_cap=trip_cap)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert out[2].shape == (trip_cap,)
+
+
+def test_select_wrapper_checks_inputs(cuda):
+    from gramtools_tpu_torch.ops import select
+
+    idx, args, trip_cap = _select_random(6, cuda, N=200, R=50)
+    rt = RecordTables.build(idx, cuda)
+    sa = DeviceIndex.build(idx, device=cuda).sa
+    tables = [sa, rt.ra_node, rt.nt_site, rt.nt_allele, rt.anc_len,
+              rt.anc_site, rt.anc_allele, rt.base_site, rt.max_anc]
+    raw = args[:10]
+    ok = dict(ecap=64, lcap=64, trcap=64, kcap=12, trip_cap=trip_cap)
+    select.select_cuda(*tables, *raw, **ok)              # takes these
+    with pytest.raises(TypeError):
+        select.select_cuda(*tables, *([raw[0].long()] + raw[1:]), **ok)
+    with pytest.raises(TypeError):                       # first draws int64
+        select.select_cuda(*tables, *(raw[:9] + [raw[9].int()]), **ok)
+    with pytest.raises(ValueError):
+        select.select_cuda(*tables, *(raw[:1] + [raw[1][:-1]] + raw[2:]),
+                           **ok)
+    with pytest.raises(ValueError):                      # mixed devices
+        select.select_cuda(*tables, *(raw[:8] + [raw[8].cpu()] + raw[9:]),
+                           **ok)
+    with pytest.raises(ValueError):
+        select.select_cuda(*tables, *raw, **dict(ok, kcap=13))
+    with pytest.raises(ValueError):
+        select.select_cuda(*tables, *raw, **dict(ok, ecap=0))
+    with pytest.raises(ValueError):                      # CPU tensors
+        select.select_cuda(*(t.cpu() if torch.is_tensor(t) else t
+                             for t in tables), *(a.cpu() for a in raw), **ok)
+
+
+# --------------------------------------------------------------------------
 # the mesh and the index-sharded scan on the card
 # --------------------------------------------------------------------------
 
@@ -1226,16 +1471,21 @@ def _cards(n_min: int):
 def test_mesh_engine_across_cards_matches_one_card(cuda, monkeypatch,
                                                   tmp_path):
     """One shard per card: the 1-card engine's stats and coverage, the
-    tables resident once on every other card, and K1, K7 and K9 launched
-    on them."""
+    tables resident once on every other card, and the path's kernels
+    launched on them (K2 and K3, with K1's packed rank inside them; K7,
+    K8 and K9)."""
+    from gramtools_tpu_torch.ops import select
+
     cards = _cards(2)
     monkeypatch.setenv("GRAMTOOLS_TPU_RANK", "packed")
     monkeypatch.setenv("GRAMTOOLS_TPU_RETRY_MIN", "1")
-    before = (rank.packed_rank.launches, replay.replay.launches,
-              walk.per_base_cuda.launches)
+    counted = lambda: (wide_step.wide_steps.launches,
+                       locked_step.locked_tail.launches,
+                       replay.replay.launches, select.select_cuda.launches,
+                       walk.per_base_cuda.launches)
+    before = counted()
     got = _mesh_quasimap(cards, tmp_path, "cards")
-    after = (rank.packed_rank.launches, replay.replay.launches,
-             walk.per_base_cuda.launches)
+    after = counted()
     assert all(a > b for a, b in zip(after, before)), (before, after)
     want = _mesh_quasimap([cuda], tmp_path, "one")
     assert got[0].as_dict() == want[0].as_dict()
