@@ -60,8 +60,9 @@ this order, each printing one line or a few:
      sleep of the card so the host's enqueue does not show), its bound
      (the bytes its inputs need, read once, and its outputs, written
      once, over the HBM rate) and its share of the bound are printed;
-     so are K6's (the 2-bit read unpack, plain torch) device time and
-     byte bound on buffer 1's packed rows;
+     the plain 2-bit read unpack (``ops/packed_reads.unpack_reads2``)
+     refuses to run during the three buffers: K6 is decoded inside K2
+     and K3, so the buffer has no unpack op;
   1e. the profiling stages on buffer 1's kept inputs: K7 at stages 1
      (the chase), 2 (+ the seed gather) and 99 (+ the ops apply), each
      equal bit for bit to its twin at that stage and timed by queued
@@ -96,7 +97,9 @@ this order, each printing one line or a few:
      kernels': the global timer at each stage of tiles 0, T/2 and T-1,
      every tile's publish times and SM, the grid syncs counted), and each
      wide and hole-allocated step's hits and the most hit pairs a tile
-     holds;
+     holds; then K6, the 2-bit read decode in K2 and K3: the two
+     launches on the path's packed windows equal to them on the plain
+     unpack's rows, timed and traced beside them and beside the unpack;
   2. scan parity on one 4,096-read buffer: the flat result of the scan
      on CUDA with the packed rank, on CUDA with the dense rank (each
      must launch K2 and K3 once) and on the CPU in plain torch
@@ -129,12 +132,16 @@ this order, each printing one line or a few:
      host seconds of ``scan_submit`` and ``record_complete`` and the
      fallback share are printed (this one card cannot show copies
      between cards);
-  5b. the SA-range-sharded index: one 4,096-read buffer's scan with the
-     whole index split over 4 "idx" shards on the card (dense rank)
-     must equal the replicated scan and the engine's flat result; both
-     timed in turns (its locked phase runs the torch steps: the
-     gathers are injected); K10's calls, bytes, bound and device events
-     in one scan;
+  5b. the SA-range-sharded index (K10): one whole 20,000-read buffer's
+     scan (R = 30,720, the engine's phases, dense rank) with the index
+     split over 4 and over 3 "idx" shards on the card, K2 and K3 reading
+     the shards in place, must equal the replicated scan's flat result,
+     the engine's and the plain version's (the torch steps over the
+     shards' masked gathers: one run counts them, another is timed);
+     K10's launches (2 a scan, counted around one scan), its time by
+     queued events and traced (in a process of its own, ``--trace-k10``;
+     both marked windows or the phase fails) beside the replicated
+     dense-rank K2 and K3, its bound;
   5c. ``genotype --engine device --max_threads 2`` on the 4,000 parity
      reads (spawned workers, since CUDA is initialised) must write files
      byte-equal to phase 4's host engine run.
@@ -151,7 +158,11 @@ trace; K9's launch is one call of the whole per-base recorder, four
 kernels; K2's is one launch a buffer, every wide phase; K3 narrow's and
 K3 locked's are the same launch, one a buffer; K8's are its two
 launches a buffer, and its times (phase 1e) are the whole function's,
-K9 inside); the last is
+K9 inside; K6's are the K2 and K3 launches that decode packed reads, its
+time theirs on the packed windows, its plain time the unpack and the
+two launches on its rows; K10's (``sharded_index``) launches are phase
+5b's sharded scan's, its time the 4-shard K2 and K3, its plain time the
+torch gather scan's); the last is
 ``{"ok": true, "device": {...}}``. Any failed
 check raises, and the script exits non-zero; it also exits non-zero,
 printing no result, when no CUDA device is available. It imports no
@@ -175,17 +186,22 @@ REPO = Path(__file__).resolve().parent
 LIBS = ("packed_rank", "replay", "walk", "wide_step", "locked_step",
         "select")                                        # csrc/<name>.cu
 # each entry of the kernels line: its __global__ functions (trace names
-# read "(anonymous namespace)::<name>_kernel(...)"); K3's hole-allocated
-# and locked steps share one kernel and one launch on the path
+# read "(anonymous namespace)::<name>_kernel(...)", or "<name>_kernel<...>"
+# for an instance of a scan kernel's template); K3's hole-allocated and
+# locked steps share one kernel and one launch on the path
 KERNELS = {"packed_rank": ("packed_rank",), "replay": ("replay",),
            "per_base": ("per_base_init", "per_base_expand", "per_base_walk",
                         "per_base_apply"),
            "wide_step": ("wide_steps",), "narrow_step": ("locked_tail",),
-           "locked_step": ("locked_tail",), "select": ("select", "triples")}
+           "locked_step": ("locked_tail",), "select": ("select", "triples"),
+           "unpack": ("wide_steps", "locked_tail"),
+           "sharded_index": ("wide_steps", "locked_tail")}
 # the standalone K1 runs on no path since the scan kernels fold its rank
-# in; every other kernel must launch on each path
+# in; K6 (the 2-bit read decode, "unpack") runs inside K2 and K3; K10 (the
+# sharded tables, "sharded_index") only on the index-sharded path (phase
+# 5b); every other kernel must launch on each path
 PATH_KERNELS = ("replay", "per_base", "wide_step", "narrow_step",
-                "locked_step", "select")
+                "locked_step", "select", "unpack")
 LABEL = "per_base"        # the record_function around the per-base call
 # the profiling knobs: set, they change the main path's output files
 STAGE_KNOBS = ("GRAMTOOLS_TPU_REPLAY_STAGE", "GRAMTOOLS_TPU_RECORD_STAGE")
@@ -207,6 +223,12 @@ class SmokeConfig:
 
 def say(msg: str):
     print(msg, flush=True)
+
+
+def is_kernel(name: str, g: str) -> bool:
+    """Whether a trace's kernel ``name`` is the __global__ function
+    ``<g>_kernel`` (KERNELS), or an instance of it."""
+    return re.search(rf"::{g}_kernel[(<]", name) is not None
 
 
 def time_ms(fn, runs: int) -> float:
@@ -630,7 +652,8 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
                                                       QuasimapStats,
                                                       ReadBatch)
     from gramtools_tpu_torch.mapping.engine import LogBatchedEngine
-    from gramtools_tpu_torch.ops import locked_step, rank, replay, wide_step
+    from gramtools_tpu_torch.ops import (locked_step, packed_reads, rank,
+                                         replay, wide_step)
 
     os.environ["GRAMTOOLS_TPU_RANK"] = "packed"
     B = DEVICE_BUFFER_SIZE
@@ -653,16 +676,32 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
             return out
         return wrapper
 
+    def keep_scan(name, fn):
+        # the scan kernels' calls without their trailing ``tables`` (None
+        # on this path: the index is whole)
+        def wrapper(*args):
+            assert args[-1] is None, "the path's scan read sharded tables"
+            captured[name] = (args[:-1], {})
+            out = fn(*args)
+            captured[name + "_out"] = out
+            return out
+        return wrapper
+
     def keep_rank(blocks, rows, size):
         captured["packed_rank"].append((blocks, rows, size))
         return packed_rank_cuda(blocks, rows, size)
+
+    def refuse_unpack(*args, **kwargs):
+        raise AssertionError("the fused path ran unpack_reads2 (K6 is "
+                             "decoded inside K2 and K3)")
 
     packed_rank_cuda = rank.packed_rank_cuda
     locked_tail_cuda = locked_step.locked_tail_cuda
     wide_steps_cuda = wide_step.wide_steps_cuda
     per_base = record._record_per_base_device
     select = search_log.select_and_record_device
-    unpack = search_log.unpack_reads2
+    unpack = packed_reads.unpack_reads2
+    packed_reads.unpack_reads2 = refuse_unpack
     lines, per_buffer = [], []
     for b, start in enumerate(starts):
         timers0 = dict(engine.timers)
@@ -676,10 +715,10 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
             record.replay = keep("replay", replay.replay)
             record._record_per_base_device = keep("per_base", per_base)
             search_log.select_and_record_device = keep("select", select)
-            search_log.unpack_reads2 = keep("unpack", unpack)
             rank.packed_rank_cuda = keep_rank
-            locked_step.locked_tail_cuda = keep("locked", locked_tail_cuda)
-            wide_step.wide_steps_cuda = keep("wide", wide_steps_cuda)
+            locked_step.locked_tail_cuda = keep_scan("locked",
+                                                     locked_tail_cuda)
+            wide_step.wide_steps_cuda = keep_scan("wide", wide_steps_cuda)
             torch.cuda.set_sync_debug_mode("error")
             try:
                 token = engine.scan_submit(batch, kmer_index, cfg.kmer_size,
@@ -693,7 +732,6 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
                 record.replay = replay.replay
                 record._record_per_base_device = per_base
                 search_log.select_and_record_device = select
-                search_log.unpack_reads2 = unpack
                 rank.packed_rank_cuda = packed_rank_cuda
                 locked_step.locked_tail_cuda = locked_tail_cuda
                 wide_step.wide_steps_cuda = wide_steps_cuda
@@ -749,6 +787,7 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
                f"device busy {busy_ms:.1f} ms over {kernels} device events")
             + (" [sync debug mode 'error': no synchronisation]"
                if b == 1 else ""))
+    packed_reads.unpack_reads2 = unpack
     engine.flush_device_coverage()
     say(f"[phase 1d] fused engine, R={R} rows a buffer, phases "
         f"{sorted({s[1] for s in engine.dispatch_shapes})}: "
@@ -771,16 +810,15 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
         else:
             say(f"[phase 1d] trace: {len(found)} marked windows, not 3 "
                 f"({sum(MARK in n for _, _, n in timeline)} markers)")
-        # names read "(anonymous namespace)::packed_rank_kernel(...)"
         ours = {k: sum(ms for name, ms, _ in top
-                       if any(f"::{g}_kernel(" in name for g in KERNELS[k]))
+                       if any(is_kernel(name, g) for g in KERNELS[k]))
                 for k in KERNELS}
         for k in ("packed_rank", "replay", "wide_step", "locked_step",
                   "select"):
             if per_buffer[2][k]:
                 trace_ms[k] = ours[k] / per_buffer[2][k]
         k8_events = sum(n for name, _, n in top if any(
-            f"::{g}_kernel(" in name for g in KERNELS["select"]))
+            is_kernel(name, g) for g in KERNELS["select"]))
         if windows[0] is not None:
             trace_ms["per_base"] = windows[0][1]
         say(f"[phase 1d] trace of buffer 2 (device_trace, Chrome trace): "
@@ -797,7 +835,7 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
             f"the trace also holds the two per-base calls after the buffer, "
             f"left out of the busy time; by kernel, the mean of 2 calls: "
             + ", ".join(f"{g} " + "{:.4f} ms".format(sum(
-                ms for name, ms, _ in top if f"::{g}_kernel(" in name) / 2)
+                ms for name, ms, _ in top if is_kernel(name, g)) / 2)
                 for g in KERNELS["per_base"])
             + "); top kernels by device time: "
             + "; ".join(f"{name[:60]} {ms:.3f} ms x{n}"
@@ -847,41 +885,101 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
                          "gramtools_tpu/mapping/record_jax.py:714",
                          check_per_base(cfg, captured["per_base"], windows,
                                         sort_fn)))
-    check_unpack(cfg, captured["unpack"], work)
     return entries, captured
 
 
-def check_unpack(cfg: SmokeConfig, call, work: Path):
-    """K6, the 2-bit read unpack (plain torch, search_log.unpack_reads2),
-    on buffer 1's inputs: its device time by queued events and traced
-    once, beside its byte bound (the packed rows and row lengths read
-    once, the (steps, R) int32 bases written once)."""
+def check_k6(cfg: SmokeConfig, captured, work: Path, bound: float):
+    """K6, the 2-bit read decode inside K2 and K3, on buffer 1's inputs:
+    K2 and K3 on the path's packed windows equal (carry, flags, every
+    log record) to K2 and K3 on the plain unpack's rows
+    (``ops/packed_reads.unpack_reads2``, on the card, itself equal to its
+    CPU run); both pairs and the unpack timed by queued events and
+    traced once. Returns K6's entry of the kernels line: its time is the
+    two launches it runs in, on the packed windows; the plain version's,
+    the unpack and the two launches on its rows (the path before the
+    decode moved into the kernels); ``bound`` the two launches' byte
+    bound with the packed reads (K2's, K3 narrow's and K3 locked's)."""
     import torch
 
-    from gramtools_tpu_torch.mapping import search_log
+    from gramtools_tpu_torch.ops import locked_step, packed_reads, wide_step
 
-    args, kwargs = call
-    reads_p, row_len, steps, _ = args
-    assert not kwargs
-    fn = lambda: search_log.unpack_reads2(*args)
-    out = fn()
-    if not torch.equal(out.cpu(), search_log.unpack_reads2(
-            reads_p.cpu(), row_len.cpu(), *args[2:])):
+    (wargs, _), (targs, _) = captured["wide"], captured["locked"]
+    wreads, treads = wargs[1], targs[1]
+    if not (isinstance(wreads, packed_reads.PackedReads)
+            and isinstance(treads, packed_reads.PackedReads)):
+        raise AssertionError("the path's scan kernels did not get packed "
+                             "reads")
+    full = packed_reads.PackedReads(                 # the whole matrix
+        wreads.packed, wreads.row_len, wreads.kmer_size, wreads.steps)
+    unpack = lambda: full.unpack()
+    rows = unpack()
+    if not torch.equal(rows.cpu(), packed_reads.unpack_reads2(
+            full.packed.cpu(), full.row_len.cpu(), full.steps,
+            full.kmer_size)):
         raise AssertionError("unpack_reads2 on the card != on the CPU")
-    ms = time_ms(fn, cfg.timing_runs)
-    window = trace_each([fn], work / "trace_k6")[0]
-    nbytes = (reads_p.numel() * reads_p.element_size()
-              + row_len.numel() * row_len.element_size() + out.numel() * 4)
-    bound = bound_ms(nbytes)
-    say(f"[phase 1d] K6 unpack_reads2 (plain torch) on buffer 1: "
-        f"({reads_p.shape[0]}, {reads_p.shape[1]}) packed rows -> "
-        f"({steps}, {out.shape[1]}) bases, equal on the card and the CPU; "
-        f"{ms:.4f} ms by queued events, "
-        + ("not traced" if window is None else
-           f"{window[1]:.4f} ms device busy over {window[0]} device events "
-           f"traced")
-        + f"; bound {bound:.4f} ms ({nbytes} bytes), at "
-        f"{100 * bound / ms:.2f}% of it by events")
+    w_rows = rows[wreads.start:wreads.stop]
+    t_rows = rows[treads.start:treads.stop]
+    lp, le = wargs[5], wargs[6]
+
+    def pair(w, t, lp_, le_):
+        wide_step.wide_steps_cuda(wargs[0], w, *wargs[2:5], lp_, le_,
+                                  *wargs[7:])
+        return locked_step.locked_tail_cuda(targs[0], t, *targs[2:4], lp_,
+                                            le_, *targs[6:])
+
+    def run(w, t):
+        lp2, le2 = torch.full_like(lp, -7), torch.full_like(le, -7)
+        return tuple(pair(w, t, lp2, le2)) + (lp2, le2)
+
+    got = run(wreads, treads)
+    try:
+        err = _equal(got, run(w_rows, t_rows))
+    except AssertionError as e:
+        raise AssertionError(f"K2 and K3 on packed reads != on the "
+                             f"unpacked rows: {e}") from None
+    lp_t, le_t = torch.empty_like(lp), torch.empty_like(le)
+    packed_fn = lambda: pair(wreads, treads, lp_t, le_t)
+    rows_fn = lambda: pair(w_rows, t_rows, lp_t, le_t)
+
+    def plain_fn():
+        r = unpack()
+        return pair(r[wreads.start:wreads.stop], r[treads.start:treads.stop],
+                    lp_t, le_t)
+
+    m = {"max_abs_err": err, "ms": time_ms(packed_fn, cfg.timing_runs),
+         "plain_ms": time_ms(plain_fn, cfg.timing_runs),
+         "library_ms": None, "bound_ms": bound}
+    rows_ms = time_ms(rows_fn, cfg.timing_runs)
+    unpack_ms = time_ms(unpack, cfg.timing_runs)
+    windows = trace_each([packed_fn, rows_fn, unpack], work / "trace_k6")
+    ubytes = (full.packed.numel() + full.row_len.numel() * 4
+              + rows.numel() * 4)
+    shown = lambda w: ("not traced" if w is None else
+                       f"{w[1]:.4f} ms busy over {w[0]} device events")
+    say(f"[phase 1f] K6 (the 2-bit read decode inside K2 and K3) on buffer "
+        f"1: K2 on the packed window of steps [{wreads.start}, "
+        f"{wreads.stop}) and K3 on [{treads.start}, {treads.stop}) of "
+        f"({full.packed.shape[0]}, {full.packed.shape[1]}) packed rows == "
+        f"K2 and K3 on unpack_reads2's rows (carry, flags, every log "
+        f"record); the unpack equal on the card and the CPU. Queued events: "
+        f"K2 + K3 on packed reads {m['ms']:.4f} ms, on the unpacked rows "
+        f"{rows_ms:.4f} ms (the decode adds {m['ms'] - rows_ms:+.4f} ms), "
+        f"the unpack alone {unpack_ms:.4f} ms (bound "
+        f"{bound_ms(ubytes):.4f} ms, {ubytes} bytes), unpack + K2 + K3 "
+        f"{m['plain_ms']:.4f} ms; traced: packed {shown(windows[0])}, rows "
+        f"{shown(windows[1])}, unpack {shown(windows[2])}; the two "
+        f"launches' bound with packed reads {m['bound_ms']:.4f} ms, at "
+        f"{100 * m['bound_ms'] / m['ms']:.2f}% of it by events; "
+        f"launches a buffer "
+        f"{[c['unpack'] for c in captured['per_buffer']]}")
+    trace_ms = dict(captured["trace_ms"],
+                    unpack=None if windows[0] is None else windows[0][1])
+    entry = kernel_entry("unpack", "gramtools_tpu_torch/csrc/scan_common.cuh",
+                         "gramtools_tpu/mapping/search_jax_log.py:622", m,
+                         captured["per_buffer"], trace_ms)
+    entry.update(rows_ms=rows_ms, unpack_ms=unpack_ms,
+                 unpack_bound_ms=bound_ms(ubytes))
+    return entry
 
 
 def kernel_entry(name, source, replaces, m, per_buffer, trace_ms):
@@ -923,12 +1021,13 @@ def k1_wide_steps(*args, **kwargs):
 
 
 def k1_narrow_tail(di, reads, carry, log_base, lp, le, hits, wide_budget,
-                   blocks=None, lock=True, narrow=None):
+                   blocks=None, lock=True, narrow=None, tables=None):
     """The narrow phase as the path ran it before K3 narrow (the torch
     steps, their occ gathers through K1), then the locked phase as one
     launch of the K3 kernel."""
     from gramtools_tpu_torch.ops import locked_step
 
+    assert tables is None
     if narrow is None:
         return locked_step.locked_tail(di, reads, carry, log_base, lp, le,
                                        hits, wide_budget, blocks, lock)
@@ -1043,6 +1142,18 @@ def log_bytes(di, le, log_base: int, records: int, row: int) -> int:
     return records * 8 + 8 * int(hit.sum()) + 2 * row * int(outcome.sum())
 
 
+def rows_and_bytes(reads):
+    """(int32 base rows, the bytes a launch reads of them): a
+    PackedReads window's are its packed rows and the row lengths."""
+    from gramtools_tpu_torch.ops.packed_reads import PackedReads
+
+    if isinstance(reads, PackedReads):
+        S, R = reads.shape
+        first, last = reads.start // 4, (reads.stop - 1) // 4
+        return reads.unpack(), (last - first + 1) * R * (S > 0) + 4 * R
+    return reads, reads.numel() * 4
+
+
 def wide_bytes(args, le) -> int:
     """K2's bytes for these inputs (a lower bound): the reads rows, the
     incoming carry and flags read once, the final carry and flags and
@@ -1056,6 +1167,7 @@ def wide_bytes(args, le) -> int:
     from gramtools_tpu_torch.ops import rank
 
     di, reads, carry, phases, log_base, _, _, blocks = args
+    reads, reads_bytes = rows_and_bytes(reads)
     S, R = reads.shape
     B = di.n_outcomes
     row = 16 if blocks is None else 32
@@ -1074,7 +1186,7 @@ def wide_bytes(args, le) -> int:
             base += g * B
         off += n_steps
     records = sum(n * g for n, _, g in phases) * B
-    return (S * R * 4 + carry[0].shape[0] * 16 + 2 * (R + 1)
+    return (reads_bytes + carry[0].shape[0] * 16 + 2 * (R + 1)
             + phases[-1][1] * 16 + 2 * row * active
             + log_bytes(di, le, log_base, records, row))
 
@@ -1114,6 +1226,7 @@ def wide_cnts(args):
     from gramtools_tpu_torch.ops import rank
 
     di, reads, carry, phases, log_base, _, _, blocks = args
+    reads = rows_and_bytes(reads)[0]
     R = reads.shape[1]
     occ_rows = (dense_occ_rows(di) if blocks is None
                 else rank.plain_packed_rows(blocks, di.size))
@@ -1140,6 +1253,7 @@ def narrow_cnts(args):
 
     di, reads, carry, log_base, _, _, _, _, blocks, _, narrow = args
     n, pool, g, w = narrow
+    reads = rows_and_bytes(reads)[0]
     R = reads.shape[1]
     occ_rows = (dense_occ_rows(di) if blocks is None
                 else rank.plain_packed_rows(blocks, di.size))
@@ -1167,6 +1281,7 @@ def tail_bytes(args, le) -> int:
     from gramtools_tpu_torch.ops import rank
 
     di, reads, carry, log_base, _, _, G, W, blocks, lock, narrow = args
+    reads, reads_bytes = rows_and_bytes(reads)
     S, R = reads.shape
     B = di.n_outcomes
     row = 16 if blocks is None else 32
@@ -1196,7 +1311,7 @@ def tail_bytes(args, le) -> int:
             c, _ = step(c, r, base)
             base += g * B
     records = base - log_base
-    return (S * R * 4 + carry[0].shape[0] * 16 + 2 * (R + 1)
+    return (reads_bytes + carry[0].shape[0] * 16 + 2 * (R + 1)
             + c[0].shape[0] * 16 + 4 * live + 2 * row * wide
             + log_bytes(di, le, log_base, records, row))
 
@@ -1302,7 +1417,8 @@ def check_wide(cfg: SmokeConfig, captured, work: Path, probe):
     lib = probe_run(probe, "wide_stamps", "wide_step", wide_step,
                     lambda: run(wide_step.wide_steps_cuda, phases), got)
     syncs = read_syncs(lib.wide_steps_syncs)
-    say(f"[phase 1f] K2 kernel: wide_steps_kernel {attrs['registers']} "
+    say(f"[phase 1f] K2 kernel: wide_steps_kernel (the path's instance: "
+        f"packed reads, whole tables) {attrs['registers']} "
         f"registers a thread, {attrs['local_bytes']} local (spill) bytes, "
         f"{attrs['shared_bytes']} static shared bytes a block; ptxas: "
         f"{ptxas_line(probe, 'wide_ptxas', 'wide_steps_kernel')}; grid "
@@ -1562,7 +1678,8 @@ def phase_locked(cfg: SmokeConfig, captured, args, probe):
         f"kernel at "
         + ("-" if trace is None else f"{100 * floor_ms / trace:.2f}%")
         + f" of it traced; byte bound {m['bound_ms']:.4f} ms; "
-        f"locked_tail_kernel {attrs['registers']} registers a thread, "
+        f"locked_tail_kernel (the path's instance: packed reads, whole "
+        f"tables) {attrs['registers']} registers a thread, "
         f"{attrs['local_bytes']} local (spill) bytes, "
         f"{attrs['shared_bytes']} static shared bytes a block; ptxas: "
         f"{ptxas_line(probe, 'tail_ptxas', 'locked_tail_kernel')}")
@@ -1584,12 +1701,15 @@ def phase_scan_kernels(cfg: SmokeConfig, captured, work: Path, probe):
     csrc/locked_step.cu), each held to the path's own call and to its
     plain version, at the path's and at forced budgets (check_wide,
     check_narrow, phase_locked). Returns their entries of the kernels
-    line (K2, K3 narrow, K3 locked)."""
+    line (K2, K3 narrow, K3 locked, and K6: check_k6)."""
     if any(c["packed_rank"] for c in captured["per_buffer"]):
         raise AssertionError("a phase 1d buffer launched the standalone K1")
     wide = check_wide(cfg, captured, work, probe)
     narrow, locked_args = check_narrow(cfg, captured, work, probe)
-    return [wide, narrow, phase_locked(cfg, captured, locked_args, probe)]
+    locked = phase_locked(cfg, captured, locked_args, probe)
+    k6 = check_k6(cfg, captured, work, sum(e["bound_ms"] for e in (
+        wide, narrow, locked)))
+    return [wide, narrow, locked, k6]
 
 
 REPLAY_STAGES = (1, 2, 99)       # the chase; + the seed gather; + the apply
@@ -2148,13 +2268,20 @@ def probe_lib(probe, name: str = "probes"):
     return _PROBES[name][0]
 
 
+PATH_LAYOUT = "LayoutILb1ELb0E"
+"""The mangled template arguments of the scan kernels' path instance,
+Layout<true, false> (csrc/scan_common.cuh: packed reads, whole tables)."""
+
+
 def ptxas_line(probe, name: str, kernel: str) -> str:
-    """The ptxas report of ``kernel`` in the -Xptxas -v build ``name``:
-    registers, spill stores and loads, static shared bytes."""
+    """The ptxas report of ``kernel``'s path instance (PATH_LAYOUT) in
+    the -Xptxas -v build ``name``: registers, spill stores and loads,
+    static shared bytes."""
     text = probe_wait(probe, name)
     lines = text.splitlines()
     at = [k for k, line in enumerate(lines)
-          if "Compiling entry function" in line and kernel in line]
+          if "Compiling entry function" in line and kernel in line
+          and PATH_LAYOUT in line]
     if not at:
         return f"no ptxas report for {kernel}"
     rep = " ".join(line.split("ptxas info    :")[-1].strip()
@@ -2488,24 +2615,28 @@ def genotype_args(gram: Path, out: Path, reads: Path, engine: str):
 
 
 class _Count:
-    """A launch count kept under another attribute of a wrapper."""
+    """A launch count kept under another attribute of a wrapper, or
+    the sum of that attribute over several wrappers."""
 
-    def __init__(self, fn, attr: str):
-        self.fn, self.attr = fn, attr
+    def __init__(self, fns, attr: str):
+        self.fns = fns if isinstance(fns, tuple) else (fns,)
+        self.attr = attr
 
     @property
     def launches(self) -> int:
-        return getattr(self.fn, self.attr)
+        return sum(getattr(fn, self.attr) for fn in self.fns)
 
     @launches.setter
     def launches(self, value: int):
-        setattr(self.fn, self.attr, value)
+        for fn in self.fns:
+            setattr(fn, self.attr, value)
 
 
 def _counted():
     """The kernels' launch counts, by name: each wrapper's ``launches``;
     K3 narrow's is the narrow-tail launches that ran hole-allocated
-    steps."""
+    steps; K6's the K2 and K3 launches that decoded packed reads, K10's
+    those that read sharded tables."""
     from gramtools_tpu_torch.ops import (locked_step, rank, replay, select,
                                          walk, wide_step)
 
@@ -2514,7 +2645,12 @@ def _counted():
             "wide_step": wide_step.wide_steps,
             "narrow_step": _Count(locked_step.locked_tail, "narrow_launches"),
             "locked_step": locked_step.locked_tail,
-            "select": select.select_cuda}
+            "select": select.select_cuda,
+            "unpack": _Count((wide_step.wide_steps, locked_step.locked_tail),
+                             "packed_launches"),
+            "sharded_index": _Count((wide_step.wide_steps,
+                                     locked_step.locked_tail),
+                                    "sharded_launches")}
 
 
 class TimerLines(logging.Handler):
@@ -2719,17 +2855,28 @@ def phase_mesh(cfg: SmokeConfig, idx, kmer_index, work: Path, device):
 
 def phase_index_sharded(cfg: SmokeConfig, idx, kmer_index, reads, device,
                         work: Path):
-    """Phase 5b: one buffer's scan with the whole index split over 4
-    SA-range shards on the card (dense rank), against the replicated
-    scan's flat result; then K10, the masked shard gathers, in one scan:
-    their calls, bytes and bound (a counting run) and their device
-    events and time (a traced run, each gather between markers)."""
+    """Phase 5b, the index-sharded path (K10): one whole buffer's scan
+    (DEVICE_BUFFER_SIZE reads, the engine's own phases, dense rank) with
+    the index split over 4 and over 3 SA-range shards on the card, K2
+    and K3 reading the shards in place; its flat result equal to the
+    replicated scan's, the engine's and the plain version's (the torch
+    steps over the masked gathers of build_tables' shards: one run
+    counts its gathers' calls and bytes, one uncounted run is timed);
+    K10's launches (2 a scan: the counts set to 0 just before one
+    sharded scan and read just after), its time by queued events and
+    traced (trace_k10_apart; the phase fails without both marked
+    windows) beside the replicated dense-rank K2 and K3's, its bound
+    (the two launches' bytes). Returns K10's entry of the kernels
+    line."""
     import numpy as np
     import torch
 
-    from gramtools_tpu_torch.mapping.quasimap import QuasimapStats, ReadBatch
+    from gramtools_tpu_torch.mapping.quasimap import (DEVICE_BUFFER_SIZE,
+                                                      QuasimapStats,
+                                                      ReadBatch)
     from gramtools_tpu_torch.mapping.engine import LogBatchedEngine
     from gramtools_tpu_torch.mapping.search_log import log_search_phases
+    from gramtools_tpu_torch.ops import locked_step, sharded, wide_step
     from gramtools_tpu_torch.parallel import sharded_index
     from gramtools_tpu_torch.parallel.mesh import Mesh
 
@@ -2738,77 +2885,208 @@ def phase_index_sharded(cfg: SmokeConfig, idx, kmer_index, reads, device,
         engine = LogBatchedEngine(idx, cfg.kmer_size, device=device)
     finally:
         os.environ["GRAMTOOLS_TPU_RANK"] = "packed"
-    batch = ReadBatch(np.ascontiguousarray(reads[:cfg.scan_reads]))
+    batch = ReadBatch(np.ascontiguousarray(reads[:DEVICE_BUFFER_SIZE]))
     token = engine.scan_submit(batch, kmer_index, cfg.kmer_size,
                                QuasimapStats())
     (pending, phases, R), carry, reads_T = token[2], token[5], token[6]
     engine_flat = pending.get()
-    n_idx = 4
-    k10 = {"mode": None, "calls": 0, "bytes": 0}
-    factory = sharded_index._sharded_gather
+    args = lambda: (torch.from_numpy(reads_T).to(device),
+                    tuple(torch.from_numpy(a).to(device) for a in carry))
+    counted = _counted()["sharded_index"]
+    calls = {}
+    path = (wide_step.wide_steps_cuda, locked_step.locked_tail_cuda)
+
+    def capture(tag):
+        def keep(name, fn):
+            def wrapper(*a):
+                calls[tag, name] = a
+                return fn(*a)
+            return wrapper
+        wide_step.wide_steps_cuda = keep("wide", path[0])
+        locked_step.locked_tail_cuda = keep("tail", path[1])
+
+    def flat(out):
+        (rid, lo, hi, pref, ovf), (lp, le) = out
+        return torch.cat([rid, lo, hi, pref, ovf.to(torch.int32), lp,
+                          le]).cpu().numpy()
+
+    flats, secs, launched = {}, {}, {}
+    runs = [("replicated", lambda rt, c: log_search_phases(
+        engine.di, rt, c, phases, R))]
+    for n_idx in (4, 3):
+        runs.append((f"{n_idx} shards", sharded_index.
+                     make_index_sharded_log_search(
+                         Mesh([device] * n_idx, ("idx",)), engine.di,
+                         engine.cfg, R, phases=phases)))
+    for name, run in runs:
+        a = args()
+        capture(name)
+        counted.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            out = run(*a)
+            torch.cuda.synchronize()
+        finally:
+            wide_step.wide_steps_cuda, locked_step.locked_tail_cuda = path
+        secs[name] = time.perf_counter() - t0
+        launched[name] = counted.launches
+        flats[name] = flat(out)
+        calls[name, "le"] = out[1][1]
+    if launched["replicated"] or launched["4 shards"] != 2 or \
+            launched["3 shards"] != 2:
+        raise AssertionError(f"K10 launches {launched}: 2 a sharded scan, "
+                             f"none in the replicated one")
+    # the plain version: the torch steps over the shards' masked gathers,
+    # once counting its gathers (torch.unique synchronises: not timed),
+    # then once timed, uncounted
+    di = engine.di
+    tables = sharded.build_tables(
+        di.occ.cpu().numpy(), di.narrow_tab.cpu().numpy(), di.size,
+        [device] * 4, device)
+    plain = lambda rt, c: log_search_phases(
+        di, rt, c, phases, R, occ_rows=tables.occ_rows(),
+        narrow_rows=tables.narrow_rows())
+    k10 = {"calls": 0, "bytes": 0}
+    factory = sharded._sharded_gather
 
     def watched(parts, rows_per_shard, lo, hi, home):
         gather = factory(parts, rows_per_shard, lo, hi, home)
         row_bytes = parts[0][0][0].numel() * parts[0][0].element_size()
 
         def run(rows):
-            if k10["mode"] == "count":      # synchronises: not timed
-                k10["calls"] += 1
-                k10["bytes"] += rows.numel() * (rows.element_size()
-                                                + row_bytes) + row_bytes * \
-                    torch.unique(rows.clamp(lo, hi)).numel()
-            if k10["mode"] == "mark":
-                return marked(gather)(rows)
+            k10["calls"] += 1
+            k10["bytes"] += rows.numel() * (rows.element_size()
+                                            + row_bytes) + row_bytes * \
+                torch.unique(rows.clamp(lo, hi)).numel()
             return gather(rows)
         return run
 
-    sharded_index._sharded_gather = watched
+    sharded._sharded_gather = watched
     try:
-        sharded = sharded_index.make_index_sharded_log_search(
-            Mesh([device] * n_idx, ("idx",)), engine.di, engine.cfg, R,
-            phases=phases)
+        flats["plain, counted"] = flat(plain(*args()))
     finally:
-        sharded_index._sharded_gather = factory
-    replicated = lambda rt, c: log_search_phases(engine.di, rt, c, phases, R)
-    flats, secs = {}, {}
-    for name, run in (("replicated", replicated), ("sharded", sharded),
-                      ("sharded again", sharded),
-                      ("replicated again", replicated)):
-        args = (torch.from_numpy(reads_T).to(device),
-                tuple(torch.from_numpy(a).to(device) for a in carry))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        (rid, lo, hi, pref, ovf), (lp, le) = run(*args)
-        flats[name] = torch.cat([rid, lo, hi, pref, ovf.to(torch.int32), lp,
-                                 le]).cpu().numpy()
-        secs[name] = time.perf_counter() - t0
-    for name, flat in flats.items():
-        if not np.array_equal(flat, engine_flat):
-            raise AssertionError(f"{name} scan != the engine's flat result "
-                                 f"({int((flat != engine_flat).sum())} words)")
-    say(f"[phase 5b] index of {engine.di.size} rows in {n_idx} SA-range "
-        f"shards on {device}, dense rank: flat result of {len(token[1])} rows"
-        f" (R={R}, {engine_flat.size} int32) equal to the replicated scan's "
-        f"and the engine's; scan + fetch, host clock, s: "
-        + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
-    args = lambda: (torch.from_numpy(reads_T).to(device),
-                    tuple(torch.from_numpy(a).to(device) for a in carry))
-    k10["mode"] = "count"
-    sharded(*args())
-    k10["mode"] = "mark"
+        sharded._sharded_gather = factory
     a = args()
     torch.cuda.synchronize()
-    _, _, _, timeline = _profile_device(lambda: sharded(*a), work / "trace_k10")
-    k10["mode"] = None
-    windows = marked_windows(timeline)
-    say(f"[phase 5b] K10 (the masked shard gathers of "
-        f"parallel/sharded_index.py, {n_idx} shards) in one sharded scan: "
-        f"{k10['calls']} gather calls, {k10['bytes']} bytes, bound "
-        f"{bound_ms(k10['bytes']):.4f} ms; traced: {len(windows)} marked "
-        f"gathers, {sum(w[0] for w in windows)} device events, "
-        f"{sum(w[1] for w in windows):.4f} ms device busy (the trace: "
-        f"{len(timeline)} device events, "
-        f"{sum(MARK in n for _, _, n in timeline)} markers)")
+    t0 = time.perf_counter()
+    out = plain(*a)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    flats["plain"] = flat(out)
+    for name, got in flats.items():
+        if not np.array_equal(got, engine_flat):
+            raise AssertionError(f"{name} scan != the engine's flat result "
+                                 f"({int((got != engine_flat).sum())} words)")
+    # the two launches of the 4-shard scan and of the replicated one, timed
+    # in turns and traced
+    saved = {"le": calls["replicated", "le"], **{
+        tag: (calls[tag, "wide"], calls[tag, "tail"])
+        for tag in ("4 shards", "replicated", "3 shards")}}
+    lp_t = torch.empty_like(saved["le"])
+    pairs = k10_pairs(saved, lp_t, torch.empty_like(lp_t))
+    ms = {tag: time_ms(pairs[tag], cfg.timing_runs)
+          for tag in ("4 shards", "replicated", "3 shards")}
+    ms["4 shards again"] = time_ms(pairs["4 shards"], cfg.timing_runs)
+    windows = trace_k10_apart(saved, work)
+    rep_w, rep_t = calls["replicated", "wide"], calls["replicated", "tail"]
+    le_rep = calls["replicated", "le"]
+    nbytes = (wide_bytes(rep_w[:8], le_rep) + tail_bytes(rep_t[:11], le_rep))
+    shown = lambda w: f"{w[1]:.4f} ms busy over {w[0]} device events"
+    say(f"[phase 5b] index of {engine.di.size} rows in 4 and in 3 SA-range "
+        f"shards on {device} (rows a shard {-(-(engine.di.size + 1) // 4)}"
+        f" and {-(-(engine.di.size + 1) // 3)}), dense rank, phases "
+        f"{phases}: flat result of {len(token[1])} reads (R={R}, "
+        f"{engine_flat.size} int32) equal to the replicated scan's, the "
+        f"engine's and the plain version's (the torch steps over the "
+        f"masked gathers: {k10['calls']} gather calls, {k10['bytes']} "
+        f"bytes, bound {bound_ms(k10['bytes']):.4f} ms, in a counting "
+        f"run; {plain_s:.3f} s host clock, one uncounted run); K10 "
+        f"launches (K2 and K3 reading the shards) {launched}; scan + "
+        f"fetch, host clock, s: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
+        + "; K2 + K3 by queued events, ms: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+        + f"; traced: 4 shards {shown(windows[0])}, replicated dense "
+        f"{shown(windows[1])}; bound {bound_ms(nbytes):.4f} ms ({nbytes} "
+        f"bytes, the replicated launches'), the 4-shard launches at "
+        f"{100 * bound_ms(nbytes) / ms['4 shards']:.2f}% of it by events")
+    m = {"max_abs_err": 0, "ms": ms["4 shards"], "plain_ms": 1000 * plain_s,
+         "bound_ms": bound_ms(nbytes), "library_ms": None}
+    entry = kernel_entry(
+        "sharded_index", "gramtools_tpu_torch/csrc/scan_common.cuh",
+        "gramtools_tpu/parallel/sharded_index.py:98", m,
+        [{"sharded_index": launched["4 shards"]}],
+        {"sharded_index": windows[0][1]})
+    entry.update(launches=launched["4 shards"], path="index-sharded (5b)",
+                 replicated_ms=ms["replicated"], three_shards_ms=ms[
+                     "3 shards"])
+    return entry
+
+
+def k10_pairs(saved, lp_t, le_t):
+    """{tag: a phase 5b scan's two launches (K2, K3) on their captured
+    arguments ``saved[tag]``, into lp_t and le_t}."""
+    from gramtools_tpu_torch.ops import locked_step, wide_step
+
+    def pair(w, t):
+        return lambda: (wide_step.wide_steps_cuda(*w[:5], lp_t, le_t, *w[7:]),
+                        locked_step.locked_tail_cuda(*t[:4], lp_t, le_t,
+                                                     *t[6:]))
+    return {tag: pair(*v) for tag, v in saved.items() if tag != "le"}
+
+
+def trace_k10_apart(saved, work: Path):
+    """Phase 5b's trace, in a process of its own (``--trace-k10``): the
+    4-shard scan's two launches and the replicated scan's, each between
+    markers, on the arguments phase 5b captured (``saved``, written to
+    a file).
+    Late in a long run, a short trace in this process loses most of the
+    card's kernel records (PERF.md, PR 12), while the first traces of a
+    process keep them all. Returns the two windows; raises unless the
+    trace shows both."""
+    import torch
+
+    path = work / "k10_pairs.pt"
+    torch.save({k: saved[k] for k in ("le", "4 shards", "replicated")},
+               path)
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"),
+                           "--trace-k10", str(path)], capture_output=True,
+                          text=True, timeout=600)
+    path.unlink()
+    if proc.returncode != 0:
+        raise RuntimeError(f"phase 5b's trace process failed (exit "
+                           f"{proc.returncode}):\n{proc.stderr[-3000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    if len(got["windows"]) != 2:
+        raise AssertionError(
+            f"phase 5b's trace shows {len(got['windows'])} marked windows, "
+            f"not 2 ({got['events']} device events, {got['markers']} "
+            f"markers)")
+    return got["windows"]
+
+
+def trace_k10(saved: Path) -> dict:
+    """The body of ``--trace-k10``: trace_k10_apart's trace of the
+    launches saved in ``saved``. Returns its marked windows and its
+    device events and markers."""
+    import torch
+
+    args = torch.load(saved, weights_only=False)
+    lp_t = torch.empty_like(args["le"])
+    le_t = torch.empty_like(lp_t)
+    pairs = k10_pairs(args, lp_t, le_t)
+
+    def traced():
+        pairs["4 shards"]()
+        torch.cuda.synchronize()
+        marked(pairs["4 shards"])()
+        marked(pairs["replicated"])()
+
+    busy, _, _, timeline = _profile_device(traced, saved.parent / "trace_k10")
+    return {"windows": marked_windows(timeline) if busy is not None else [],
+            "events": len(timeline),
+            "markers": sum(MARK in n for _, _, n in timeline)}
 
 
 def phase_pool(work: Path):
@@ -2887,10 +3165,12 @@ def run(cfg: SmokeConfig, device, scan_only: bool = False) -> dict:
         launches = phase_e2e(cfg, work)
         phase_parity(work)
         mesh_launches = phase_mesh(cfg, idx, kmer_index, work, device)
-        phase_index_sharded(cfg, idx, kmer_index, reads, device, work)
+        k10 = phase_index_sharded(cfg, idx, kmer_index, reads, device, work)
         for entry in entries:
             entry["launches"] = launches[entry["name"]]
             entry["launches_mesh"] = mesh_launches[entry["name"]]
+        k10["launches_mesh"] = mesh_launches["sharded_index"]
+        entries.append(k10)
         phase_pool(work)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "gramtools_tpu"))
@@ -2925,6 +3205,9 @@ def main() -> int:
         say(f"[done] phases 0, 1, 1d and 1f (--scan-only) passed in "
             f"{time.perf_counter() - t0:.1f} s; the other phases not run")
         print(json.dumps(result), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--trace-k10"] and len(sys.argv) == 3:
+        print(json.dumps(trace_k10(Path(sys.argv[2]))), flush=True)
         return 0
     if sys.argv[1:]:
         print(f"usage: {sys.argv[0]} [--scan-only]", file=sys.stderr)

@@ -10,7 +10,13 @@
 // gathers (gramtools_tpu/ops/rank.py::_rank_kernel, K1; packed_rank.cuh).
 // In eager PyTorch one narrow step is ~200 launches; at 150 bp reads and k
 // = 10 the tail is 8 hole-allocated and 130 slot-locked steps of a
-// 144-step scan. Here the whole tail is one launch.
+// 144-step scan. Here the whole tail is one launch. Like the wide launch
+// (wide_step.cu) it decodes packed reads where it loads a base (K6: the
+// tail starts at a step offset that need not be a multiple of 4) and reads
+// sharded occ and narrow tables from their owner shards in place (K10;
+// the L2 prefetch of the next step's narrow word is kept for a peer's
+// shard too: a hint, which cannot fault; whether it helps across NVLink is
+// not measured).
 //
 // The carry (read_id, lo, hi, pref) lives in ``carry`` (2, 4, C), C >=
 // every pool size; the inputs are never written. ``ovf`` (R + 1,) gets the
@@ -196,8 +202,8 @@ struct Params {
   const int* pref_in;
   const unsigned char* ovf_in;   // (R + 1,)
   int n_in;
-  const int* reads;           // (n_narrow + n_locked, R)
-  int R;
+  Reads rd;                   // (n_narrow + n_locked, R) bases, int32 or
+  int R;                      // packed
   int n_narrow;               // hole-allocated steps
   int Nn;                     // their pool (0: no narrow range), hit and
                               // wide budgets
@@ -290,10 +296,11 @@ struct NarrowShared {
 // hole rank to hrank; the tile's candidates are staged at their rank in
 // stage. wd, cd, pd: the step's wide and candidate count words and payload
 // descriptors.
+template <class L>
 __device__ void narrow_tile(const Params& p, NarrowShared& ts, Carry cur,
                             int lim, int n_place, const int4* stage_in,
                             int* hrank, Carry nxt, int4* stage, int4* cand,
-                            const int* row, int N, int G, int W,
+                            int N, int G, int W,
                             int log_base, int tile, int T,
                             unsigned long long* wd, unsigned long long* cd,
                             unsigned long long* pd, int sent, int step) {
@@ -314,9 +321,8 @@ __device__ void narrow_tile(const Params& p, NarrowShared& ts, Carry cur,
   const bool valid = rid >= 0;
   const int rc = clampi(rid, 0, R - 1);
   const bool single = lo == hi;
-  const int base = valid ? __ldg(row + rc) : 0;
-  const int t = valid && single
-      ? __ldg(p.x.narrow_tab + clampi(lo, 0, p.x.n - 1)) : 0;
+  const int base = valid ? read_base<L>(p.rd, step, rc) : 0;
+  const int t = valid && single ? __ldg(narrow_at<L>(p.x, lo)) : 0;
   const bool active = valid && base > 0;
   const bool wide = active && !single;
   NSTAMP(9, 0);
@@ -328,7 +334,7 @@ __device__ void narrow_tile(const Params& p, NarrowShared& ts, Carry cur,
   if (x == kLead)
     publish_count(wd + tile, tile == 0 ? kInclusive : kAggregate, n_wide);
   LF w = {0, 0, 0, 0};
-  if (wide) w = lf_extend(p.x, lo, hi, base, sent);
+  if (wide) w = lf_extend<L>(p.x, lo, hi, base, sent);
   NSTAMP(1, 0);
   int w_rank = 0;
   if (n_wide > 0) {
@@ -376,7 +382,7 @@ __device__ void narrow_tile(const Params& p, NarrowShared& ts, Carry cur,
   const int n_pairs = tile_cnt * B;
   const bool heavy = n_pairs > kLead / pair_team(n_pairs);
   Pair early{};
-  if (heavy) early = early_pair(p.x, ts.pt, n_pairs);
+  if (heavy) early = early_pair<L>(p.x, ts.pt, n_pairs);
   if (x >= kLead) {
     int last = -1;
     for (int k = 0; k < kWarps; ++k) last = max(last, ts.warp_last[k]);
@@ -393,7 +399,7 @@ __device__ void narrow_tile(const Params& p, NarrowShared& ts, Carry cur,
     }
     NSTAMP(3, kLead);
   } else if (n_pairs > 0 && !heavy) {
-    early = early_pair(p.x, ts.pt, n_pairs);
+    early = early_pair<L>(p.x, ts.pt, n_pairs);
   }
   __syncthreads();
   NSTAMP(4, 0);
@@ -415,7 +421,7 @@ __device__ void narrow_tile(const Params& p, NarrowShared& ts, Carry cur,
   const int g_end = tile_cnt > G - e.sum ? G : e.sum + tile_cnt;
   const int n_ok = g_end > e.sum ? (g_end - e.sum) * B : 0;
   const int k0 = n_ok > 0 ? e.sum * B : 0;
-  const int n_c = staged_pairs(p.x, ts.pt, ts.rid, n_pairs, n_ok,
+  const int n_c = staged_pairs<L>(p.x, ts.pt, ts.rid, n_pairs, n_ok,
                                log_base + k0, early, heavy, p.lp, p.le,
                                cand + k0);
   NSTAMP(5, 0);
@@ -447,9 +453,10 @@ __device__ void narrow_tile(const Params& p, NarrowShared& ts, Carry cur,
 // The hole-allocated range (_resize_pool from n_in to Nn, then the
 // steps), from buffer 0 to buffer n_narrow & 1; the grid is synchronised
 // before it.
+template <class L>
 __device__ void narrow_range(const Params& p, const Scratch& sc,
-                             NarrowShared& ts, const int* row, int log_base,
-                             int sent, int place, cg::grid_group& grid) {
+                             NarrowShared& ts, int log_base, int sent,
+                             int place, cg::grid_group& grid) {
   const int R = p.R, N = p.Nn, G = p.Gn, HB = G * p.x.B, T = n_tiles(N);
   const int tid = blockIdx.x * kThreads + threadIdx.x;
   const int nthreads = gridDim.x * kThreads;
@@ -475,10 +482,11 @@ __device__ void narrow_range(const Params& p, const Scratch& sc,
     unsigned long long* wd = sc.nwords + (size_t)step * 2 * T;
     unsigned long long* pd = sc.ndescs + (size_t)step * T * kDescWords;
     for (int tile = place; tile < T; tile += gridDim.x)
-      narrow_tile(p, ts, carry_at(p.carry, step & 1, p.C), lim, n_place,
-                  stage_in, sc.hrank, carry_at(p.carry, (step + 1) & 1, p.C),
-                  stage, sc.cand, row, N, G, p.Wn, log_base, tile, T, wd,
-                  wd + T, pd, sent, step);
+      narrow_tile<L>(p, ts, carry_at(p.carry, step & 1, p.C), lim,
+                     n_place, stage_in, sc.hrank,
+                     carry_at(p.carry, (step + 1) & 1, p.C), stage, sc.cand,
+                     N, G, p.Wn, log_base, tile, T, wd, wd + T, pd, sent,
+                     step);
     grid_sync(grid, 0);
 #ifdef K3_STAMPS
     for (int tile = place; tile < T; tile += gridDim.x) NSTAMP(8, 0);
@@ -490,7 +498,6 @@ __device__ void narrow_range(const Params& p, const Scratch& sc,
     n_place = min(n_cand, room);
     stage_in = stage;
     lim = N;
-    row += R;
     log_base += HB;
   }
   if (p.n_narrow > 0) last_step_flags();
@@ -576,10 +583,10 @@ __device__ __forceinline__ void commit_pair(const Params& p, TileShared& ts,
 
 // One slot-locked step (port of _build_narrow_step(locked=True)) of tile
 // ``tile``, its carry at ``h`` (indexed by thread), with wide and hit
-// descriptors wd, hd of the step.
+// descriptors wd, hd of the step; its bases are the launch's step ``rs``.
+template <class L>
 __device__ void locked_tile(const Params& p, TileShared& ts, Carry h,
-                            int step, int tile,
-                            const int* row, int log_base,
+                            int step, int tile, int rs, int log_base,
                             unsigned long long* wd, unsigned long long* hd,
                             int sent) {
   const int R = p.R, B = p.x.B, G = p.G, T = n_tiles(R);
@@ -597,9 +604,8 @@ __device__ void locked_tile(const Params& p, TileShared& ts, Carry h,
   // (a): the base and the narrow word load together
   const bool valid = rid >= 0;
   const bool single = lo == hi;
-  const int base = valid ? __ldg(row + i) : 0;
-  const int t = valid && single
-      ? __ldg(p.x.narrow_tab + clampi(lo, 0, p.x.n - 1)) : 0;
+  const int base = valid ? read_base<L>(p.rd, rs, i) : 0;
+  const int t = valid && single ? __ldg(narrow_at<L>(p.x, lo)) : 0;
   const bool active = valid && base > 0;
   const bool wide = active && !single;
   if (active && single && (t >> 24) == 5) {   // its pairs' outcome bounds
@@ -630,7 +636,7 @@ __device__ void locked_tile(const Params& p, TileShared& ts, Carry h,
   // (b)
   LF w = {0, 0, 0, 0};
   const bool cov_wide = wide && w_rank < p.W;
-  if (cov_wide) w = lf_extend(p.x, lo, hi, base, sent);
+  if (cov_wide) w = lf_extend<L>(p.x, lo, hi, base, sent);
   const bool spill_w = wide && !cov_wide;
   const int sym = t >> 24, val = t & 0xFFFFFF;
   const bool ok = single ? sym == base : w.nlo <= w.nhi;
@@ -674,7 +680,7 @@ __device__ void locked_tile(const Params& p, TileShared& ts, Carry h,
     }
     STAMP(3, kLead);
   } else if (n_pairs > 0) {
-    early = tile_pair(p.x, ts.pt, x / kTeam, x % kTeam, kTeam,
+    early = tile_pair<L>(p.x, ts.pt, x / kTeam, x % kTeam, kTeam,
                       x / kTeam < n_pairs);
   }
   STAMP(7, 0);
@@ -693,7 +699,7 @@ __device__ void locked_tile(const Params& p, TileShared& ts, Carry h,
       commit_pair(p, ts, early, k0 + x / kTeam);
     for (int q0 = kEarlyPairs; q0 < n_ok; q0 += kThreads / kTeam) {
       const int q = q0 + x / kTeam;
-      const Pair r = tile_pair(p.x, ts.pt, q, x % kTeam, kTeam, q < n_ok);
+      const Pair r = tile_pair<L>(p.x, ts.pt, q, x % kTeam, kTeam, q < n_ok);
       if (lead_lane && q < n_ok) commit_pair(p, ts, r, k0 + q);
     }
     // the empty hit records, by the tile that closes the step
@@ -722,9 +728,8 @@ __device__ void locked_tile(const Params& p, TileShared& ts, Carry h,
     if (born) h.pref[x] = ts.nb_pref[x];
     if (conflict || spill_w || spilled) p.ovf[i] = 1;
     if (step + 1 < p.n_locked) {
-      prefetch_l2(row + R + i);
-      if (nrid >= 0 && nlo == nhi)
-        prefetch_l2(p.x.narrow_tab + clampi(nlo, 0, p.x.n - 1));
+      prefetch_l2(read_addr<L>(p.rd, rs + 1, i));
+      if (nrid >= 0 && nlo == nhi) prefetch_l2(narrow_at<L>(p.x, nlo));
     }
   }
   STAMP(6, 0);
@@ -733,8 +738,9 @@ __device__ void locked_tile(const Params& p, TileShared& ts, Carry h,
 // The slot-locked range: the carry in buffer ``buf`` on entry, in buffer
 // buf ^ (n_locked & 1) on exit; its descriptors zeroed at the launch's
 // start.
+template <class L>
 __device__ void locked_range(const Params& p, const Scratch& sc, int buf,
-                             const int* row, int log_base, int place) {
+                             int rs, int log_base, int place) {
   __shared__ int own[kOwnTiles][4][kThreads];
   __shared__ TileShared ts;
   const int R = p.R, T = n_tiles(R), x = threadIdx.x;
@@ -765,10 +771,9 @@ __device__ void locked_range(const Params& p, const Scratch& sc, int buf,
     unsigned long long* hd = sc.ldescs + (size_t)s * T * kDescWords;
     j = 0;
     for (int tile = place; tile < T; tile += gridDim.x, ++j) {
-      locked_tile(p, ts, home(j, tile), s, tile, row, log_base, wd, hd,
+      locked_tile<L>(p, ts, home(j, tile), s, tile, rs + s, log_base, wd, hd,
                   sent);
     }
-    row += R;
     log_base += p.G * p.x.B;
   }
   j = 0;
@@ -784,6 +789,7 @@ __device__ void locked_range(const Params& p, const Scratch& sc, int buf,
   }
 }
 
+template <class L>
 __global__ void __launch_bounds__(kThreads)
 locked_tail_kernel(const Params p) {
   cg::grid_group grid = cg::this_grid();
@@ -817,16 +823,14 @@ locked_tail_kernel(const Params p) {
   const int slot = sm_slot(sc.sm_cnt);
   grid_sync(grid, 0);
   const int place = sm_place(sc.sm_cnt, slot);
-  int buf = 0, n_cur = p.n_in, log_base = p.log_base;
-  const int* row = p.reads;
+  int buf = 0, n_cur = p.n_in, log_base = p.log_base, rs = 0;
 
   // ---- the hole-allocated steps (_resize_pool folded into the first) ----
   if (p.Nn > 0) {
     if (p.n_narrow > 0) {
-      narrow_range(p, sc, ns, row, log_base, __ldg(p.x.sentinel_row), place,
-                   grid);
+      narrow_range<L>(p, sc, ns, log_base, __ldg(p.x.sentinel_row), place, grid);
       buf = p.n_narrow & 1;
-      row += (size_t)p.n_narrow * R;
+      rs = p.n_narrow;
       log_base += p.n_narrow * p.Gn * B;
     } else {
       resize(carry_at(p.carry, 0, C), n_cur, p.Nn, R, p.ovf);
@@ -845,11 +849,19 @@ locked_tail_kernel(const Params p) {
 
   // ---- the slot-locked steps: no grid sync ---------------------------------
   grid_sync(grid, 1);
-  locked_range(p, sc, buf, row, log_base, place);
+  locked_range<L>(p, sc, buf, rs, log_base, place);
 }
 
-// co-resident blocks of the kernel on each device, queried once
-int g_max_blocks[kMaxDevices];
+// the kernel's instance for layout_slot(packed, sharded)
+using Kernel = void (*)(const Params);
+const Kernel kKernels[4] = {
+    locked_tail_kernel<Layout<false, false>>,
+    locked_tail_kernel<Layout<false, true>>,
+    locked_tail_kernel<Layout<true, false>>,
+    locked_tail_kernel<Layout<true, true>>};
+
+// co-resident blocks of each instance on each device, queried once
+int g_max_blocks[4][kMaxDevices];
 
 }  // namespace
 
@@ -858,11 +870,13 @@ extern "C" long long locked_tail_scratch(int C, int Kn, int n_narrow, int Nn,
   return scratch_ints(C, Kn, n_narrow, Nn, n_locked, R);
 }
 
-// The grid the launch will use for C slots: at most the blocks co-resident
-// on the current device (queried once a device), no more than the largest
+// The grid a launch of the instance for packed or int32 reads and sharded
+// or whole tables will use for C slots: at most the blocks co-resident on
+// the current device (queried once a device), no more than the largest
 // pool's tiles. Returns -(CUDA error) on failure.
-extern "C" int locked_tail_grid(int C) {
-  return coop_grid(locked_tail_kernel, g_max_blocks, n_tiles(C));
+extern "C" int locked_tail_grid(int C, int packed, int sharded) {
+  const int slot = layout_slot(packed, sharded);
+  return coop_grid(kKernels[slot], g_max_blocks[slot], n_tiles(C));
 }
 
 #ifdef K3_STAMPS
@@ -886,11 +900,13 @@ extern "C" int locked_tail_stamps(void* host, int narrow) {
 }
 #endif
 
-// The kernel's registers a thread, local (spill) bytes a thread and
-// static shared bytes a block, into out[0:3]; returns the CUDA error.
-extern "C" int locked_tail_attrs(int* out) {
+// The registers a thread, local (spill) bytes a thread and static shared
+// bytes a block of the kernel's instance for packed or int32 reads and
+// sharded or whole tables, into out[0:3]; returns the CUDA error.
+extern "C" int locked_tail_attrs(int* out, int packed, int sharded) {
   cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(&a, locked_tail_kernel);
+  const cudaError_t err = cudaFuncGetAttributes(
+      &a, kKernels[layout_slot(packed, sharded)]);
   if (err != cudaSuccess) return (int)err;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
@@ -901,17 +917,27 @@ extern "C" int locked_tail_attrs(int* out) {
 extern "C" int locked_tail(
     const void* rid_in, const void* lo_in, const void* hi_in,
     const void* pref_in, const void* ovf_in, int n_in,
-    const void* reads, int R, int n_narrow, int Nn, int Gn, int Wn, int lock,
-    int n_locked, int G, int W,
-    const void* narrow_tab, int n, const void* occ, const void* blocks,
+    const void* reads, const void* packed, const void* row_len, int k,
+    int total, int step0, int R, int n_narrow, int Nn, int Gn, int Wn,
+    int lock, int n_locked, int G, int W,
+    const void* const* narrow_tab, int nt_rps, int n,
+    const void* const* occ, int n_shards, int occ_rps, const void* blocks,
     const void* sym_start, const void* sentinel_row,
     const void* mrl, int n_mrl, const void* out_lo, const void* out_hi,
     int L, int B, int log_base, void* lp, void* le,
     void* carry, int C, void* ovf, void* scratch, int grid, void* stream) {
+  if (n_shards < 1 || n_shards > kMaxShards)
+    return (int)cudaErrorInvalidValue;
   Params p;
-  p.x.narrow_tab = static_cast<const int*>(narrow_tab);
+  for (int s = 0; s < kMaxShards; ++s) {
+    const bool in = s < n_shards;
+    p.x.narrow_tab[s] = in ? static_cast<const int*>(narrow_tab[s]) : nullptr;
+    p.x.occ[s] = in && occ != nullptr ? static_cast<const int4*>(occ[s])
+                                      : nullptr;
+  }
+  p.x.occ_rps = occ_rps;
+  p.x.nt_rps = nt_rps;
   p.x.n = n;
-  p.x.occ = static_cast<const int4*>(occ);
   p.x.blocks = static_cast<const uint4*>(blocks);
   p.x.sym_start = static_cast<const int*>(sym_start);
   p.x.sentinel_row = static_cast<const int*>(sentinel_row);
@@ -927,7 +953,9 @@ extern "C" int locked_tail(
   p.pref_in = static_cast<const int*>(pref_in);
   p.ovf_in = static_cast<const unsigned char*>(ovf_in);
   p.n_in = n_in;
-  p.reads = static_cast<const int*>(reads);
+  p.rd = Reads{static_cast<const int*>(reads),
+               static_cast<const unsigned char*>(packed),
+               static_cast<const int*>(row_len), k, total, step0, R};
   p.R = R;
   p.n_narrow = n_narrow;
   p.Nn = Nn;
@@ -946,7 +974,8 @@ extern "C" int locked_tail(
   p.scratch = static_cast<int*>(scratch);
   void* args[] = {&p};
   const cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)locked_tail_kernel, dim3(grid), dim3(kThreads), args, 0,
+      (const void*)kKernels[layout_slot(packed != nullptr, n_shards > 1)],
+      dim3(grid), dim3(kThreads), args, 0,
       reinterpret_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

@@ -8,7 +8,13 @@
 // places on distinct SMs) and takes them in increasing order. What they
 // share:
 //   * the index tables (Index) and the occ-row fetch, from the dense
-//     (n + 1, 4) table or through K1's per-row count (packed_rank.cuh);
+//     (n + 1, 4) table, whole or in SA-range shards on the cards of a mesh
+//     row (K10), or through K1's per-row count (packed_rank.cuh);
+//   * the read matrix (Reads): int32 base rows, or the 2-bit packed rows
+//     decoded where a base is loaded (K6);
+//   * Layout: each kernel is built in four instances, for int32 or packed
+//     rows and whole or sharded tables, so that an instance carries only
+//     the loads its launch makes;
 //   * lf_extend: the LF extension of [lo, hi] by one base and the marker
 //     counts at both ends (scan_steps._lf_extend);
 //   * block_scan: a block's exclusive scan with warp shuffles;
@@ -108,11 +114,24 @@ __device__ __forceinline__ void zero_syncs() {
 #endif
 }
 
-// the DeviceIndex tables a step reads
+// the DeviceIndex tables a step reads. The dense occ table and the narrow
+// table may be split by SA range into n_shards shards (parallel/
+// sharded_index.py, K10): shard s holds rows [s * rps, (s + 1) * rps), each
+// on its card of the mesh row, read in place (a peer's over NVLink); every
+// row is owned by exactly one shard and the padding rows past n are never
+// addressed, so one load equals the JAX package's masked gather of every
+// shard and the psum over them. Only a Layout<*, true> instance reads the
+// shards; the others read each table whole, from its first pointer.
+constexpr int kMaxShards = 8;
+
 struct Index {
-  const int* narrow_tab;      // (n,), or a stub the wide step never reads
+  const int* narrow_tab[kMaxShards];  // (n,) in shards of nt_rps rows, or a
+                                      // stub the wide step never reads
   int n;
-  const int4* occ;            // dense (n + 1, 4), or null
+  const int4* occ[kMaxShards];        // dense (n + 1, 4) in shards of
+                                      // occ_rps rows, or null
+  int occ_rps;
+  int nt_rps;
   const uint4* blocks;        // packed records, or null
   const int* sym_start;       // (>= 5,)
   const int* sentinel_row;    // ()
@@ -123,6 +142,99 @@ struct Index {
   int L;
   int B;
 };
+
+// a[s] of a kernel parameter's shard array, by selects (a dynamic index
+// would copy the parameters to local memory)
+template <class T>
+__device__ __forceinline__ T shard_of(T const (&a)[kMaxShards], int s) {
+  T v = a[0];
+#pragma unroll
+  for (int i = 1; i < kMaxShards; ++i)
+    if (s == i) v = a[i];
+  return v;
+}
+
+// What a kernel instance is compiled for: packed or int32 read rows,
+// sharded or whole tables. The wrappers launch the instance their
+// arguments need, so the path's build (packed reads, whole tables) carries
+// neither the int32-row load nor the owner-shard selects.
+template <bool Packed, bool Sharded>
+struct Layout {
+  static constexpr bool kPacked = Packed;
+  static constexpr bool kSharded = Sharded;
+};
+
+// the index of Layout<packed, sharded> among a kernel's four instances
+__host__ __device__ constexpr int layout_slot(bool packed, bool sharded) {
+  return (packed ? 2 : 0) + (sharded ? 1 : 0);
+}
+
+// the address of row r (in range) of a table, in shards of rps rows where
+// the layout is sharded, else whole in a[0]
+template <class L, class T>
+__device__ __forceinline__ const T* shard_row(T const* const (&a)[kMaxShards],
+                                              int rps, int r) {
+  if constexpr (!L::kSharded) {
+    return a[0] + r;
+  } else {
+    const int s = r / rps;
+    return shard_of(a, s) + (r - s * rps);
+  }
+}
+
+// dense occ row r, clamped to [0, n] as the gather clamps it
+template <class L>
+__device__ __forceinline__ int4 occ_row(const Index& x, int r) {
+  return __ldg(shard_row<L>(x.occ, x.occ_rps, r < 0 ? 0
+                            : (r > x.n ? x.n : r)));
+}
+
+// the address of narrow-table row r, clamped to [0, n - 1]
+template <class L>
+__device__ __forceinline__ const int* narrow_at(const Index& x, int r) {
+  return shard_row<L>(x.narrow_tab, x.nt_rps,
+                      r < 0 ? 0 : (r > x.n - 1 ? x.n - 1 : r));
+}
+
+// The read matrix a launch steps through: int32 base rows (steps, R), or
+// the 2-bit packed rows (ceil(total / 4), R) uint8, 4 bases a byte along
+// the step axis (code = base - 1), decoded where a base is loaded (K6,
+// gramtools_tpu/mapping/search_jax_log.py::_unpack_reads2): global step g
+// = step0 + s of read rc has base ((byte >> 2 (g & 3)) & 3) + 1 while g <
+// clamp(row_len[rc] - k, 0, total), else 0 (inactive).
+struct Reads {
+  const int* rows;               // (steps, R) int32 (Layout<false, *>)
+  const unsigned char* packed;   // (ceil(total / 4), R) uint8 (<true, *>)
+  const int* row_len;            // (R,) int32, with packed
+  int k;                         // kmer size
+  int total;                     // the packed matrix's steps
+  int step0;                     // the launch's first step in it
+  int R;
+};
+
+// the base of read rc (in [0, R)) at the launch's step s
+template <class L>
+__device__ __forceinline__ int read_base(const Reads& r, int s, int rc) {
+  if constexpr (!L::kPacked) {
+    return __ldg(r.rows + (size_t)s * r.R + rc);
+  } else {
+    const int g = r.step0 + s;                // < total: both loads at once
+    const unsigned b = __ldg(r.packed + (size_t)(g >> 2) * r.R + rc);
+    const int len = __ldg(r.row_len + rc) - r.k;
+    const int body = len < 0 ? 0 : (len > r.total ? r.total : len);
+    return g < body ? (int)((b >> (2 * (g & 3))) & 3u) + 1 : 0;
+  }
+}
+
+// the address read_base loads the base of read rc at step s from
+template <class L>
+__device__ __forceinline__ const void* read_addr(const Reads& r, int s,
+                                                 int rc) {
+  if constexpr (!L::kPacked)
+    return r.rows + (size_t)s * r.R + rc;
+  else
+    return r.packed + (size_t)((r.step0 + s) >> 2) * r.R + rc;
+}
 
 // one buffer of the double-buffered carry: four fields of ``stride`` ints
 struct Carry {
@@ -208,17 +320,20 @@ struct LF {
 // (channel base, the sum of the four channels) of occ row r: what
 // lf_extend reads of a row (from the packed records, two nibble masks a
 // code word)
+template <class L>
 __device__ __forceinline__ int2 occ_chan_dna(const Index& x, int r, int base) {
   if (x.blocks != nullptr)
     return packed_rank_dev::rank_chan_dna(x.blocks, r, x.n, base);
-  const int4 v = __ldg(x.occ + clampi(r, 0, x.n));
+  const int4 v = occ_row<L>(x, r);
   return make_int2(chan(v, base), v.x + v.y + v.z + v.w);
 }
 
+template <class L>
 __device__ __forceinline__ LF lf_extend(const Index& x, int lo, int hi,
                                         int base, int sent) {
   const int hi1 = add_wrap(hi, 1);
-  const int2 rl = occ_chan_dna(x, lo, base), rh = occ_chan_dna(x, hi1, base);
+  const int2 rl = occ_chan_dna<L>(x, lo, base);
+  const int2 rh = occ_chan_dna<L>(x, hi1, base);
   const int first = __ldg(x.sym_start + clampi(base, 0, 4));
   LF out;
   out.nlo = first + rl.x;
@@ -522,12 +637,13 @@ __device__ __forceinline__ int pair_team(int n_pairs) {
 // over the team); a dense table's row is one load. A c outside 1-4 (a lane
 // without a pair) is 0 and loads nothing. Every lane of the warp calls it
 // together.
+template <class L>
 __device__ __forceinline__ int team_chan(const Index& x, int r, int c, int v,
                                          int team) {
   using namespace packed_rank_dev;
   const bool dna = c >= 1 && c <= 4;
   if (x.blocks == nullptr)
-    return dna ? chan(__ldg(x.occ + clampi(r, 0, x.n)), c) : 0;
+    return dna ? chan(occ_row<L>(x, r), c) : 0;
   unsigned n = 0;
   int ck = 0;
   if (dna) {                 // loads not behind the offset: one round trip
@@ -552,6 +668,7 @@ __device__ __forceinline__ int team_chan(const Index& x, int r, int c, int v,
 // own hit index, so the tile's start is not needed), both outcome bounds
 // together, and the newborn's LF by the owner's base. Every lane of the
 // warp calls it together; ``live`` is false for a lane without a pair.
+template <class L>
 __device__ __forceinline__ Pair tile_pair(const Index& x, const PairTile& ts,
                                           int q, int v, int team, bool live) {
   const int B = x.B;
@@ -575,8 +692,8 @@ __device__ __forceinline__ Pair tile_pair(const Index& x, const PairTile& ts,
   }
   const bool rows = j_lo >= 0;
   const int jb = rows ? ts.base[r.s] : 0;
-  const int cl = team_chan(x, rows ? j_lo : 0, jb, v, team);
-  const int ch = team_chan(x, rows ? j_hi1 : 0, jb, v, team);
+  const int cl = team_chan<L>(x, rows ? j_lo : 0, jb, v, team);
+  const int ch = team_chan<L>(x, rows ? j_hi1 : 0, jb, v, team);
   if (rows) {
     const int f = ts.first[clampi(jb, 0, 4)];
     r.lo = f + cl;
@@ -590,11 +707,12 @@ __device__ __forceinline__ Pair tile_pair(const Index& x, const PairTile& ts,
 // pair needs only the tile's own prefix): pair x / team of n_pairs (the
 // tile's pairs before the budget cuts them). Every thread of a warp calls
 // it together.
+template <class L>
 __device__ __forceinline__ Pair early_pair(const Index& x, const PairTile& ts,
                                            int n_pairs) {
   const int team = pair_team(n_pairs);
   const int q = threadIdx.x / team;
-  return tile_pair(x, ts, q, threadIdx.x % team, team, q < n_pairs);
+  return tile_pair<L>(x, ts, q, threadIdx.x % team, team, q < n_pairs);
 }
 
 // The tile's pairs q < n_ok, pair q of log record base + q (the tile's
@@ -606,6 +724,7 @@ __device__ __forceinline__ Pair early_pair(const Index& x, const PairTile& ts,
 // n_pairs >= n_ok, for every thread (``early_all``) or for the threads
 // below kLead, the look-back warp working its own now. Returns the tile's
 // candidates. Every thread of the block calls it.
+template <class L>
 __device__ int staged_pairs(const Index& x, const PairTile& ts,
                             const int* rid, int n_pairs, int n_ok, int base,
                             Pair early, bool early_all, int* lp, int* le,
@@ -619,7 +738,7 @@ __device__ int staged_pairs(const Index& x, const PairTile& ts,
     const bool live = q < n_ok;
     Pair r = early;
     if (q0 > 0 || (!early_all && threadIdx.x >= kLead))
-      r = tile_pair(x, ts, q, v, team, live);
+      r = tile_pair<L>(x, ts, q, v, team, live);
     const bool lead = live && v == 0;
     if (lead) {
       lp[base + q] = ts.pref[r.s];

@@ -8,7 +8,14 @@
 // kernels), together with the ops/prefix.py::mm_cumsum prefix sums of each
 // step and its packed-rank occ gathers (gramtools_tpu/ops/rank.py::
 // _rank_kernel, K1; packed_rank.cuh). In eager PyTorch one wide step is
-// ~200 launches; here the 6 wide steps of a buffer are one launch.
+// ~200 launches; here the 6 wide steps of a buffer are one launch. It also
+// takes the place of two more XLA functions (scan_common.cuh): the fused
+// program's 2-bit read unpack (search_jax_log.py::_unpack_reads2, K6),
+// each base decoded where it is loaded from the packed rows, so the
+// unpacked (steps, R) int32 matrix is never written; and, on the
+// index-sharded path, the masked shard gathers and their psum
+// (gramtools_tpu/parallel/sharded_index.py, K10), each dense occ row read
+// from its owner shard in place, on another card over NVLink.
 //
 // A step's output is survivors then newborns then empty slots: a survivor
 // of keep rank r goes to slot r, the newborn candidate of rank c (in (hit,
@@ -127,7 +134,7 @@ struct Params {
   const int* pref_in;
   const unsigned char* ovf_in;   // (R + 1,)
   int n_in;
-  const int* reads;           // (sum of steps, R)
+  Reads rd;                   // (sum of steps, R) bases, int32 or packed
   int R;
   int n_phases;
   int steps[kMaxPhases];
@@ -194,9 +201,10 @@ struct WideShared {
 // One tile of one wide step (port of _build_log_step) over N slots: its
 // survivors into nxt, its candidates staged at their rank; pd, cd the
 // step's payload descriptors and candidate count words.
+template <class L>
 __device__ void wide_tile(const Params& p, WideShared& ts, const VCarry& v,
-                          Carry nxt, int4* stage, int4* cand, const int* row,
-                          int N, int G, int log_base, int tile, int T,
+                          Carry nxt, int4* stage, int4* cand, int N, int G,
+                          int log_base, int tile, int T,
                           unsigned long long* pd, unsigned long long* cd,
                           int sent, int step) {
   const int R = p.R, B = p.x.B, x = threadIdx.x;
@@ -209,14 +217,14 @@ __device__ void wide_tile(const Params& p, WideShared& ts, const VCarry& v,
   const int rid = c.x, lo = c.y, hi = c.z, pref = c.w;
   const bool valid = rid >= 0;
   const int rc = clampi(rid, 0, R - 1);
-  const int base = valid ? __ldg(row + rc) : 0;
+  const int base = valid ? read_base<L>(p.rd, step, rc) : 0;
   const bool active = valid && base > 0;
   WSTAMP(9, 0);
   WPUB0(3);
   int klo = lo, khi = hi, mlo = 0, cnt = 0;
   bool alive = false;
   if (active) {
-    const LF lf = lf_extend(p.x, lo, hi, base, sent);
+    const LF lf = lf_extend<L>(p.x, lo, hi, base, sent);
     klo = lf.nlo;
     khi = lf.nhi;
     mlo = lf.mlo;
@@ -261,7 +269,8 @@ __device__ void wide_tile(const Params& p, WideShared& ts, const VCarry& v,
     }
   }
   Pair early{};
-  if (x < kLead ? n_pairs > 0 : heavy) early = early_pair(p.x, ts.pt, n_pairs);
+  if (x < kLead ? n_pairs > 0 : heavy)
+    early = early_pair<L>(p.x, ts.pt, n_pairs);
   if (x >= kLead) {
     const Payload e = tile > 0 ? payload_lookback(pd, tile) : no_payload();
     if (x == kLead) {
@@ -293,7 +302,7 @@ __device__ void wide_tile(const Params& p, WideShared& ts, const VCarry& v,
   const int g_end = tile_cnt > G - e.sum ? G : e.sum + tile_cnt;
   const int n_ok = g_end > e.sum ? (g_end - e.sum) * B : 0;
   const int k0 = n_ok > 0 ? e.sum * B : 0;
-  const int n_c = staged_pairs(p.x, ts.pt, ts.rc, n_pairs, n_ok,
+  const int n_c = staged_pairs<L>(p.x, ts.pt, ts.rc, n_pairs, n_ok,
                                log_base + k0, early, heavy, p.lp, p.le,
                                cand + k0);
   WSTAMP(5, 0);
@@ -318,6 +327,7 @@ __device__ void wide_tile(const Params& p, WideShared& ts, const VCarry& v,
   __syncthreads();                 // ts is the next tile's
 }
 
+template <class L>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 wide_steps_kernel(const Params p) {
   cg::grid_group grid = cg::this_grid();
@@ -367,7 +377,6 @@ wide_steps_kernel(const Params p) {
               p.n_in, nullptr, 0, p.n_in, *front_in};
   int n_cur = p.n_in, step = 0, log_base = p.log_base, prev_n = 0, prev_gb = 0;
   long long tile0 = 0;
-  const int* row = p.reads;
   // the last step's dropped newborns flag their read; its unflagged hit
   // pairs set the dump slot
   auto last_step_flags = [&]() {
@@ -399,7 +408,7 @@ wide_steps_kernel(const Params p) {
       if (T * kThreads < N && blockIdx.x == 0 && threadIdx.x == 0)
         p.ovf[R] = 1;
       for (int tile = place; tile < T; tile += gridDim.x)
-        wide_tile(p, ts, v, nxt, stage, cand, row, N, G, log_base, tile, T,
+        wide_tile<L>(p, ts, v, nxt, stage, cand, N, G, log_base, tile, T,
                   pd, cd, sent, step);
       grid_sync(grid, 0);
 #ifdef K2_STAMPS
@@ -412,7 +421,6 @@ wide_steps_kernel(const Params p) {
       prev_n = N;
       prev_gb = G * B;
       tile0 += n_tiles(N);
-      row += R;
       log_base += G * B;
       ++step;
     }
@@ -425,12 +433,39 @@ wide_steps_kernel(const Params p) {
     if (!(in_place && i < v.nk && i < v.lim)) put_row(out, i, vread(v, i));
 }
 
-// co-resident blocks of the kernel on each device, queried once
-int g_max_blocks[kMaxDevices];
+// the kernel's instance for layout_slot(packed, sharded)
+using Kernel = void (*)(const Params);
+const Kernel kKernels[4] = {
+    wide_steps_kernel<Layout<false, false>>,
+    wide_steps_kernel<Layout<false, true>>,
+    wide_steps_kernel<Layout<true, false>>,
+    wide_steps_kernel<Layout<true, true>>};
+
+// co-resident blocks of each instance on each device, queried once
+int g_max_blocks[4][kMaxDevices];
 
 }  // namespace
 
 extern "C" int wide_steps_max_phases() { return kMaxPhases; }
+
+// Lets device ``home`` read device ``peer``'s memory (the index shards on
+// the other cards of a mesh row); access enabled already counts as success.
+// Returns the CUDA error, 0 on success.
+extern "C" int scan_enable_peer(int home, int peer) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaSetDevice(home);
+  if (err == cudaSuccess) {
+    err = cudaDeviceEnablePeerAccess(peer, 0);
+    if (err == cudaErrorPeerAccessAlreadyEnabled) {
+      cudaGetLastError();                   // clears the sticky report
+      err = cudaSuccess;
+    }
+  }
+  const cudaError_t back = cudaSetDevice(prev);
+  return (int)(err != cudaSuccess ? err : back);
+}
 
 extern "C" long long wide_steps_scratch(int n_phases, const int* steps,
                                         const int* pool, int K) {
@@ -455,11 +490,13 @@ extern "C" int wide_steps_pubs(void* host) {
 }
 #endif
 
-// The kernel's registers a thread, local (spill) bytes a thread and
-// static shared bytes a block, into out[0:3]; returns the CUDA error.
-extern "C" int wide_steps_attrs(int* out) {
+// The registers a thread, local (spill) bytes a thread and static shared
+// bytes a block of the kernel's instance for packed or int32 reads and
+// sharded or whole tables, into out[0:3]; returns the CUDA error.
+extern "C" int wide_steps_attrs(int* out, int packed, int sharded) {
   cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(&a, wide_steps_kernel);
+  const cudaError_t err = cudaFuncGetAttributes(
+      &a, kKernels[layout_slot(packed, sharded)]);
   if (err != cudaSuccess) return (int)err;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
@@ -467,19 +504,23 @@ extern "C" int wide_steps_attrs(int* out) {
   return 0;
 }
 
-// The grid the launch will use for C slots: at most the blocks co-resident
-// on the current device (queried once a device), no more than the largest
+// The grid a launch of the instance for packed or int32 reads and sharded
+// or whole tables will use for C slots: at most the blocks co-resident on
+// the current device (queried once a device), no more than the largest
 // pool's tiles. Returns -(CUDA error) on failure.
-extern "C" int wide_steps_grid(int C) {
-  return coop_grid(wide_steps_kernel, g_max_blocks, n_tiles(C));
+extern "C" int wide_steps_grid(int C, int packed, int sharded) {
+  const int slot = layout_slot(packed, sharded);
+  return coop_grid(kKernels[slot], g_max_blocks[slot], n_tiles(C));
 }
 
 extern "C" int wide_steps(
     const void* rid_in, const void* lo_in, const void* hi_in,
     const void* pref_in, const void* ovf_in, int n_in,
-    const void* reads, int R, int n_phases, const int* steps,
+    const void* reads, const void* packed, const void* row_len, int k,
+    int total, int step0, int R, int n_phases, const int* steps,
     const int* pool, const int* hits,
-    const void* occ, const void* blocks, int n,
+    const void* const* occ, int n_shards, int occ_rps, const void* blocks,
+    int n,
     const void* sym_start, const void* sentinel_row,
     const void* mrl, int n_mrl, const void* out_lo, const void* out_hi,
     int L, int B, int log_base, void* lp, void* le,
@@ -487,9 +528,16 @@ extern "C" int wide_steps(
   if (n_phases < 0 || n_phases > kMaxPhases)
     return (int)cudaErrorInvalidValue;
   Params p;
-  p.x.narrow_tab = nullptr;
+  if (n_shards < 1 || n_shards > kMaxShards)
+    return (int)cudaErrorInvalidValue;
+  for (int s = 0; s < kMaxShards; ++s) {
+    p.x.narrow_tab[s] = nullptr;
+    p.x.occ[s] = s < n_shards && occ != nullptr
+        ? static_cast<const int4*>(occ[s]) : nullptr;
+  }
+  p.x.occ_rps = occ_rps;
+  p.x.nt_rps = 1;
   p.x.n = n;
-  p.x.occ = static_cast<const int4*>(occ);
   p.x.blocks = static_cast<const uint4*>(blocks);
   p.x.sym_start = static_cast<const int*>(sym_start);
   p.x.sentinel_row = static_cast<const int*>(sentinel_row);
@@ -505,7 +553,9 @@ extern "C" int wide_steps(
   p.pref_in = static_cast<const int*>(pref_in);
   p.ovf_in = static_cast<const unsigned char*>(ovf_in);
   p.n_in = n_in;
-  p.reads = static_cast<const int*>(reads);
+  p.rd = Reads{static_cast<const int*>(reads),
+               static_cast<const unsigned char*>(packed),
+               static_cast<const int*>(row_len), k, total, step0, R};
   p.R = R;
   p.n_phases = n_phases;
   for (int ph = 0; ph < kMaxPhases; ++ph) {
@@ -523,7 +573,8 @@ extern "C" int wide_steps(
   p.n_tiles_all = step_tiles(n_phases, steps, pool);
   void* args[] = {&p};
   const cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)wide_steps_kernel, dim3(grid), dim3(kThreads), args, 0,
+      (const void*)kKernels[layout_slot(packed != nullptr, n_shards > 1)],
+      dim3(grid), dim3(kThreads), args, 0,
       reinterpret_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

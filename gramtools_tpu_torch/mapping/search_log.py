@@ -2,7 +2,8 @@
 
 Port of gramtools_tpu/mapping/search_jax_log.py ``_log_search_phases``,
 ``_occ_rows_for``, ``_log_search_probe``, ``make_log_search``,
-``_packed_body``, ``_unpack_reads2`` and ``_record_body``: JAX's
+``_packed_body`` and ``_record_body`` (its ``_unpack_reads2``, K6, is
+ops/packed_reads.py, which the scan kernels decode in place): JAX's
 ``lax.scan`` over the steps of a phase becomes a Python loop, and each
 step writes its genealogy records ``(rec_parent, rec_event)`` straight
 into their place in a preallocated log.
@@ -33,7 +34,10 @@ import os
 import torch
 
 from ..ops.locked_step import locked_tail
+from ..ops.packed_reads import PackedReads, as_rows
+from ..ops.packed_reads import unpack_reads2  # noqa: F401 (re-exported)
 from ..ops.rank import PackedOccRows, make_packed_occ_rows
+from ..ops.sharded import ShardedTables
 from ..ops.wide_step import wide_steps
 from .record import replay_device, select_and_record_device
 from .scan_steps import (build_log_step, build_narrow_step, lock_pool,
@@ -77,20 +81,21 @@ def _scan_phases(di, reads, carry, phases, num_reads: int, occ_rows,
                  lp: torch.Tensor, le: torch.Tensor, narrow_rows=None,
                  collect_live: bool = False):
     """The phase loop (port of _log_search_phases): runs every step of
-    every phase on int32 reads (steps, num_reads), writes each step's
-    genealogy records into their place in lp/le (preallocated, steps·G·B
-    each), and returns the final carry with its (num_reads,) overflow.
-    occ_rows / narrow_rows: the occ and narrow_tab gathers (None = the
-    dense tables in di; occ_rows may be the packed rank, a
-    ``PackedOccRows``). Over the index's own tables (the dense occ or the
-    packed rank, no injected gather) the plan runs as two calls, each one
-    kernel launch on CUDA: ``ops/wide_step.wide_steps`` for the wide
-    phases and ``ops/locked_step.locked_tail`` for the hole-allocated
-    narrow phase and the locked phase after it. Injected gathers (the
-    SA-range-sharded index, parallel/sharded_index.py) keep the torch
-    steps. collect_live=True also returns the live-state count after each
-    phase, a (n_phases,) int64 device tensor (the kernels then run one
-    phase a call)."""
+    every phase on the reads, int32 (steps, num_reads) or the 2-bit
+    packed matrix as a ``PackedReads`` (K6: the kernels decode it where
+    they load a base), writes each step's genealogy records into their
+    place in lp/le (preallocated, steps·G·B each), and returns the final
+    carry with its (num_reads,) overflow. occ_rows / narrow_rows: the occ
+    and narrow_tab gathers (None = the dense tables in di; occ_rows may
+    be the packed rank, a ``PackedOccRows``, or the SA-range-sharded
+    tables, a ``ShardedTables``: K10, parallel/sharded_index.py). Over
+    those tables the plan runs as two calls, each one kernel launch on
+    CUDA: ``ops/wide_step.wide_steps`` for the wide phases and
+    ``ops/locked_step.locked_tail`` for the hole-allocated narrow phase
+    and the locked phase after it. Injected gather functions keep the
+    torch steps. collect_live=True also returns the live-state count
+    after each phase, a (n_phases,) int64 device tensor (the kernels
+    then run one phase a call)."""
     dev = di.device
     B = di.n_outcomes
     read_id, lo, hi, pref, overflow = carry
@@ -103,11 +108,13 @@ def _scan_phases(di, reads, carry, phases, num_reads: int, occ_rows,
     carry = tuple(a.contiguous() for a in (read_id, lo, hi, pref)) + (
         overflow,)
     plan = [_phase4(e) for e in phases]
-    narrow_ok = lambda w: w > 0 and (
-        narrow_rows is not None or di.narrow_tab.shape[0] == di.size)
-    kernels = narrow_rows is None and (occ_rows is None
-                                       or isinstance(occ_rows, PackedOccRows))
-    blocks = occ_rows.blocks if kernels and occ_rows is not None else None
+    tables = occ_rows if isinstance(occ_rows, ShardedTables) else None
+    has_narrow = (tables.has_narrow if tables is not None
+                  else di.narrow_tab.shape[0] == di.size)
+    narrow_ok = lambda w: w > 0 and (narrow_rows is not None or has_narrow)
+    kernels = narrow_rows is None and (occ_rows is None or isinstance(
+        occ_rows, (PackedOccRows, ShardedTables)))
+    blocks = occ_rows.blocks if isinstance(occ_rows, PackedOccRows) else None
     live = []
     log_base = 0
     offset = 0
@@ -115,6 +122,7 @@ def _scan_phases(di, reads, carry, phases, num_reads: int, occ_rows,
         n_run = sum(e[0] for e in run)
         rows = reads[offset:offset + n_run]
         if not kernels:
+            rows = as_rows(rows)
             n_steps, pool, hits, narrow_w, phase_kind = run[0]
             cfg = LogConfig(pool=pool, hits=hits)
             if phase_kind == "locked" and narrow_ok(narrow_w):
@@ -134,7 +142,7 @@ def _scan_phases(di, reads, carry, phases, num_reads: int, occ_rows,
                                  hits * B)
         elif kind == "wide":
             carry = wide_steps(di, rows, carry, [e[:3] for e in run],
-                               log_base, lp, le, blocks=blocks)
+                               log_base, lp, le, blocks=blocks, tables=tables)
         else:
             narrow = None if run[0][4] == "locked" else run[0][:4]
             locked = run[-1] if run[-1][4] == "locked" else None
@@ -144,7 +152,8 @@ def _scan_phases(di, reads, carry, phases, num_reads: int, occ_rows,
             hits, wide_budget = (locked or narrow)[2:4]
             carry = locked_tail(di, rows, carry, log_base, lp, le, hits,
                                 wide_budget, blocks=blocks,
-                                lock=locked is not None, narrow=narrow)
+                                lock=locked is not None, narrow=narrow,
+                                tables=tables)
         log_base += sum(e[0] * e[2] for e in run) * B
         offset += n_run
         if collect_live:
@@ -230,20 +239,6 @@ def log_search_packed(di, reads_T: torch.Tensor, carry, phases,
     return flat
 
 
-def unpack_reads2(reads_p: torch.Tensor, row_len: torch.Tensor, steps: int,
-                  kmer_size: int) -> torch.Tensor:
-    """2-bit packed read matrix -> (steps, SR) int32 base codes (port of
-    _unpack_reads2). reads_p: (ceil(steps/4), SR) uint8, 4 bases a byte
-    along the step axis (code = base - 1). Bases past a row's body
-    (row_len - k) are 0 (= inactive), as in the zero-padded reads_T."""
-    b = reads_p.to(I32)
-    codes = torch.stack([(b >> (2 * j)) & 3 for j in range(4)], dim=1
-                        ).reshape(4 * reads_p.shape[0], reads_p.shape[1])[:steps]
-    n_steps_row = (row_len.to(I32) - kmer_size).clamp(0, steps)
-    ar = torch.arange(steps, dtype=I32, device=reads_p.device)
-    return torch.where(ar[:, None] < n_steps_row[None, :], codes + 1, 0)
-
-
 def log_search_record(di, rt, st, reads_p, slot_sidx, slot_row, row_ok,
                       row_first_raw, row_len, cov_diff, phases,
                       num_reads: int, trip_cap: int, kmer_size: int,
@@ -260,8 +255,10 @@ def log_search_record(di, rt, st, reads_p, slot_sidx, slot_row, row_ok,
     [ovf | fallback | mapped | t_row | t_site | t_allele] (R, R, R and
     trip_cap each) on the device. Enqueued without a synchronisation."""
     dev = di.device
-    steps = sum(e[0] for e in phases)
-    reads = unpack_reads2(reads_p, row_len, steps, kmer_size)
+    # K6: the scan kernels decode the packed bases where they load them
+    # (the twins, on the CPU, unpack with unpack_reads2)
+    reads = PackedReads(reads_p, row_len.to(I32), kmer_size,
+                        sum(e[0] for e in phases))
 
     # initial carry from the placed (slot -> seed state, row) maps
     sidx_ok = slot_sidx >= 0

@@ -158,7 +158,7 @@ def finalise_cov_diff(cov_diff: np.ndarray) -> np.ndarray:
 def _pack_reads2(reads_T: np.ndarray) -> np.ndarray:
     """(steps, SR) uint8 base codes 0..4 -> (steps/4, SR) uint8 packed
     2-bit codes (code = base-1 mod 4; zero-pads become 3 and are masked
-    on device by row_len -- see search_log.unpack_reads2)."""
+    on device by row_len -- see ops/packed_reads.unpack_reads2)."""
     steps = reads_T.shape[0]
     assert steps % 4 == 0, steps
     pr = (reads_T - np.uint8(1)) & np.uint8(3)

@@ -110,14 +110,15 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def kernel_attrs(fn) -> dict:
+def kernel_attrs(fn, *flags: int) -> dict:
     """A kernel's registers a thread, local (spill) bytes a thread and
     static shared bytes a block (cudaFuncGetAttributes), from its
-    library's ``<name>_attrs(int*)`` function ``fn``."""
+    library's ``<name>_attrs(int*, int...)`` function ``fn``; ``flags``:
+    the int arguments that pick a kernel's instance, if it has several."""
     out = (ctypes.c_int * 3)()
-    fn.argtypes = [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * len(flags)
     fn.restype = ctypes.c_int
-    err = fn(out)
+    err = fn(out, *flags)
     if err != 0:
         raise RuntimeError(f"{fn.__name__} failed: CUDA error {err}")
     return {"registers": out[0], "local_bytes": out[1],

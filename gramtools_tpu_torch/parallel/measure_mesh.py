@@ -4,7 +4,7 @@ Run from the root of a checkout, on a machine with the cards asked for:
 
     python3 -m gramtools_tpu_torch.parallel.measure_mesh \\
         [--reads 80000] [--runs 1 2 4 4x1 1] [--checkout DIR ...] \\
-        [--rounds 2] [--repeats 4]
+        [--rounds 2] [--repeats 4] [--index 1 2 4 4x1]
 
 It builds the workload of ``chip_smoke.py`` (common/workload.py: 4.4 Mb
 genome, 100,000 SNP sites, 150 bp reads, k = 10, seed 42), then:
@@ -21,7 +21,15 @@ genome, 100,000 SNP sites, 150 bp reads, k = 10, seed 42), then:
     buffers, and prints the quasimap seconds and rate and the host
     seconds of each buffer's ``scan_submit`` and ``record_complete``.
     Every run's stats, allele-sum, grouped counts and per-base coverage
-    must equal the first run's.
+    must equal the first run's;
+  * with ``--index``, the SA-range-sharded index's scan (K10) of one
+    whole 20,000-read buffer (the engine's own phases, dense rank): for
+    each spec, the index split into that many shards ("n": shard i on
+    card i; "nx1": n shards on the first card), the scan run on the first
+    card, its K2 and K3 reading the other cards' shards over NVLink; its
+    flat result must equal the replicated scan's; each scan timed by
+    CUDA events on the first card over ``--repeats`` queued scans, beside
+    the replicated dense scan's, and on the host clock.
 
 Each line starts with the card's name and power limit. Raises on any
 failed check.
@@ -167,6 +175,68 @@ def mesh_runs(specs, idx, kmer_index, k: int, n_reads: int, work: Path,
         del engine
 
 
+def index_runs(specs, idx, kmer_index, reads, k: int, repeats: int, say):
+    """The index-sharded scan of one buffer for each spec, against the
+    replicated scan (see the module doc)."""
+    from ..mapping.engine import LogBatchedEngine
+    from ..mapping.quasimap import (DEVICE_BUFFER_SIZE, QuasimapStats,
+                                    ReadBatch)
+    from ..mapping.search_log import log_search_phases
+    from ..ops import locked_step, wide_step
+    from .mesh import Mesh
+    from .sharded_index import make_index_sharded_log_search
+
+    home = torch.device("cuda", 0)
+    os.environ["GRAMTOOLS_TPU_RANK"] = "dense"
+    try:
+        engine = LogBatchedEngine(idx, k, device=home)
+    finally:
+        os.environ["GRAMTOOLS_TPU_RANK"] = "packed"
+    token = engine.scan_submit(ReadBatch(np.ascontiguousarray(
+        reads[:DEVICE_BUFFER_SIZE])), kmer_index, k, QuasimapStats())
+    (pending, phases, R), carry, reads_T = token[2], token[5], token[6]
+    want = pending.get()
+    args = (torch.from_numpy(reads_T).to(home),
+            tuple(torch.from_numpy(a).to(home) for a in carry))
+    runs = [("replicated", lambda rt, c: log_search_phases(
+        engine.di, rt, c, phases, R), [home])]
+    for spec in specs:
+        devices = mesh_devices(spec)
+        t0 = time.perf_counter()
+        run = make_index_sharded_log_search(Mesh(devices, ("idx",)),
+                                            engine.di, engine.cfg, R,
+                                            phases=phases)
+        runs.append((spec, run, devices))
+        say(f"[index] {spec}: tables built in {time.perf_counter() - t0:.2f}"
+            f" s")
+    for name, run, devices in runs:
+        launches = (wide_step.wide_steps.sharded_launches
+                    + locked_step.locked_tail.sharded_launches)
+        (rid, lo, hi, pref, ovf), (lp, le) = run(*args)
+        got = torch.cat([rid, lo, hi, pref, ovf.to(torch.int32), lp,
+                         le]).cpu().numpy()
+        launches = (wide_step.wide_steps.sharded_launches
+                    + locked_step.locked_tail.sharded_launches) - launches
+        if not np.array_equal(got, want):
+            raise AssertionError(f"index {name}: the flat result differs "
+                                 f"from the engine's")
+        _sync(devices)
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(repeats):
+            run(*args)
+        end.record()
+        _sync(devices)
+        host_s = (time.perf_counter() - t0) / repeats
+        say(f"[index] {name} {[d.index for d in devices]}: R={R}, phases "
+            f"{phases}, flat result equal to the engine's; K10 launches a "
+            f"scan {launches}; {start.elapsed_time(end) / repeats:.4f} ms a "
+            f"scan by CUDA events on cuda:0 ({repeats} queued scans), "
+            f"{1000 * host_s:.3f} ms a scan on the host clock")
+
+
 def main(argv=None) -> int:
     from ..common.workload import make_workload
     from ..ops import _build
@@ -177,6 +247,7 @@ def main(argv=None) -> int:
     ap.add_argument("--checkout", action="append", default=[])
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--repeats", type=int, default=4)
+    ap.add_argument("--index", nargs="*", default=[])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("measure_mesh: no CUDA device", file=sys.stderr)
@@ -190,7 +261,8 @@ def main(argv=None) -> int:
     _build.build_all(KERNELS)
     with tempfile.TemporaryDirectory(prefix="measure_mesh_") as tmp:
         work = Path(tmp)
-        idx, kmer_index, _, summary = make_workload(work, n_reads=args.reads)
+        idx, kmer_index, reads, summary = make_workload(work,
+                                                        n_reads=args.reads)
         say(f"[workload] {summary}")
         if args.checkout:
             secs = one_device_turns(args.checkout, work, 10, args.rounds,
@@ -198,6 +270,9 @@ def main(argv=None) -> int:
             say("[one device] quasimap s by checkout: " + "; ".join(
                 f"{c} {[round(t, 3) for t in v]}" for c, v in secs.items()))
         mesh_runs(args.runs, idx, kmer_index, 10, args.reads, work, say)
+        if args.index:
+            index_runs(args.index, idx, kmer_index, reads, 10,
+                       5 * args.repeats, say)
     return 0
 
 

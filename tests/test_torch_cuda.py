@@ -2,7 +2,8 @@
 (K7), wide-step (K2) and narrow-tail (K3: hole-allocated and locked
 steps) kernels and the per-base recorder's kernels (K9) against their
 plain torch versions (K3's barrier-free locked range also on the cases
-its chained scans must get right, and over repeated launches),
+its chained scans must get right, and over repeated launches; K2 and K3
+decoding packed reads, K6, and reading SA-range-sharded tables, K10),
 the scan and the fused record program on CUDA against the CPU, the
 engine against the host oracle, the mesh engine and the index-sharded
 scan on one card and, where the machine has two cards or more, across
@@ -625,7 +626,7 @@ def _locked_design_case(name, rank_kind):
     elif name == "many_tiles":
         with torch.cuda.device(0):
             grid = locked_step._kernel_lib().locked_tail_grid(
-                carry[0].shape[0])
+                carry[0].shape[0], *locked_step.layout(reads, None))
         assert 0 < grid < T
     assert not bool((reads[1] > 0).any())
     return di, reads, carry, blocks, G, W, lock
@@ -1000,6 +1001,163 @@ def test_scan_kernels_do_not_synchronise(cuda):
 
 
 # --------------------------------------------------------------------------
+# K6 and K10 inside the scan kernels: packed reads decoded where a base is
+# loaded, the SA-range-sharded tables read in place
+# --------------------------------------------------------------------------
+
+def _packed_window(R, S, start, seed, k=5):
+    """A PackedReads window of S steps from ``start`` of a random 2-bit
+    matrix (R reads), on the CPU: row lengths below k, at k, past k +
+    the matrix's steps, 0 and random."""
+    from gramtools_tpu_torch.ops.packed_reads import PackedReads
+
+    rng = np.random.RandomState(seed)
+    total = start + S + 3
+    packed = rng.randint(0, 256, size=(-(-total // 4), R)).astype(np.uint8)
+    row_len = rng.randint(0, k + total + 4, size=R)
+    row_len[:4] = [0, k - 1, k, k + total + 5]
+    return PackedReads(torch.from_numpy(packed),
+                       torch.from_numpy(row_len.astype(np.int32)), k, total,
+                       start, start + S)
+
+
+def _window_on(window, device):
+    from gramtools_tpu_torch.ops.packed_reads import PackedReads
+
+    return PackedReads(window.packed.to(device), window.row_len.to(device),
+                       window.kmer_size, window.steps, window.start,
+                       window.stop)
+
+
+def _packed_run(cuda, kernel, case, start, seed, rank_kind="packed"):
+    """K2 (``wide``) or K3 with its hole-allocated range (``narrow``) on
+    case's inputs with a packed window from ``start``: a run on the card
+    of the packed window, one of its unpacked rows, and the twin's
+    (carry, flags, log halves) on the CPU from the packed window."""
+    if kernel == "wide":
+        R, n_in, phases = WIDE_CASES[case]
+        S = sum(ph[0] for ph in phases)
+        records = sum(s * g for s, _, g in phases)
+        call = lambda di, reads, carry, lp, le, blocks: wide_step.wide_steps(
+            di, reads, carry, phases, 21, lp, le, blocks=blocks)
+    else:
+        R, n_in, narrow, n_locked, G, W = NARROW_CASES[case]
+        S = narrow[0] + n_locked
+        records = narrow[0] * narrow[2] + n_locked * G
+        call = lambda di, reads, carry, lp, le, blocks: (
+            locked_step.locked_tail(di, reads, carry, 21, lp, le, G, W,
+                                    blocks=blocks, lock=n_locked > 0,
+                                    narrow=narrow))
+    di, _, carry, blocks = _pool_case(rank_kind, R, n_in, seed, S)
+    n_log = 21 + records * di.n_outcomes
+    window = _packed_window(R, S, start, seed)
+    lp, le = _log_pair(n_log, "cpu")
+    want = tuple(call(di, window, carry, lp, le, blocks)) + (lp, le)
+    cdi, crows, ccarry, cblocks = _locked_on(cuda, di, window.unpack(), carry,
+                                             blocks)
+    cwindow = _window_on(window, cuda)
+
+    def run(reads=None):
+        clp, cle = _log_pair(n_log, cuda)
+        return tuple(call(cdi, cwindow if reads is None else reads, ccarry,
+                          clp, cle, cblocks)) + (clp, cle)
+    return run, lambda: run(crows), want
+
+
+@pytest.mark.parametrize("start", [0, 3, 6])
+@pytest.mark.parametrize("kernel,case", [("wide", "small"), ("wide", "tight"),
+                                         ("narrow", "small"),
+                                         ("narrow", "tight")])
+@pytest.mark.parametrize("rank_kind", ["dense", "packed"])
+def test_scan_kernels_on_packed_reads(cuda, rank_kind, kernel, case, start):
+    """K2 and K3 decoding the packed bases (K6) at a window that starts
+    at step 0, 3 or 6 (the tail's offset need not be a multiple of 4):
+    equal to the kernels on unpack_reads2's rows and to the twins."""
+    fn = wide_step.wide_steps if kernel == "wide" else locked_step.locked_tail
+    run, run_rows, want = _packed_run(cuda, kernel, case, start, 40 + start,
+                                      rank_kind)
+    before = (fn.launches, fn.packed_launches)
+    got, rows = run(), run_rows()
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.packed_launches) == (before[0] + 2, before[1] + 1)
+    for g, r, w in zip(got, rows, want):
+        assert g.shape == w.shape and torch.equal(g, r)
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("kernel,case", [("wide", "path"),
+                                         ("narrow", "path")])
+def test_packed_scan_kernels_repeated_launches_identical(cuda, kernel, case):
+    """20 launches of K2, or of K3 with its hole-allocated range, on one
+    packed window from step 3: the same carry, flags and log, equal to
+    the twin's."""
+    run, _, want = _packed_run(cuda, kernel, case, 3, 8)
+    runs = [run() for _ in range(20)]
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        for a, b in zip(other, runs[0]):
+            assert torch.equal(a, b)
+    for a, b in zip(runs[0], want):
+        assert torch.equal(a.cpu(), b)
+
+
+def _index_sharded_case(cuda, R=64, steps=32):
+    from gramtools_tpu_torch.parallel.dryrun import _seeded_scan_inputs
+
+    idx = _idx()
+    di = DeviceIndex.build(idx, device=cuda)
+    cfg = LogConfig(pool=256, hits=64)
+    reads_T, carry = _seeded_scan_inputs(idx, np.random.RandomState(0), R,
+                                         steps, cfg.pool)
+    return di, cfg, reads_T, carry
+
+
+def _no_plain_gather(monkeypatch):
+    """The plain shard gather raises if anything calls it."""
+    from gramtools_tpu_torch.ops import sharded
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain shard gather ran on CUDA")
+    monkeypatch.setattr(sharded, "_sharded_gather", refuse)
+
+
+@pytest.mark.parametrize("n_idx", [1, 3, 4, 8])
+def test_index_sharded_scan_one_card_runs_the_kernels(cuda, monkeypatch,
+                                                      n_idx):
+    """The index split over 1, 3, 4 or 8 SA-range shards on the card: the
+    scan is K2 and K3 reading the shards in place (two sharded launches,
+    the plain gather never called), equal to the replicated scan."""
+    from gramtools_tpu_torch.mapping.search_log import log_search_phases
+    from gramtools_tpu_torch.mapping.search_log_host import auto_phases
+    from gramtools_tpu_torch.parallel.mesh import Mesh
+    from gramtools_tpu_torch.parallel.sharded_index import \
+        make_index_sharded_log_search
+
+    R = 64
+    di, cfg, reads_T, carry = _index_sharded_case(cuda, R)
+    args = (torch.from_numpy(reads_T).to(cuda),
+            tuple(torch.from_numpy(a).to(cuda) for a in carry))
+    run = make_index_sharded_log_search(Mesh([cuda] * n_idx, ("idx",)), di,
+                                        cfg, R)
+    _no_plain_gather(monkeypatch)
+    counted = lambda: (wide_step.wide_steps.sharded_launches,
+                       locked_step.locked_tail.sharded_launches)
+    before = counted()
+    got = run(*args)
+    runs = [run(*args) for _ in range(19)]
+    torch.cuda.synchronize()
+    assert counted() == (before[0] + 20, before[1] + 20)
+    want = log_search_phases(di, *args, auto_phases(32, R, cfg, narrow=True),
+                             R)
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        assert g.device.type == "cuda" and torch.equal(g, w)
+    for other in runs:                 # 20 launches of each, identical
+        for a, b in zip(other[0] + other[1], got[0] + got[1]):
+            assert torch.equal(a, b)
+    assert (want[1][0] >= 0).any()
+
+
+# --------------------------------------------------------------------------
 # the fused record program and engine
 # --------------------------------------------------------------------------
 
@@ -1109,6 +1267,32 @@ def test_fused_scan_submit_does_not_synchronise(cuda, monkeypatch):
         torch.cuda.set_sync_debug_mode("default")
     assert token[2][0] == "record"
     token[2][1].get()
+
+
+def test_fused_buffer_decodes_packed_reads_in_the_scan_kernels(cuda,
+                                                               monkeypatch):
+    """A fused buffer's scan decodes its packed reads in K2 and K3 (K6):
+    both launches read the packed matrix and the plain unpack never
+    runs."""
+    from gramtools_tpu_torch.ops import packed_reads
+
+    engine, token, cap, kmer_index = _fused_engine(cuda, monkeypatch)
+    token[2][1].get()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("unpack_reads2 ran on the fused path")
+    monkeypatch.setattr(packed_reads, "unpack_reads2", refuse)
+    reads = _haplotype_reads(np.random.RandomState(9), 300)[1][::-1]
+    first = first_raw_draws(np.asarray(RandomInclusiveInt(4).raw_block(
+        len(reads)), dtype=np.uint32))
+    before = (wide_step.wide_steps.packed_launches,
+              locked_step.locked_tail.packed_launches)
+    token = engine.scan_submit(reads, kmer_index, engine.kmer_size,
+                               QuasimapStats(), first_raws=first)
+    token[2][1].get()
+    after = (wide_step.wide_steps.packed_launches,
+             locked_step.locked_tail.packed_launches)
+    assert after[0] > before[0] and after[1] > before[1]
 
 
 # --------------------------------------------------------------------------
@@ -1499,29 +1683,67 @@ def test_mesh_engine_across_cards_matches_one_card(cuda, monkeypatch,
                                                       "st"}
 
 
-def test_index_sharded_scan_across_cards_equals_replicated(cuda):
+def test_index_sharded_scan_across_cards_equals_replicated(cuda,
+                                                          monkeypatch):
+    """The index split over the cards ("idx"), and over a 2 x 2
+    ("data", "idx") mesh where the machine has 4: K2 and K3 on each data
+    shard's home card read the other cards' shards in place (the plain
+    gather never called), equal to the replicated scan; a pair of cards
+    without peer access raises, naming the pair."""
     from gramtools_tpu_torch.mapping.search_log import log_search_phases
     from gramtools_tpu_torch.mapping.search_log_host import auto_phases
-    from gramtools_tpu_torch.parallel.dryrun import _seeded_scan_inputs
+    from gramtools_tpu_torch.ops import sharded
     from gramtools_tpu_torch.parallel.mesh import Mesh
     from gramtools_tpu_torch.parallel.sharded_index import \
         make_index_sharded_log_search
 
     cards = _cards(2)
-    idx = _idx()
-    di = DeviceIndex.build(idx, device=cuda)
-    cfg = LogConfig(pool=256, hits=64)
     R = 64
-    reads_T, carry = _seeded_scan_inputs(idx, np.random.RandomState(0), R,
-                                         32, cfg.pool)
+    di, cfg, reads_T, carry = _index_sharded_case(cuda, R)
     args = (torch.from_numpy(reads_T).to(cuda),
             tuple(torch.from_numpy(a).to(cuda) for a in carry))
-    got = make_index_sharded_log_search(Mesh(cards, ("idx",)), di, cfg,
-                                        R)(*args)
     want = log_search_phases(di, *args, auto_phases(32, R, cfg, narrow=True),
                              R)
+    run = make_index_sharded_log_search(Mesh(cards, ("idx",)), di, cfg, R)
+    with monkeypatch.context() as m:
+        _no_plain_gather(m)
+        before = wide_step.wide_steps.sharded_launches
+        got = run(*args)
+        torch.cuda.synchronize()
+        assert wide_step.wide_steps.sharded_launches == before + 1
     for g, w in zip(got[0] + got[1], want[0] + want[1]):
         assert g.device == cards[0] and torch.equal(g, w)
+    if len(cards) >= 4:
+        # data shard d scans its half of the reads on card 2d and reads
+        # the shards on cards 2d and 2d + 1
+        half = R // 2
+        halves = [_index_sharded_case(cuda, half)[2:] for _ in range(2)]
+        rng = np.random.RandomState(5)
+        halves = [(rt[:, rng.permutation(half)], c) for rt, c in halves]
+        rt2 = np.concatenate([h[0] for h in halves], axis=1)
+        c2 = tuple(np.concatenate(cs) for cs in zip(*[h[1] for h in halves]))
+        mesh = Mesh(np.array(cards[:4], dtype=object).reshape(2, 2),
+                    ("data", "idx"))
+        run2 = make_index_sharded_log_search(mesh, di, cfg, half)
+        with monkeypatch.context() as m:
+            _no_plain_gather(m)
+            got2 = run2(torch.from_numpy(rt2).to(cuda),
+                        tuple(torch.from_numpy(a).to(cuda) for a in c2))
+        for d, (rt, c) in enumerate(halves):
+            ref = log_search_phases(
+                di, torch.from_numpy(rt).to(cuda),
+                tuple(torch.from_numpy(a).to(cuda) for a in c),
+                auto_phases(32, half, cfg, narrow=True), half)
+            for g, w in zip(got2[0] + got2[1], ref[0] + ref[1]):
+                m_ = w.numel()
+                assert torch.equal(g[d * m_:(d + 1) * m_], w)
+    # a pair without peer access raises, naming it
+    monkeypatch.setattr(sharded, "_PEERS", set())
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer",
+                        lambda a, b: False)
+    with pytest.raises(RuntimeError, match=f"cuda:{cards[0].index}.*"
+                                           f"cuda:{cards[1].index}"):
+        run(*args)
 
 
 def test_nccl_all_reduce_across_cards():
