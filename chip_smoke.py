@@ -75,7 +75,14 @@ this order, each printing one line or a few:
      emitcap, KCAP, trip_cap, first draws in the rejection branch); each
      stage timed by queued events and traced once between markers
      (device events and busy time by stage), the plain version timed
-     and traced at stage 99, with K8's bound, share and registers;
+     and traced at stage 99, with K8's bound, share and registers (both
+     kernels in both key instances, and ptxas's report); the 128-bit key
+     instance, forced, equal to the plain version at every stage; K8's
+     grid syncs and sort passes a launch and block 0's time between its
+     grid syncs (a build of csrc/select.cu with -DK8_SYNCS, its outputs
+     the path's own), one empty grid sync's time on K8's grid (a probe)
+     and the sync floor, the syncs times one; stage 4's sizes (live
+     states a row, a state's run of sorted lanes);
   1f. the scan kernels on buffer 1's kept inputs: K2 (csrc/wide_step.cu,
      every wide phase in one cooperative launch) and K3 (csrc/
      locked_step.cu, the hole-allocated narrow phase, the lock and the
@@ -146,9 +153,15 @@ this order, each printing one line or a few:
      reads (spawned workers, since CUDA is initialised) must write files
      byte-equal to phase 4's host engine run.
 
-``python3 chip_smoke.py --scan-only`` runs phases 0, 1, 1d and 1f and
-stops there, printing the kernels line but no ``ok`` line (a quick
-check of the scan kernels; it is not the smoke run).
+``python3 chip_smoke.py --k8-turns <checkout> ...`` runs phases 0, 1,
+1d and 1e, then times K8 of the other checkouts (the parent commit,
+unpacked with ``git archive`` into a git-ignored directory) and of this
+one on buffer 1's selection inputs in turns (the others, this, this,
+the others in reverse), each turn a process of its own
+(``--time-k8``), and prints no ``ok`` line. ``python3 chip_smoke.py
+--scan-only`` runs phases 0, 1, 1d and 1f and stops there, printing
+the kernels line but no ``ok`` line (a quick check of the scan kernels;
+it is not the smoke run).
 
 The second-to-last line is a JSON object with one entry per kernel of
 the path (K1's numbers are those of its largest call on the path;
@@ -158,7 +171,8 @@ trace; K9's launch is one call of the whole per-base recorder, four
 kernels; K2's is one launch a buffer, every wide phase; K3 narrow's and
 K3 locked's are the same launch, one a buffer; K8's are its two
 launches a buffer, and its times (phase 1e) are the whole function's,
-K9 inside; K6's are the K2 and K3 launches that decode packed reads, its
+K9 inside, its entry also holding its grid syncs and sort passes a
+launch, one empty grid sync's time and the sync floor; K6's are the K2 and K3 launches that decode packed reads, its
 time theirs on the packed windows, its plain time the unpack and the
 two launches on its rows; K10's (``sharded_index``) launches are phase
 5b's sharded scan's, its time the 4-shard K2 and K3, its plain time the
@@ -1758,7 +1772,52 @@ def select_bytes(select_args, per_base_args) -> int:
             + R * 5 + 12 * trip_cap + per_base_bytes(per_base_args)[0])
 
 
-def phase_stages(cfg: SmokeConfig, captured, work: Path):
+def stage4_counts(sargs, trip_cap: int) -> dict:
+    """Stage 4's sizes on the selection's inputs ``sargs``, from the
+    first launch's scratch (csrc/select.cu ``select_scratch_offset``): the
+    most live states in a row, the rows with one and with more, and the
+    longest and the mean run of one state's sorted lanes."""
+    import ctypes
+
+    import torch
+
+    from gramtools_tpu_torch.mapping import record
+    from gramtools_tpu_torch.ops import select
+
+    (di, rt, f_rid, f_lo, f_hi, trav, n_trav, ing, n_ing, state_bad, row_ok,
+     row_first_raw) = sargs[:12]
+    N, R = f_rid.shape[0], row_ok.shape[0]
+    ecap, trcap, _, _, lcap = record.buffer_caps(R)
+    A = max(rt.max_anc, 0)
+    sel = select.select_cuda(
+        di.sa[:di.size], rt.ra_node, rt.nt_site, rt.nt_allele, rt.anc_len,
+        rt.anc_site, rt.anc_allele, rt.base_site, A, f_rid, f_lo, f_hi,
+        trav, n_trav, ing, n_ing, state_bad, row_ok,
+        row_first_raw.to(torch.int64), ecap, lcap, trcap, record.KCAP,
+        trip_cap, 99)
+    NS = N + ecap
+    wide = select.wide_keys(select.key_bits(NS, R, rt.anc_len.shape[0],
+                                            rt.nt_site.shape[0]))
+    fn = select._kernel_lib().select_scratch_offset
+    fn.argtypes = [ctypes.c_int] * 10
+    fn.restype = ctypes.c_longlong
+    torch.cuda.synchronize()
+
+    def field(f, n):
+        at = fn(f, N, R, ecap, lcap, trcap, A, record.KCAP, sel.args[0],
+                int(wide))
+        return sel.scratch[at:at + 4 * n].view(torch.int32)
+
+    row_cnt = field(0, R)
+    run = field(2, NS) - field(1, NS)
+    return {"max_states": int(row_cnt.max()),
+            "rows_one": int((row_cnt == 1).sum()),
+            "rows_more": int((row_cnt > 1).sum()),
+            "max_run": int(run.max()),
+            "mean_run": float(run[run > 0].double().mean())}
+
+
+def phase_stages(cfg: SmokeConfig, captured, work: Path, probe):
     """Phase 1e: the profiling stages on buffer 1's own inputs. K7 at
     stages 1, 2 and 99, each equal bit for bit to the twin at the same
     stage and timed by queued CUDA events; then the selection
@@ -1772,6 +1831,8 @@ def phase_stages(cfg: SmokeConfig, captured, work: Path):
     of two prefixes), the plain version timed (single calls) and traced
     at stage 99. Returns K8's entry of the kernels line."""
     import torch
+
+    import ctypes
 
     from gramtools_tpu_torch.mapping import record
     from gramtools_tpu_torch.ops import replay, select
@@ -1825,6 +1886,32 @@ def phase_stages(cfg: SmokeConfig, captured, work: Path):
     if not all(torch.equal(g, w) for g, w in zip(got, want)):
         raise AssertionError("selection at stage 99 != the path's own call")
     err = max(compare(f"stage {st}", *both(st)) for st in SELECT_STAGES)
+    # the 128-bit key instance, forced, at every stage
+    select.WIDE_KEYS = True
+    try:
+        err = max(err, max(compare(f"128-bit keys, stage {st}", *both(st))
+                           for st in SELECT_STAGES))
+        torch.cuda.synchronize()
+        wide_ms = time_ms(lambda: call(99), cfg.timing_runs)
+    finally:
+        select.WIDE_KEYS = None
+    # the grid syncs and sort passes of each launch (a -DK8_SYNCS build,
+    # its outputs the path's own)
+    lib = probe_run(probe, "select_syncs", "select", select,
+                    lambda: call(99), want)
+    counts = (ctypes.c_longlong * (4 + 2 * K8_STAMPS + 2 * K8_PASSES * 8))()
+    if lib.select_syncs(counts) != 0:
+        raise RuntimeError("select_syncs failed")
+    syncs, passes = (counts[0], counts[1]), (counts[2], counts[3])
+    spans = k8_spans(counts, syncs, passes)
+    if syncs[0] + syncs[1] > 25 or any(
+            syncs[k] > passes[k] + (7 if k == 0 else 1) for k in (0, 1)):
+        raise AssertionError(f"K8's grid syncs {syncs} (sort passes "
+                             f"{passes}): past the design's count")
+    grid = select._kernel_lib().select_grid(0)
+    one_sync = grid_sync_ms(probe, grid, cfg.timing_runs)
+    floor = (syncs[0] + syncs[1]) * one_sync
+    st4 = stage4_counts(sargs, trip_cap)
     forced = []
     caps0, kcap0 = record.buffer_caps, record.KCAP
     for name, spec in FORCED_SELECT.items():
@@ -1879,7 +1966,8 @@ def phase_stages(cfg: SmokeConfig, captured, work: Path):
         lines.append(f"stage {st} [{SELECT_BLOCKS[st]}] {sel_ms[st]:.4f} ms "
                      f"({sel_ms[st] - prev_ms:+.4f}), {trace}")
         prev_ms, prev_w = sel_ms[st], (w or prev_w)
-    attrs = select.kernel_attrs()
+    attrs = {(w, k): select.kernel_attrs(w, k) for w in (0, 1)
+             for k in (False, True)}
     k8, pl = windows[-2], windows[-1]
     say(f"[phase 1e] K8, select_and_record_device on buffer 1's inputs "
         f"(R={R}, trip_cap={trip_cap}): the kernels (csrc/select.cu, K9 "
@@ -1894,14 +1982,39 @@ def phase_stages(cfg: SmokeConfig, captured, work: Path):
         + f"; bound {bound:.4f} ms ({nbytes} bytes), the kernels at "
         f"{100 * bound / sel_ms[99]:.2f}% of it by events"
         + ("" if k8 is None else f", {100 * bound / k8[1]:.2f}% by trace")
-        + f"; select_kernel {attrs['registers']} registers, "
-        f"{attrs['local_bytes']} bytes of stack, {attrs['shared_bytes']} "
-        f"bytes of shared memory")
+        + "; " + "; ".join(
+            f"{('select_kernel', 'triples_kernel')[w]} "
+            f"{'128' if k else '64'}-bit keys {a['registers']} registers, "
+            f"{a['local_bytes']} bytes of stack, {a['shared_bytes']} bytes "
+            f"of shared memory" for (w, k), a in attrs.items())
+        + f" (ptxas: {select_ptxas(probe)})")
+    say(f"[phase 1e] K8's design: the 128-bit key instance == the plain "
+        f"version at every stage, {wide_ms:.4f} ms at stage 99 by events "
+        f"(64-bit: {sel_ms[99]:.4f}); grid syncs {syncs[0]} in the first "
+        f"launch and {syncs[1]} in the second ({syncs[0] + syncs[1]} a "
+        f"buffer), sort passes {passes[0]} and {passes[1]} (8-bit digits); "
+        f"one empty grid sync {1000 * one_sync:.3f} us on the {grid}-block "
+        f"grid (a launch of 200 less one of none), so a sync floor of "
+        f"{floor:.4f} ms, {100 * floor / sel_ms[99]:.1f}% of the function "
+        f"by events" + ("" if k8 is None else
+                        f", {100 * floor / k8[1]:.1f}% of its trace")
+        + f"; stage 4 (key rows, classes, pick) {sel_ms[4] - sel_ms[3]:.4f} "
+        f"ms by events over {st4['rows_one']} rows of one live state and "
+        f"{st4['rows_more']} of more, at most {st4['max_states']} a row; "
+        f"a state's run of sorted lanes at most {st4['max_run']}, "
+        f"{st4['mean_run']:.2f} on average; block 0's time between its "
+        f"grid syncs (us, the -DK8_SYNCS build, one call): {spans}; "
+        f"each sort pass's tiles 0 and T-1 (us: the tile's start after "
+        f"tile 0's, then ranking, look-back, scatter): "
+        f"{k8_pass_spans(counts)}")
     m = {"max_abs_err": err, "ms": sel_ms[99], "plain_ms": plain_ms,
          "bound_ms": bound, "library_ms": None}
-    return kernel_entry("select", "gramtools_tpu_torch/csrc/select.cu",
-                        "gramtools_tpu/mapping/record_jax.py:438", m,
-                        captured["per_buffer"], captured["trace_ms"])
+    entry = kernel_entry("select", "gramtools_tpu_torch/csrc/select.cu",
+                         "gramtools_tpu/mapping/record_jax.py:438", m,
+                         captured["per_buffer"], captured["trace_ms"])
+    entry.update(syncs=list(syncs), sort_passes=list(passes),
+                 one_sync_ms=one_sync, sync_floor_ms=floor)
+    return entry
 
 
 def fresh_cov(args, **over):
@@ -2199,19 +2312,44 @@ extern "C" int narrow_chase(const void* tab, int n, int start, int steps,
 """
 
 
+# An empty cooperative grid: ``syncs`` grid syncs and nothing else, on
+# the blocks and threads of K8's grid, so that the time a sync costs
+# there floors K8's launches (its syncs times one). A probe only.
+GRID_SYNC_SRC = r"""
+#include <cooperative_groups.h>
+__global__ void __launch_bounds__(256) grid_sync_kernel(int syncs, int* out) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  for (int s = 0; s < syncs; ++s) grid.sync();
+  if (blockIdx.x == 0 && threadIdx.x == 0) *out = syncs;
+}
+extern "C" int grid_sync_probe(int blocks, int syncs, void* out,
+                               void* stream) {
+  void* args[] = {&syncs, &out};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)grid_sync_kernel, dim3(blocks), dim3(256), args, 0,
+      reinterpret_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+"""
+
+
 def start_probe_build():
     """Start nvcc on the probes (into the package's git-ignored build
-    directory), all together: CURSOR_WALK_SRC and NARROW_CHASE_SRC in one
-    file; csrc/wide_step.cu with -DK2_STAMPS and csrc/locked_step.cu with
-    -DK3_STAMPS (the scan kernels' stage stamps and grid-sync counts); and
-    the two scan kernels' path builds with -Xptxas -v (their registers,
-    spills and shared memory as ptxas reports them). Returns {name:
-    (process, library path)}."""
+    directory), all together: CURSOR_WALK_SRC, NARROW_CHASE_SRC and
+    GRID_SYNC_SRC in one file; csrc/wide_step.cu with -DK2_STAMPS and
+    csrc/locked_step.cu with -DK3_STAMPS (the scan kernels' stage stamps
+    and grid-sync counts); csrc/select.cu with -DK8_SYNCS (K8's grid
+    syncs and sort passes a launch, and their time stamps); and the path
+    builds of the two scan
+    kernels and of K8 with -Xptxas -v (their registers, spills and
+    shared memory as ptxas reports them). Returns {name: (process,
+    library path)}."""
     from gramtools_tpu_torch.ops import _build
 
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     src = _build.BUILD_DIR / "smoke_probes.cu"
-    src.write_text(CURSOR_WALK_SRC + NARROW_CHASE_SRC)
+    src.write_text(CURSOR_WALK_SRC + NARROW_CHASE_SRC + GRID_SYNC_SRC)
     jobs = {}
     cu = lambda name: _build.CSRC_DIR / f"{name}.cu"
     for name, source, flags in (
@@ -2219,7 +2357,9 @@ def start_probe_build():
             ("wide_stamps", cu("wide_step"), ["-DK2_STAMPS"]),
             ("stamps", cu("locked_step"), ["-DK3_STAMPS"]),
             ("wide_ptxas", cu("wide_step"), ["-Xptxas", "-v"]),
-            ("tail_ptxas", cu("locked_step"), ["-Xptxas", "-v"])):
+            ("tail_ptxas", cu("locked_step"), ["-Xptxas", "-v"]),
+            ("select_syncs", cu("select"), ["-DK8_SYNCS"]),
+            ("select_ptxas", cu("select"), ["-Xptxas", "-v"])):
         lib = _build.BUILD_DIR / f"libsmoke_{name}.so"
         jobs[name] = (subprocess.Popen(
             [_build._nvcc()] + _build.NVCC_FLAGS + flags
@@ -2253,6 +2393,11 @@ def probe_lib(probe, name: str = "probes"):
         if name == "probes":
             lib.narrow_chase.argtypes = [p, i, i, i, p, p]
             lib.narrow_chase.restype = ctypes.c_int
+            lib.grid_sync_probe.argtypes = [i, i, p, p]
+            lib.grid_sync_probe.restype = ctypes.c_int
+        elif name == "select_syncs":
+            lib.select_syncs.argtypes = [p]
+            lib.select_syncs.restype = ctypes.c_int
         elif name == "stamps":
             lib.locked_tail_stamps.argtypes = [p, i]
             lib.locked_tail_stamps.restype = ctypes.c_int
@@ -2288,6 +2433,102 @@ def ptxas_line(probe, name: str, kernel: str) -> str:
                    for line in lines[at[0] + 1:at[0] + 4]
                    if "ptxas info" in line and "Compiling" not in line)
     return re.sub(r"\s+", " ", rep)
+
+
+# the mangled instance of K8's kernels: unsigned long (64-bit keys), or
+# unsigned __int128
+K8_INSTANCES = {"64-bit": "ImE", "128-bit": "IoE"}
+
+
+K8_STAMPS = 32                    # csrc/select.cu kK8Stamps
+K8_PASSES = 12                    # csrc/select.cu kMaxPasses
+
+
+def k8_pass_spans(counts) -> str:
+    """Each sort pass's stamps (``select_syncs``, after the sync stamps):
+    for tiles 0 and T - 1, the tile's start after tile 0's, then its
+    ranking, its digits' look-back and its scatter, in microseconds."""
+    at = 4 + 2 * K8_STAMPS
+    out = []
+    for launch, sort in ((0, "dedup"), (1, "triple")):
+        for pass_ in range(K8_PASSES):
+            base = at + (launch * K8_PASSES + pass_) * 8
+            t0, t1 = counts[base:base + 4], counts[base + 4:base + 8]
+            if not all(t0) or not all(t1):
+                continue
+            span = lambda t: "/".join(f"{(b - a) / 1000:.2f}"
+                                      for a, b in zip(t, t[1:]))
+            out.append(f"{sort} pass {pass_ + 1} tile 0 {span(t0)}, tile "
+                       f"T-1 +{(t1[0] - t0[0]) / 1000:.2f} {span(t1)}")
+    return "; ".join(out)
+
+
+def k8_spans(counts, syncs, passes) -> str:
+    """Block 0's microseconds from one stamp to the next in each of K8's
+    launches (``select_syncs``: its start, the end of each grid sync, its
+    end), named by the phase they hold."""
+    names = (["zeroing", "stage 0 + the encapsulated widths' scan",
+              "stage 1 (lanes, run starts)",
+              "stage 2 + the loci, traversing and row-count scans",
+              "the loci lanes + buckets", "keys + histogram"]
+             + [f"dedup pass {k + 1}" for k in range(passes[0])]
+             + ["kept lanes, conflicts, runs", "stages 4-5 (block 0)"],
+             ["row keys + histogram"]
+             + [f"triple pass {k + 1}" for k in range(passes[1])]
+             + ["the triples out (block 0)"])
+    out = []
+    for launch in (0, 1):
+        t = counts[4 + launch * K8_STAMPS:][:syncs[launch] + 2]
+        us = [(b - a) / 1000 for a, b in zip(t, t[1:])]
+        named = names[launch] if len(names[launch]) == len(us) else [
+            f"span {k}" for k in range(len(us))]
+        out.append(f"launch {launch + 1} " + ", ".join(
+            f"{n} {u:.2f}" for n, u in zip(named, us)))
+    return "; ".join(out)
+
+
+def select_ptxas(probe) -> str:
+    """The ptxas report of K8's two kernels in both key instances
+    (the -Xptxas -v build of csrc/select.cu): registers, stack and
+    static shared bytes."""
+    lines = probe_wait(probe, "select_ptxas").splitlines()
+    out = []
+    for kernel in ("select_kernel", "triples_kernel"):
+        for inst, tag in K8_INSTANCES.items():
+            at = [k for k, line in enumerate(lines)
+                  if "Compiling entry function" in line
+                  and f"{kernel}{tag}" in line]
+            near = lines[at[0]:at[0] + 4] if at else []
+            used = [line for line in near if "Used" in line]
+            spill = [line.strip() for line in near if "spill" in line]
+            rep = (re.sub(r".*Used ", "", used[0]).strip()
+                   + (f" ({spill[0]})" if spill else "") if used
+                   else "no ptxas report")
+            out.append(f"{kernel} {inst}: {rep}")
+    return "; ".join(out)
+
+
+def grid_sync_ms(probe, blocks: int, runs: int) -> float:
+    """One empty grid sync's time on a cooperative grid of ``blocks``
+    blocks of 256 threads (GRID_SYNC_SRC): a launch of 200 syncs less a
+    launch of none, by queued CUDA events, over 200."""
+    import torch
+
+    lib = probe_lib(probe)
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(syncs):
+        err = lib.grid_sync_probe(blocks, syncs, out.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"grid sync probe: CUDA error {err}")
+
+    t0 = time_ms(lambda: launch(0), runs)
+    t1 = time_ms(lambda: launch(200), runs)
+    torch.cuda.synchronize()
+    if int(out.item()) != 200:
+        raise AssertionError("the grid sync probe did not run its syncs")
+    return (t1 - t0) / 200
 
 
 def probe_run(probe, name: str, lib_name: str, module, call, want):
@@ -3089,6 +3330,79 @@ def trace_k10(saved: Path) -> dict:
             "markers": sum(MARK in n for _, _, n in timeline)}
 
 
+def k8_turns(cfg: SmokeConfig, captured, work: Path, others) -> list:
+    """``--k8-turns``: K8 of other checkouts (``others``, e.g. the parent
+    commit unpacked with ``git archive``) and of this one on buffer 1's
+    selection inputs, in turns (the others, this, this, the others in
+    reverse), each turn a process of its own (``--time-k8``) that builds
+    its checkout's kernels and times ``select_and_record_device`` (K9
+    inside) by queued events and its two kernels in one traced call.
+    Returns the turns' results."""
+    import torch
+
+    (sargs, skw) = captured["select"]
+    path = work / "k8_args.pt"
+    torch.save({"args": list(sargs[:13]) + [torch.zeros_like(sargs[13])],
+                "trip_cap": skw["trip_cap"]}, path)
+    turns = []
+    for checkout in (list(others) + [str(REPO), str(REPO)]
+                     + list(others)[::-1]):
+        proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"),
+                               "--time-k8", str(path), checkout],
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"--time-k8 on {checkout} failed (exit "
+                               f"{proc.returncode}):\n{proc.stderr[-3000:]}")
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        turns.append(got)
+        say(f"[k8 turns] {checkout}: K8 {got['ms']:.4f} ms by events "
+            f"({cfg.timing_runs} queued calls, K9 inside), traced "
+            f"select_kernel {got['select_ms']:.4f} ms + triples_kernel "
+            f"{got['triples_ms']:.4f} ms = "
+            f"{got['select_ms'] + got['triples_ms']:.4f} ms")
+    path.unlink()
+    return turns
+
+
+def time_k8(saved: Path, checkout: str) -> dict:
+    """The body of ``--time-k8``: the checkout's selection on the saved
+    inputs, by queued CUDA events (20 calls, K9 inside) and traced once
+    (its select and triples kernels' device time)."""
+    import torch
+
+    sys.path.insert(0, checkout)
+    from gramtools_tpu_torch.mapping import record
+    from gramtools_tpu_torch.ops import _build
+
+    if not Path(record.__file__).resolve().is_relative_to(
+            Path(checkout).resolve()):
+        raise AssertionError(f"{record.__file__} is not {checkout}'s")
+    _build.build_all(["select", "walk"])
+    got = torch.load(saved, weights_only=False)
+    args, cap = got["args"], got["trip_cap"]
+
+    def call():
+        return record.select_and_record_device(*args, trip_cap=cap)
+
+    ms = time_ms(call, 20)
+    call()
+    torch.cuda.synchronize()
+    kern = {"select": 0.0, "triples": 0.0}
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    for ev in prof.events():
+        t = getattr(ev, "device_time", None)
+        if t is None:
+            t = getattr(ev, "cuda_time", 0.0)
+        for g in kern:
+            if is_kernel(ev.name, g):
+                kern[g] += t / 1000.0
+    return {"checkout": checkout, "ms": ms, "select_ms": kern["select"],
+            "triples_ms": kern["triples"]}
+
+
 def phase_pool(work: Path):
     """Phase 5c: genotype --engine device --max_threads 2 on the parity
     reads, byte-equal to phase 4's host engine run."""
@@ -3126,7 +3440,8 @@ def phase_pool(work: Path):
             for k, n in launches_before.items()))
 
 
-def run(cfg: SmokeConfig, device, scan_only: bool = False) -> dict:
+def run(cfg: SmokeConfig, device, scan_only: bool = False,
+        turns=()) -> dict:
     import torch
 
     from gramtools_tpu_torch.ops import (_build, locked_step, rank, replay,
@@ -3153,7 +3468,10 @@ def run(cfg: SmokeConfig, device, scan_only: bool = False) -> dict:
         entries, captured = phase_path(cfg, idx, kmer_index, reads, device,
                                        work, dense, k1_b, probe)
         if not scan_only:
-            entries.append(phase_stages(cfg, captured, work))
+            entries.append(phase_stages(cfg, captured, work, probe))
+        if turns:
+            return {"kernels": entries,
+                    "k8_turns": k8_turns(cfg, captured, work, turns)}
         entries += phase_scan_kernels(cfg, captured, work, probe)
         del captured
         if scan_only:
@@ -3209,8 +3527,22 @@ def main() -> int:
     if sys.argv[1:2] == ["--trace-k10"] and len(sys.argv) == 3:
         print(json.dumps(trace_k10(Path(sys.argv[2]))), flush=True)
         return 0
+    if sys.argv[1:2] == ["--time-k8"] and len(sys.argv) == 4:
+        sys.path.remove(str(REPO))
+        print(json.dumps(time_k8(Path(sys.argv[2]), sys.argv[3])),
+              flush=True)
+        return 0
+    if sys.argv[1:2] == ["--k8-turns"] and len(sys.argv) >= 3:
+        result = run(SmokeConfig(), torch.device("cuda"),
+                     turns=[str(Path(a).resolve()) for a in sys.argv[2:]])
+        say(f"[done] phases 0, 1, 1d, 1e and K8's turns (--k8-turns) "
+            f"passed in {time.perf_counter() - t0:.1f} s; the other phases "
+            f"not run")
+        print(json.dumps(result), flush=True)
+        return 0
     if sys.argv[1:]:
-        print(f"usage: {sys.argv[0]} [--scan-only]", file=sys.stderr)
+        print(f"usage: {sys.argv[0]} [--scan-only | --k8-turns CHECKOUT "
+              f"...]", file=sys.stderr)
         return 2
     result = run(SmokeConfig(), torch.device("cuda"))
     say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")

@@ -21,19 +21,20 @@
 //        the lanes sorted by (state, site, allele) (a radix sort of a
 //        packed key, below); the first of each equal run kept;
 //        FB_CONFLICT where two kept neighbours share (state, site);
-//     4  each live state's key row (its first KCAP distinct base sites,
-//        ascending, padded with -1; FB_KCAP past them) from its run of
-//        the sorted lanes; the live states bucketed by row (a count, a
-//        scan, a scatter); a warp a row ranks its states' key rows
-//        (class_ord: the distinct key rows below a state's own; the
-//        classes: the distinct key rows) and makes the pick
-//        (libstdc++'s uniform_int first draw, FB_RNG), marking the
-//        chosen class's states selected;
+//     4  a thread a row (a warp where a row has more than kSmallRow live
+//        states): each of its live states' key row (its first KCAP
+//        distinct base sites, ascending, padded with -1; FB_KCAP past
+//        them) from its run of the sorted lanes, the row's classes
+//        (class_ord: the distinct key rows below a state's own, by
+//        comparing every pair of the row's states) and the pick
+//        (libstdc++'s uniform_int first draw, FB_RNG), marking the chosen
+//        class's states selected;
 //     5  where LT > trip_cap, FB_TRIPS on each row whose selected kept
-//        lanes reach past trip_cap in row order (a count a row, a scan).
+//        lanes reach past trip_cap in row order (a count a row, kept by
+//        the row's thread, and a scan).
 //   triples_kernel  (after K9) each lane's row key (the row of a kept
 //        lane of a selected state whose row has no fallback bit, R + 1
-//        else) and one radix sort of (row key, site, allele) over every
+//        else) and a radix sort of (row key, site, allele) over every
 //        lane, cut or padded to trip_cap: the selected triples first, row
 //        by row, then the (site, allele)-sorted values of every other
 //        lane, invalid lanes included, as the jnp sort leaves them.
@@ -52,34 +53,71 @@
 // order. Every masked write of the jnp code that XLA drops writes
 // nothing here.
 //
-// The radix sort: keys of up to 128 bits, (primary << (sb + ab)) |
-// (site - site_min) << ab | (allele - allele_min), where sb and ab are the
-// bits of the site and allele ranges over the lanes (a min/max reduction
-// in the launch), so the passes are as many as the data needs: a
-// 20,000-read buffer (R = 30,720 rows, NS = 43,008 states) on a graph of
-// 100,000 biallelic sites (site markers below 2^18, alleles -1..1) needs
-// 16 + 18 + 2 bits for the dedup sort and 15 + 18 + 2 for the triple
-// sort, 9 passes of 4-bit digits each. A pass is a tile histogram
-// (2,048 keys a tile, one counter column a thread) and a stable scatter
-// (each digit's place: the digits below it, the tiles before this one,
-// the threads before this one, the keys before this one in the thread).
+// What bounds it on this card: latency and grid-wide barriers, not bytes
+// (a buffer moves ~10 MB, 3 us at 3.35 TB/s). So the design counts its
+// grid syncs. Every scan (the expansions' widths, their marks' prefix
+// max, the encapsulated runs' starts, the row counts, the selected-lane
+// counts) is a chained scan over tiles of 256 items with decoupled
+// look-back (Merrill and Garland, 2016; descriptor words of
+// scan_common.cuh, state beside value): no grid sync inside it. Grid
+// syncs stand only where a phase reads what any block may have written:
+// the zeroed accumulators, the marks (an atomic max from any item), the
+// state table, the lanes, the key bits and each sort pass's output.
+//
+// The radix sorts: keys (primary << L) | (site - site_min) << ab |
+// (allele - allele_min), where sb and ab are the bits of the site and
+// allele ranges over the lanes (a min/max reduction in the launch) and L
+// is sb + ab rounded up to whole 8-bit digits, so the passes are as many
+// as the data needs: a 20,000-read buffer (R = 30,720 rows, NS = 43,008
+// states) on a graph of 100,000 biallelic sites (site markers below 2^18,
+// alleles -1..1) packs 16 + 24 bits for the dedup sort and 15 + 24 for the
+// triple sort. The key is a uint64_t where the host's bound on that width
+// (ops/select.py::key_bits: from the shapes, the states, the rows, the
+// sites and the graph's nodes) is at most 64, an unsigned __int128
+// otherwise; the C entry point takes the instance as an argument. A 64-bit
+// instance given lanes whose exact width passes 64 (sites or alleles
+// outside the graph's tables) traps: a launch error, never a wrong sort.
+// Each sort is a one-sweep LSD sort of 8-bit digits (Adinets and Merrill,
+// "Onesweep", 2022): one sweep builds every digit's histogram (a grid
+// sync), then each pass reads its tile once, ranks its keys by warp
+// multisplit (__match_any_sync and a digit counter a warp in shared
+// memory), finds each digit's offset over the tiles before it by a
+// chained scan of per-tile, per-digit descriptors (one thread a digit
+// looks back, 4 tiles at a time) and scatters: one grid sync a pass. A pass whose digit is
+// the same for every key is skipped. Tiles are 256 threads of 1-8 keys,
+// as many as spread the keys over the grid, so that every co-resident
+// block has a tile. The dedup sort's passes over the fields leave the
+// lanes in (site, allele) order in a buffer that its later passes, over
+// the state, do not overwrite; those carry each key's place in that order
+// beside it, so each kept flag also lands at its lane's place there. The
+// triple sort starts from that order, each lane's state replaced by its
+// row key, and runs the row key's passes only: sorted tuples do not
+// depend on how ties were broken, so this is the sort of every lane's
+// (row key, site, allele). 40 bits take 5 passes, the row key's 15 bits
+// 2.
 //
 // A launch is a cooperative grid (the blocks co-resident on the card, at
-// most kBlocksPerSm an SM): the phases are grid-stride loops or chunked
-// scans (a block's chunk reduced, a grid sync, each block's carry the
-// fold of the chunks before it) separated by grid syncs, about 40 in the
-// first launch and 20 in the second. ``stage`` (GRAMTOOLS_TPU_RECORD_STAGE)
-// stops the first launch after the numbered block, as the jnp code
-// returns there.
+// most kBlocksPerSm an SM); its blocks take their tiles of each scan and
+// sort pass in increasing order, so the least tile not done waits on
+// finished tiles only. Grid syncs: 7 + the dedup sort's passes in the
+// first launch (12 at 5 passes), 1 + the row key's passes in the second
+// (3 at 2). ``stage`` (GRAMTOOLS_TPU_RECORD_STAGE) stops the first
+// launch after the numbered block, as the jnp code returns there.
 //
 // C interface for ctypes (no PyTorch headers): the wrapper passes raw
 // device pointers, its scratch and PyTorch's current stream; the launch
-// functions return the launch's cudaError_t, 0 on success.
+// functions return the launch's cudaError_t, 0 on success. A build with
+// -DK8_SYNCS counts each launch's grid syncs and sort passes and stamps
+// block 0's time at each sync and each sort pass's first and last tiles'
+// at each stage (select_syncs), for the smoke; the path's build counts
+// nothing.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include "scan_common.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -87,14 +125,19 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kItems = 8;                    // keys a thread in a sort tile
-constexpr int kTile = kThreads * kItems;
-constexpr int kDigits = 16;                  // 4-bit radix digits
+constexpr int kRadix = 256;                  // 8-bit digits
+constexpr int kMaxItems = 8;                 // keys a thread in a sort tile
+constexpr int kMaxPasses = 12;               // 8-bit digits of 95 bits
+constexpr int kRowTile = kThreads;           // rows a stage-4 tile
+constexpr int kSmallRow = 4;                 // live states a row that one
+                                             // thread ranks; a warp more
 constexpr int kTcap = 16;                    // search_log_host.TCAP
 constexpr int kMaxKcap = 12;                 // search_log_host.KCAP
 constexpr int kBlocksPerSm = 2;
 constexpr int kMaxDevices = 64;
 constexpr unsigned kAll = 0xFFFFFFFFu;
+
+static_assert(kThreads == kRadix, "a thread a digit");
 
 // search_log_host.FB_*
 constexpr int kFbChain = 1, kFbEnc = 2, kFbDupSite = 4, kFbTrav = 8,
@@ -102,13 +145,25 @@ constexpr int kFbChain = 1, kFbEnc = 2, kFbDupSite = 4, kFbTrav = 8,
               kFbLoci = 1024;
 
 typedef unsigned __int128 u128;
+typedef unsigned long long Word;             // a descriptor word
 
 // meta words
 enum { kSiteMin, kSiteMax, kAlleleMin, kAlleleMax, kTotalE, kTotalL,
-       kTotalT, kSorted, kMeta = 16 };
-// chunk aggregates, one row of G each
-enum { kAggE, kAggEm, kAggRun, kAggL, kAggT, kAggLm, kAggTm, kAggRows,
-       kAggTrips, kAggs };
+       kTotalT, kMid, kMeta = 16 };
+// the chained scans' descriptor arrays, a word a tile each
+enum { kDescE, kDescEm, kDescRun, kDescL, kDescT, kDescRows, kDescLm,
+       kDescTm, kDescTrips, kDescs };
+
+// keys a thread in a sort tile: as many as spread n keys over the grid
+__host__ __device__ inline int sort_items(long long n, int grid) {
+  const long long per = (n + (long long)grid * kThreads - 1)
+                        / ((long long)grid * kThreads);
+  return per < 1 ? 1 : (per > kMaxItems ? kMaxItems : (int)per);
+}
+
+__host__ __device__ inline long long tiles_of(long long n, long long per) {
+  return (n + per - 1) / per;
+}
 
 struct Params {
   // pool states (N)
@@ -158,14 +213,9 @@ struct Params {
   // scratch
   int* ps_ning;
   int* ing_parent;
+  unsigned char* ps_live;
   int* cum_e;
   int* e_marks;
-  int* e_item;
-  int* occ_sa;
-  int* occ_site;
-  int* occ_allele;
-  unsigned char* e_valid;
-  unsigned char* ps_live;
   int* nonvar;
   int* cum_l;
   int* cum_t;
@@ -174,10 +224,15 @@ struct Params {
   int* lane_key;
   int* lane_site;
   int* lane_allele;
-  u128* keys_a;
-  u128* keys_b;
+  void* keys_a;                     // (LT,) keys of the instance's type
+  void* keys_b;
+  void* keys_c;
+  unsigned* vals_a;                 // (LT,) each key's place in the
+  unsigned* vals_b;                 // field order
   unsigned char* keep;
-  int* hist;
+  unsigned char* keep_mid;          // keep, at each key's place in the
+                                    // field order
+  int* hist;                        // (2, kMaxPasses, kRadix)
   int* seg_start;
   int* seg_end;
   int* key_mat;                     // (NS, kcap)
@@ -186,10 +241,56 @@ struct Params {
   int* row_cur;
   int* bucket;
   unsigned char* first_occ;
-  int* n_sel;
-  int* agg;                         // (kAggs, grid)
+  Word* desc[kDescs];               // the scans' descriptors
+  Word* sort_desc;                  // (sort tiles, kRadix), every pass
+  int n_desc;                       // words in desc[0..kDescs) together
+  int sort_tiles;
   int* meta;
 };
+
+#ifdef K8_SYNCS
+// [0] the first launch's grid syncs, [1] the second's, [2] and [3] their
+// sort passes run; block 0's thread 0 counts, zeroing at its launch's
+// start. g_k8_t[launch]: the global timer (ns) at block 0's start, at the
+// end of each of its grid syncs and at its end. g_k8_p[launch][pass]
+// [tile 0, tile T - 1]: the timer at the tile's start, its keys ranked,
+// its digits' look-back done and its keys scattered.
+constexpr int kK8Stamps = 32;
+__device__ unsigned long long g_k8[4];
+__device__ unsigned long long g_k8_t[2][kK8Stamps];
+__device__ unsigned long long g_k8_p[2][kMaxPasses][2][4];
+#endif
+
+__device__ __forceinline__ void count_k8(int which) {
+#ifdef K8_SYNCS
+  if (blockIdx.x == 0 && threadIdx.x == 0) ++g_k8[which];
+#endif
+}
+
+// block 0's stamp ``at`` syncs past its launch's last one (0: after it)
+__device__ __forceinline__ void stamp_k8(int launch, int at) {
+#ifdef K8_SYNCS
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    const unsigned long long k = g_k8[launch] + at;
+    if (k < kK8Stamps) g_k8_t[launch][k] = scan_dev::global_timer();
+  }
+#endif
+}
+
+// the sort pass's stamp k of tile t of T (g_k8_p), by the tile's thread 0
+__device__ __forceinline__ void stamp_pass(int slot, int t, int T, int k) {
+#ifdef K8_SYNCS
+  if (threadIdx.x == 0 && (t == 0 || t == T - 1) && slot >= 0)
+    g_k8_p[slot / kMaxPasses][slot % kMaxPasses][t == 0 ? 0 : 1][k] =
+        scan_dev::global_timer();
+#endif
+}
+
+__device__ __forceinline__ void grid_sync(cg::grid_group& grid, int launch) {
+  count_k8(launch);
+  grid.sync();
+  stamp_k8(launch, 0);
+}
 
 struct Sums {
   __device__ static int id() { return 0; }
@@ -232,23 +333,29 @@ __device__ __forceinline__ int warp_reduce(int v) {
   return v;
 }
 
-// Op over the block's values; every thread gets it. ws: kWarps ints.
+// the block's shared words of the reductions and the chained scans
+struct ScanSmem {
+  int ws[kWarps];
+  int excl;
+};
+
+// Op over the block's values; every thread gets it
 template <class Op>
-__device__ int block_reduce(int v, int* ws) {
+__device__ int block_reduce(int v, ScanSmem& sm) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   v = warp_reduce<Op>(v);
-  if (lane == 0) ws[warp] = v;
+  if (lane == 0) sm.ws[warp] = v;
   __syncthreads();
   int r = Op::id();
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) r = Op::f(r, ws[w]);
+  for (int w = 0; w < kWarps; ++w) r = Op::f(r, sm.ws[w]);
   __syncthreads();
   return r;
 }
 
 // inclusive Op-scan over the block's threads; *total: the block's fold
 template <class Op>
-__device__ int block_scan(int v, int* ws, int* total) {
+__device__ int block_scan(int v, ScanSmem& sm, int* total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int x = v;
 #pragma unroll
@@ -256,208 +363,293 @@ __device__ int block_scan(int v, int* ws, int* total) {
     const int y = __shfl_up_sync(kAll, x, d);
     if (lane >= d) x = Op::f(y, x);
   }
-  if (lane == 31) ws[warp] = x;
+  if (lane == 31) sm.ws[warp] = x;
   __syncthreads();
   int before = Op::id(), all = Op::id();
 #pragma unroll
   for (int w = 0; w < kWarps; ++w) {
-    if (w < warp) before = Op::f(before, ws[w]);
-    all = Op::f(all, ws[w]);
+    if (w < warp) before = Op::f(before, sm.ws[w]);
+    all = Op::f(all, sm.ws[w]);
   }
   __syncthreads();
   *total = all;
   return Op::f(before, x);
 }
 
-// [lo, hi): block blockIdx.x's chunk of n items
-__device__ __forceinline__ void chunk(int n, int& lo, int& hi) {
-  const long long per = ((long long)n + gridDim.x - 1) / gridDim.x;
-  lo = (int)min((long long)n, per * blockIdx.x);
-  hi = (int)min((long long)n, (long long)lo + per);
-}
+// ---------------------------------------------------------------------------
+// chained scans with decoupled look-back (descriptor words of
+// scan_common.cuh: state << 32 | value)
+// ---------------------------------------------------------------------------
 
-// agg[blockIdx.x] = the Op-fold of value(i) over the block's chunk
-template <class Op, class F>
-__device__ void reduce_chunk(int n, F value, int* agg, int* ws) {
-  int lo, hi;
-  chunk(n, lo, hi);
-  int acc = Op::id();
-  for (int i = lo + (int)threadIdx.x; i < hi; i += kThreads)
-    acc = Op::f(acc, value(i));
-  acc = block_reduce<Op>(acc, ws);
-  if (threadIdx.x == 0) agg[blockIdx.x] = acc;
-}
-
-// emit(i, the inclusive Op-scan of value up to i) over the block's chunk,
-// its carry the fold of the chunks before it (agg, from reduce_chunk)
-template <class Op, class F, class E>
-__device__ void scan_chunk(int n, F value, const int* agg, int* ws, E emit) {
-  int carry = Op::id();
-  for (int b = threadIdx.x; b < (int)blockIdx.x; b += kThreads)
-    carry = Op::f(carry, agg[b]);
-  carry = block_reduce<Op>(carry, ws);
-  int lo, hi;
-  chunk(n, lo, hi);
-  for (int base = lo; base < hi; base += kThreads) {
-    const int i = base + threadIdx.x;
-    const int v = i < hi ? value(i) : Op::id();
-    int total;
-    const int incl = block_scan<Op>(v, ws, &total);
-    if (i < hi) emit(i, Op::f(carry, incl));
-    carry = Op::f(carry, total);
+// The Op-fold of the tiles before tile t > 0 (descriptors d), by decoupled
+// look-back: lane l reads tile end - l of each window of 32, back to the
+// nearest inclusive prefix. Called by one whole warp; Op commutes.
+template <class Op>
+__device__ int lookback(const Word* d, int t) {
+  const int lane = threadIdx.x & 31;
+  int excl = Op::id();
+  for (int end = t - 1;; end -= 32) {
+    const int j = end - lane;
+    Word w = ((Word)scan_dev::kInclusive << 32) | (unsigned)Op::id();
+    if (j >= 0) {
+      for (int spins = 0; ((w = scan_dev::get_word(d + j)) >> 32)
+                          == (Word)scan_dev::kEmpty; ++spins)
+        scan_dev::wait(spins);
+    }
+    const unsigned inc = __ballot_sync(
+        kAll, (w >> 32) == (Word)scan_dev::kInclusive);
+    const int stop = inc ? __ffs(inc) - 1 : 31;
+    excl = Op::f(excl, warp_reduce<Op>(lane <= stop ? (int)(unsigned)w
+                                                    : Op::id()));
+    if (inc) return excl;
   }
 }
 
+// Tile ``tile``'s step of a chained Op-scan over descriptors d, one value a
+// thread (Op::id() where there is none): publishes the tile's fold (tile
+// 0: as its inclusive prefix), looks back by warp 0 and publishes the
+// inclusive prefix. Returns the thread's inclusive prefix over every tile
+// so far; *excl gets the tiles' before this one. Every thread calls it.
+template <class Op>
+__device__ int tile_scan(int v, Word* d, int tile, ScanSmem& sm,
+                         int* excl = nullptr) {
+  int total;
+  const int incl = block_scan<Op>(v, sm, &total);
+  if (threadIdx.x < 32) {
+    if (threadIdx.x == 0)
+      scan_dev::put_word(d + tile, tile == 0 ? scan_dev::kInclusive
+                                             : scan_dev::kAggregate, total);
+    int e = Op::id();
+    if (tile > 0) {
+      e = lookback<Op>(d, tile);
+      if (threadIdx.x == 0)
+        scan_dev::put_word(d + tile, scan_dev::kInclusive, Op::f(e, total));
+    }
+    if (threadIdx.x == 0) sm.excl = e;
+  }
+  __syncthreads();
+  const int e = sm.excl;
+  __syncthreads();
+  if (excl) *excl = e;
+  return Op::f(e, incl);
+}
+
 // ---------------------------------------------------------------------------
-// the radix sort
+// the one-sweep radix sort
 // ---------------------------------------------------------------------------
 
 struct SortSmem {
-  int cnt[kDigits * kThreads];     // a counter column a thread
-  int tot[kDigits];
-  int base[kDigits];
+  int wcnt[kWarps][kRadix];   // a digit counter a warp; then each warp's
+                              // first place of each digit
+  int gbase[kRadix];          // the digits' first places over all tiles
 };
 
-__device__ __forceinline__ int digit(u128 k, int shift) {
-  return (int)(k >> shift) & (kDigits - 1);
+struct HistSmem {
+  int h[kMaxPasses][kRadix];
+};
+
+template <class K>
+__device__ __forceinline__ int digit(K k, int shift) {
+  return (int)(k >> shift) & (kRadix - 1);
 }
 
-// the thread's column of digit counts over its kItems keys of tile t
-__device__ void count_digits(const u128* src, int n, int shift, int t,
-                             int* cnt) {
+// a sort pass's descriptor word: (tag << 1 | inclusive) << 32 | count, the
+// tag the pass's own (1, 2, ...), so one array serves every pass; a word
+// of an earlier pass reads as empty
+__device__ __forceinline__ void put_count(Word* w, int tag, bool inc,
+                                          int count) {
+  scan_dev::put_word(w, (tag << 1) | (inc ? 1 : 0), count);
+}
+
+// tiles a digit's look-back reads at once: 4 beat 1, 2, 8 and 16 by events
+// on the smoke's buffer (PERF.md); 8 spills the 128-bit instance
+constexpr int kWindow = 4;
+
+// digit d's keys in the tiles before tile t > 0 of the pass tagged
+// ``tag``: one thread looks back kWindow tiles at a time (their loads in
+// flight together), to the nearest inclusive count
+__device__ __forceinline__ int digit_lookback(const Word* desc, int t, int d,
+                                              int tag) {
+  int excl = 0;
+  for (int end = t - 1;; end -= kWindow) {
+    Word w[kWindow];
 #pragma unroll
-  for (int d = 0; d < kDigits; ++d) cnt[d * kThreads + threadIdx.x] = 0;
-  const int first = t * kTile + threadIdx.x * kItems;
+    for (int i = 0; i < kWindow; ++i)
+      if (end - i >= 0)
+        w[i] = scan_dev::get_word(desc + (size_t)(end - i) * kRadix + d);
 #pragma unroll
-  for (int j = 0; j < kItems; ++j)
-    if (first + j < n) ++cnt[digit(src[first + j], shift) * kThreads +
-                             threadIdx.x];
+    for (int i = 0; i < kWindow; ++i) {
+      // tile 0 is inclusive, so the look-back stops at it at the latest
+      const Word* at = desc + (size_t)(end - i) * kRadix + d;
+      for (int spins = 0; (int)(w[i] >> 33) != tag; ++spins) {
+        scan_dev::wait(spins);
+        w[i] = scan_dev::get_word(at);
+      }
+      excl += (int)(unsigned)w[i];
+      if ((w[i] >> 32) & 1) return excl;
+    }
+  }
+}
+
+// Adds the digit counts of passes [pass0, passes) of the keys key(0), ...,
+// key(n - 1)
+// (grid-strided; ``key`` may write its key where the sort reads it) to
+// hist (kMaxPasses rows of kRadix, zeroed behind a grid sync). Every
+// thread calls it.
+template <class K, class F>
+__device__ void sort_histogram(int n, int pass0, int passes, int* hist,
+                               HistSmem& s, F key) {
+  for (int i = threadIdx.x; i < passes * kRadix; i += kThreads)
+    (&s.h[0][0])[i] = 0;
   __syncthreads();
+  for (int q = blockIdx.x * kThreads + threadIdx.x; q < n;
+       q += gridDim.x * kThreads) {
+    const K k = key(q);
+    for (int pass = pass0; pass < passes; ++pass)
+      atomicAdd(&s.h[pass][digit(k, 8 * pass)], 1);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < passes * kRadix; i += kThreads) {
+    const int c = (&s.h[0][0])[i];
+    if (c) atomicAdd(hist + i, c);
+  }
 }
 
-// hist[d * T + t]: the keys of tile t with digit d
-__device__ void sort_hist(const u128* src, int n, int shift, int* hist,
-                          int T, SortSmem& s) {
+// One stable pass by digit (k >> shift) & 255 from src to dst, tiles of
+// kThreads * items keys; hist: the pass's kRadix digit counts. With
+// kVals, each key's value (sv[i], or i where sv is null) goes with it
+// from sv to dv.
+template <class K, bool kVals>
+__device__ void sort_pass(const K* src, K* dst, const unsigned* sv,
+                          unsigned* dv, int n, int shift, int items,
+                          const int* hist, Word* desc, int tag, SortSmem& s,
+                          ScanSmem& sm, int slot) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned lower = (1u << lane) - 1;
+  {
+    const int v = hist[threadIdx.x];
+    int total;
+    s.gbase[threadIdx.x] = block_scan<Sums>(v, sm, &total) - v;
+  }
+  const int per = kThreads * items;
+  const int T = (int)tiles_of(n, per);
   for (int t = blockIdx.x; t < T; t += gridDim.x) {
-    count_digits(src, n, shift, t, s.cnt);
-    for (int d = warp; d < kDigits; d += kWarps) {
-      int v = 0;
-      for (int q = lane; q < kThreads; q += 32) v += s.cnt[d * kThreads + q];
-      v = warp_reduce<Sums>(v);
-      if (lane == 0) hist[d * T + t] = v;
+    stamp_pass(slot, t, T, 0);
+    for (int d = lane; d < kRadix; d += 32) s.wcnt[warp][d] = 0;
+    // a warp's keys are consecutive, item j of lane l the (j * 32 + l)-th
+    const int first = t * per + warp * 32 * items + lane;
+    K key[kMaxItems];
+    unsigned val[kMaxItems];
+    int dig[kMaxItems], rank[kMaxItems];
+#pragma unroll
+    for (int j = 0; j < kMaxItems; ++j) {
+      const int i = first + j * 32;
+      if (j < items && i < n) {
+        key[j] = src[i];
+        if (kVals) val[j] = sv ? sv[i] : (unsigned)i;
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < kMaxItems; ++j) {
+      if (j >= items) break;
+      const bool valid = first + j * 32 < n;
+      // an invalid lane's digit matches no other lane's
+      const int d = valid ? digit(key[j], shift) : kRadix + lane;
+      dig[j] = d;
+      const unsigned peers = __match_any_sync(kAll, d);
+      const int leader = __ffs(peers) - 1;
+      int before = 0;
+      if (valid && lane == leader) {
+        before = s.wcnt[warp][d];
+        s.wcnt[warp][d] = before + __popc(peers);
+      }
+      rank[j] = __shfl_sync(kAll, before, leader) + __popc(peers & lower);
+      __syncwarp();
     }
     __syncthreads();
+    stamp_pass(slot, t, T, 1);
+    // thread d: the tile's keys of digit d, and each warp's first among them
+    const int d = threadIdx.x;
+    int cnt = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = s.wcnt[w][d];
+      s.wcnt[w][d] = cnt;
+      cnt += c;
+    }
+    Word* mine = desc + (size_t)t * kRadix + d;
+    int excl = 0;
+    if (t == 0) {
+      put_count(mine, tag, true, cnt);
+    } else {
+      put_count(mine, tag, false, cnt);
+      excl = digit_lookback(desc, t, d, tag);
+      put_count(mine, tag, true, excl + cnt);
+    }
+    const int at = s.gbase[d] + excl;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s.wcnt[w][d] += at;
+    __syncthreads();
+    stamp_pass(slot, t, T, 2);
+#pragma unroll
+    for (int j = 0; j < kMaxItems; ++j)
+      if (j < items && first + j * 32 < n) {
+        const int at = s.wcnt[warp][dig[j]] + rank[j];
+        dst[at] = key[j];
+        if (kVals) dv[at] = val[j];
+      }
+    __syncthreads();
+    stamp_pass(slot, t, T, 3);
   }
 }
 
-// each key of each tile to its stable place in dst
-__device__ void sort_scatter(const u128* src, u128* dst, int n, int shift,
-                             const int* hist, int T, SortSmem& s) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  constexpr int kPer = kThreads / 32;
-  for (int t = blockIdx.x; t < T; t += gridDim.x) {
-    count_digits(src, n, shift, t, s.cnt);
-    for (int d = warp; d < kDigits; d += kWarps) {
-      // the threads before each thread, within digit d
-      int* col = s.cnt + d * kThreads;
-      int v[kPer], sum = 0;
-#pragma unroll
-      for (int q = 0; q < kPer; ++q) {
-        v[q] = col[lane * kPer + q];
-        sum += v[q];
-      }
-      int incl = sum;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(kAll, incl, o);
-        if (lane >= o) incl += y;
-      }
-      int ex = incl - sum;
-#pragma unroll
-      for (int q = 0; q < kPer; ++q) {
-        col[lane * kPer + q] = ex;
-        ex += v[q];
-      }
-      // digit d's keys in all tiles, and in the tiles before t
-      int all = 0, before = 0;
-      for (int q = lane; q < T; q += 32) {
-        const int h = hist[d * T + q];
-        all += h;
-        if (q < t) before += h;
-      }
-      all = warp_reduce<Sums>(all);
-      before = warp_reduce<Sums>(before);
-      if (lane == 0) {
-        s.tot[d] = all;
-        s.base[d] = before;
-      }
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int run = 0;
-      for (int d = 0; d < kDigits; ++d) {
-        s.base[d] += run;
-        run += s.tot[d];
-      }
-    }
-    __syncthreads();
-    const int first = t * kTile + threadIdx.x * kItems;
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      if (first + j < n) {
-        const u128 k = src[first + j];
-        const int d = digit(k, shift);
-        dst[s.base[d] + s.cnt[d * kThreads + threadIdx.x]++] = k;
-      }
-    }
-    __syncthreads();
-  }
+// Pass ``pass`` of an LSD sort (digit 8 * pass, tagged tag0 + pass) from
+// src to dst, with values where kVals, unless its digit is one value for
+// every key (a pass that moves nothing); hist: every pass's digit counts
+// (sort_histogram, behind a grid sync). True where it ran and the grid
+// sync after it. Every block calls it alike.
+template <class K, bool kVals>
+__device__ bool sort_step(cg::grid_group& grid, int launch, const K* src,
+                          K* dst, const unsigned* sv, unsigned* dv, int n,
+                          int pass, const int* hist, Word* desc, int tag0,
+                          SortSmem& s, ScanSmem& sm) {
+  if (__syncthreads_or(hist[pass * kRadix + threadIdx.x] == n)) return false;
+  sort_pass<K, kVals>(src, dst, sv, dv, n, 8 * pass, sort_items(n, gridDim.x),
+                      hist + pass * kRadix, desc, tag0 + pass, s, sm,
+                      launch * kMaxPasses + pass);
+  count_k8(2 + launch);
+  grid_sync(grid, launch);
+  return true;
 }
 
-// Stable LSD sort of n keys by their low ``bits`` bits, between a and b;
-// returns the buffer that holds the result (0: a, 1: b). Every block calls
-// it with the same arguments.
-__device__ int radix_sort(cg::grid_group& grid, u128* a, u128* b, int n,
-                          int bits, int* hist, SortSmem& s) {
-  const int T = (n + kTile - 1) / kTile;
-  u128* buf[2] = {a, b};
-  int cur = 0;
-  for (int shift = 0; shift < bits; shift += 4) {
-    sort_hist(buf[cur], n, shift, hist, T, s);
-    grid.sync();
-    sort_scatter(buf[cur], buf[cur ^ 1], n, shift, hist, T, s);
-    grid.sync();
-    cur ^= 1;
-  }
-  return cur;
-}
-
-// the packing of (site, allele) under a primary key
+// the packing of (site, allele) under a primary key, the fields' bits
+// rounded up to whole digits (so an LSD sort's passes over the fields end
+// where the primary key's begin)
+template <class K>
 struct Packing {
   int smin, amin, sb, ab;
-  __device__ int low() const { return sb + ab; }
-  __device__ u128 pack(unsigned primary, int site, int allele) const {
-    return ((u128)primary << low())
-        | ((u128)((unsigned)site - (unsigned)smin) << ab)
-        | (u128)((unsigned)allele - (unsigned)amin);
+  __device__ int low() const { return (sb + ab + 7) & ~7; }
+  __device__ K pack(unsigned primary, int site, int allele) const {
+    return ((K)primary << low())
+        | ((K)((unsigned)site - (unsigned)smin) << ab)
+        | (K)((unsigned)allele - (unsigned)amin);
   }
-  __device__ int primary(u128 k) const { return (int)(k >> low()); }
-  __device__ int site(u128 k) const {
-    const unsigned f = (unsigned)((k >> ab) & (((u128)1 << sb) - 1));
+  __device__ int primary(K k) const { return (int)(k >> low()); }
+  __device__ int site(K k) const {
+    const unsigned f = (unsigned)((k >> ab) & (((K)1 << sb) - 1));
     return (int)(f + (unsigned)smin);
   }
-  __device__ int allele(u128 k) const {
-    const unsigned f = (unsigned)(k & (((u128)1 << ab) - 1));
+  __device__ int allele(K k) const {
+    const unsigned f = (unsigned)(k & (((K)1 << ab) - 1));
     return (int)(f + (unsigned)amin);
   }
-  __device__ u128 fields(u128 k) const {
-    return k & (((u128)1 << low()) - 1);
-  }
+  __device__ K fields(K k) const { return k & (((K)1 << low()) - 1); }
 };
 
-__device__ Packing packing(const int* meta) {
-  Packing p;
+template <class K>
+__device__ Packing<K> packing(const int* meta) {
+  Packing<K> p;
   p.smin = meta[kSiteMin];
   p.amin = meta[kAlleleMin];
   p.sb = bits_of((unsigned)meta[kSiteMax] - (unsigned)meta[kSiteMin]);
@@ -500,6 +692,37 @@ __device__ __forceinline__ void expand_emit(int i, int cum, int w, int cap,
   if (w > 0 && cum > cap) atomicOr(fallback + row, bit);
 }
 
+// One _expand_budget width scan over n items, a tile of kThreads a step:
+// cum, marks, spill flags (row(i), bit), the total at meta[total].
+template <class W, class Row>
+__device__ void width_scan(const Params& p, int n, W width, Row row, int cap,
+                           int* cum_out, int* marks, int bit, Word* desc,
+                           int total, ScanSmem& sm) {
+  const int T = (int)tiles_of(n, kThreads);
+  for (int t = blockIdx.x; t < T; t += gridDim.x) {
+    const int i = t * kThreads + threadIdx.x;
+    const int w = i < n ? width(i) : 0;
+    const int cum = tile_scan<Sums>(w, desc, t, sm);
+    if (i < n) {
+      expand_emit(i, cum, w, cap, cum_out, marks, p.fallback, row(i), bit);
+      if (i == n - 1) p.meta[total] = cum;
+    }
+  }
+}
+
+// A marks prefix-max scan over cap lanes: emit(g, mark) for each lane.
+template <class E>
+__device__ void marks_scan(int cap, const int* marks, Word* desc,
+                           ScanSmem& sm, E emit) {
+  const int T = (int)tiles_of(cap, kThreads);
+  for (int t = blockIdx.x; t < T; t += gridDim.x) {
+    const int g = t * kThreads + threadIdx.x;
+    const int mark = tile_scan<Maxes>(g < cap ? marks[g] : Maxes::id(), desc,
+                                      t, sm);
+    if (g < cap) emit(g, mark);
+  }
+}
+
 // a duplicate site in state s's own path (traversed and traversing sites,
 // the unused slots padded with distinct values 2^28 + slot, as jnp's)
 __device__ bool dup_site(const Params& p, int s) {
@@ -520,28 +743,270 @@ __device__ bool dup_site(const Params& p, int s) {
   return false;
 }
 
+// one encapsulated lane: its item, SA row, site, allele, validity
+struct EncLane {
+  int item[kThreads + 2];
+  int occ[kThreads + 2];
+  int site[kThreads + 2];
+  int allele[kThreads + 2];
+  unsigned char valid[kThreads + 2];
+};
+
+// lane g of the encapsulated split, given its marks' prefix max, into slot
+// k of the tile's lanes
+__device__ __forceinline__ void enc_lane(const Params& p, int g, int mark,
+                                         EncLane& L, int k) {
+  const int item = clampi(mark - 1, 0, p.N - 1);
+  const int start = add_wrap(p.cum_e[item], -enc_width(p, item));
+  const int off = add_wrap(g, -start);
+  const bool valid = g < min(p.meta[kTotalE], p.ecap);
+  const int occ = clampi(add_wrap(p.f_lo[item], off), 0, p.sa_size - 1);
+  const int node = p.ra_node[clampi(p.sa[occ], 0, p.n_ra - 1)];
+  L.item[k] = item;
+  L.occ[k] = occ;
+  L.site[k] = valid ? p.nt_site[node] : 0;
+  L.allele[k] = p.nt_allele[node];
+  L.valid[k] = valid;
+}
+
+union PhaseSmem {
+  EncLane lane;
+  SortSmem sort;
+  HistSmem hist;
+  struct {
+    int nsel[kRowTile];       // each row's stage-5 count
+    int big[kRowTile];        // the tile's rows left to warps
+    int n_big;
+  } rows;
+};
+
+// State s's key row (its first kcap distinct base sites over its kept
+// lanes, ascending, padded with -1) into key_mat, by one warp; true where
+// it has more (FB_KCAP).
+template <class K>
+__device__ bool key_row(const Params& p, const K* keys, const Packing<K>& pk,
+                        int s) {
+  const int lane = threadIdx.x & 31, kcap = p.kcap;
+  const int a = p.seg_start[s], b = p.seg_end[s];
+  long long prev = LLONG_MIN;
+  int c = 0;
+  bool over = false;
+  for (;;) {
+    long long best = LLONG_MAX;
+    for (int q = a + lane; q < b; q += 32) {
+      if (!p.keep[q]) continue;
+      const int base = p.base_site[site_index(pk.site(keys[q]), p.n_sites)];
+      if (base > prev && base < best) best = base;
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      const long long o = __shfl_xor_sync(kAll, best, d);
+      best = o < best ? o : best;
+    }
+    if (best == LLONG_MAX) break;
+    if (c == kcap) {
+      over = true;
+      break;
+    }
+    if (lane == 0) p.key_mat[(size_t)s * kcap + c] = (int)best;
+    ++c;
+    prev = best;
+  }
+  for (int q = c + lane; q < kcap; q += 32)
+    p.key_mat[(size_t)s * kcap + q] = -1;
+  return over;
+}
+
+// Row r's stage 4 by one warp: its states' key rows, classes and pick;
+// returns the row's selected kept lanes where its fallback stays 0 (the
+// stage-5 count), else 0.
+template <class K>
+__device__ int row_pick(const Params& p, const K* keys, const Packing<K>& pk,
+                        int r) {
+  const int lane = threadIdx.x & 31, kcap = p.kcap;
+  const int k = p.row_cnt[r];
+  if (k == 0) return 0;
+  const int* st = p.bucket + p.row_off[r];
+  bool over = false;
+  for (int i = 0; i < k; ++i) over |= key_row(p, keys, pk, st[i]);
+  __syncwarp();
+  // the row's bits of the stages before (behind a grid sync) and its own
+  int fb = p.fallback[r];
+  if (over) {
+    fb |= kFbKcap;
+    if (lane == 0) atomicOr(p.fallback + r, kFbKcap);
+  }
+  unsigned char* first = p.first_occ + p.row_off[r];
+  auto key = [&](int i) { return p.key_mat + (size_t)st[i] * kcap; };
+  int n_first = 0;
+  for (int i = lane; i < k; i += 32) {
+    bool f = true;
+    for (int j = 0; j < i && f; ++j) f = key_cmp(key(j), key(i), kcap) != 0;
+    first[i] = f;
+    n_first += f;
+  }
+  __syncwarp();
+  const int n_classes = warp_reduce<Sums>(n_first);
+  // the pick: libstdc++'s uniform_int first draw, in 64-bit
+  const int nv = p.nonvar[r];
+  const int total = add_wrap(nv, n_classes);
+  const bool active = n_classes > 0;
+  const long long totals = total < 1 ? 1 : total;
+  const long long scaling = 0xFFFFFFFFLL / totals;
+  const long long rdraw = p.row_first_raw[r] & 0xFFFFFFFFLL;
+  if (active && rdraw >= totals * scaling) {
+    fb |= kFbRng;
+    if (lane == 0) atomicOr(p.fallback + r, kFbRng);
+  }
+  const int selected = add_wrap(1, (int)(rdraw / (scaling < 1 ? 1 : scaling)));
+  const int chosen = add_wrap(add_wrap(selected, -nv), -1);
+  const bool record = active && chosen >= 0 && chosen < n_classes;
+  unsigned mine = 0;              // bit i / 32 of lane i % 32: state i chosen
+  for (int i = lane; i < k && record; i += 32) {
+    int ord = 0;
+    for (int j = 0; j < k; ++j)
+      ord += first[j] && key_cmp(key(j), key(i), kcap) < 0;
+    if (ord == chosen) {
+      p.st_selected[st[i]] = 1;
+      if (i < 32 * 32) mine |= 1u << (i >> 5);
+    }
+  }
+  __syncwarp();
+  if (!record || fb != 0) return 0;
+  // the kept lanes of the chosen states (stage 5's count of the row)
+  int n = 0;
+  for (int i = 0; i < k; ++i) {
+    const bool chosen_i =
+        i < 32 * 32 ? (__shfl_sync(kAll, mine, i & 31) >> (i >> 5)) & 1
+                    : p.st_selected[st[i]];
+    if (!chosen_i) continue;
+    const int s = st[i];
+    for (int q = p.seg_start[s] + lane; q < p.seg_end[s]; q += 32)
+      n += p.keep[q];
+  }
+  return warp_reduce<Sums>(n);
+}
+
+// State s's key row as key_row's, by one thread: the kcap + 1 smallest
+// distinct base sites of its kept lanes kept in order, its lanes read
+// eight at a time (their loads in flight together).
+template <class K>
+__device__ bool key_row_thread(const Params& p, const K* keys,
+                               const Packing<K>& pk, int s) {
+  const int kcap = p.kcap;
+  const int a = p.seg_start[s], b = p.seg_end[s];
+  int row[kMaxKcap + 1];
+  int c = 0;
+  for (int q0 = a; q0 < b; q0 += 8) {
+    int v[8];
+    unsigned valid = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int q = q0 + j;
+      v[j] = 0;
+      if (q < b && p.keep[q]) {
+        v[j] = site_index(pk.site(keys[q]), p.n_sites);
+        valid |= 1u << j;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (valid >> j & 1) v[j] = p.base_site[v[j]];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (!(valid >> j & 1)) continue;
+      int at = 0;
+      while (at < c && row[at] < v[j]) ++at;
+      if ((at < c && row[at] == v[j]) || at > kcap) continue;
+      for (int m = c < kcap + 1 ? c : kcap; m > at; --m) row[m] = row[m - 1];
+      row[at] = v[j];
+      if (c < kcap + 1) ++c;
+    }
+  }
+  for (int m = 0; m < kcap; ++m)
+    p.key_mat[(size_t)s * kcap + m] = m < c ? row[m] : -1;
+  return c > kcap;
+}
+
+// Row r's stage 4 as row_pick's, by one thread, for a row of 1 to
+// kSmallRow live states.
+template <class K>
+__device__ int row_pick_thread(const Params& p, const K* keys,
+                               const Packing<K>& pk, int r, int k) {
+  const int kcap = p.kcap;
+  const int* st = p.bucket + p.row_off[r];
+  bool over = false;
+  for (int i = 0; i < k; ++i) over |= key_row_thread(p, keys, pk, st[i]);
+  int fb = p.fallback[r];
+  if (over) {
+    fb |= kFbKcap;
+    atomicOr(p.fallback + r, kFbKcap);
+  }
+  auto key = [&](int i) { return p.key_mat + (size_t)st[i] * kcap; };
+  unsigned first = 0;
+  int n_classes = 0;
+  for (int i = 0; i < k; ++i) {
+    bool f = true;
+    for (int j = 0; j < i && f; ++j) f = key_cmp(key(j), key(i), kcap) != 0;
+    if (f) {
+      first |= 1u << i;
+      ++n_classes;
+    }
+  }
+  // the pick: libstdc++'s uniform_int first draw, in 64-bit
+  const int nv = p.nonvar[r];
+  const int total = add_wrap(nv, n_classes);
+  const long long totals = total < 1 ? 1 : total;
+  const long long scaling = 0xFFFFFFFFLL / totals;
+  const long long rdraw = p.row_first_raw[r] & 0xFFFFFFFFLL;
+  if (rdraw >= totals * scaling) {          // n_classes > 0 here
+    fb |= kFbRng;
+    atomicOr(p.fallback + r, kFbRng);
+  }
+  const int selected = add_wrap(1, (int)(rdraw / (scaling < 1 ? 1 : scaling)));
+  const int chosen = add_wrap(add_wrap(selected, -nv), -1);
+  if (chosen < 0 || chosen >= n_classes) return 0;
+  int n = 0;
+  for (int i = 0; i < k; ++i) {
+    int ord = 0;
+    for (int j = 0; j < k; ++j)
+      ord += (first >> j & 1) && key_cmp(key(j), key(i), kcap) < 0;
+    if (ord != chosen) continue;
+    const int s = st[i];
+    p.st_selected[s] = 1;
+    if (fb == 0)
+      for (int q = p.seg_start[s]; q < p.seg_end[s]; ++q) n += p.keep[q];
+  }
+  return fb == 0 ? n : 0;
+}
+
 // ---------------------------------------------------------------------------
 // the first launch: stages 0-5
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads) select_kernel(Params p) {
+template <class K>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+select_kernel(Params p) {
   cg::grid_group grid = cg::this_grid();
-  __shared__ int ws[kWarps];
-  __shared__ SortSmem ss;
+  __shared__ ScanSmem sm;
+  __shared__ PhaseSmem ph;
   const int N = p.N, R = p.R, NS = p.N + p.ecap, G = gridDim.x;
   const int NB = p.lcap + p.trcap, LT = NB * (p.A + 1);
   const int gt = blockIdx.x * kThreads + threadIdx.x, gs = G * kThreads;
-  const int lane = threadIdx.x & 31;
-  const int gw = gt >> 5, nw = gs >> 5;
-  int* agg = p.agg;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  K* keys_a = static_cast<K*>(p.keys_a);
+  K* keys_b = static_cast<K*>(p.keys_b);
 
-  // ---- zero the accumulators ----
+#ifdef K8_SYNCS
+  if (gt == 0) g_k8[0] = g_k8[2] = 0;
+#endif
+  stamp_k8(0, 0);
+  // ---- zero the accumulators and the descriptors ----
   for (int r = gt; r < R; r += gs) {
     p.fallback[r] = 0;
     p.mapped[r] = 0;
     p.nonvar[r] = 0;
     p.row_cnt[r] = 0;
-    p.n_sel[r] = 0;
   }
   for (int g = gt; g < p.ecap; g += gs) p.e_marks[g] = 0;
   for (int g = gt; g < p.lcap; g += gs) p.l_marks[g] = 0;
@@ -551,11 +1016,15 @@ __global__ void __launch_bounds__(kThreads) select_kernel(Params p) {
     p.seg_end[s] = 0;
     p.st_selected[s] = 0;
   }
+  for (int i = gt; i < p.n_desc; i += gs) p.desc[0][i] = 0;
+  for (long long i = gt; i < (long long)p.sort_tiles * kRadix; i += gs)
+    p.sort_desc[i] = 0;
+  for (int i = gt; i < 2 * kMaxPasses * kRadix; i += gs) p.hist[i] = 0;
   if (gt == 0) {
     p.meta[kSiteMin] = p.meta[kAlleleMin] = INT_MAX;
     p.meta[kSiteMax] = p.meta[kAlleleMax] = INT_MIN;
   }
-  grid.sync();
+  grid_sync(grid, 0);
 
   // ---- stage 0: FB_CHAIN, mapped; the pool states' table rows ----
   for (int i = gt; i < N; i += gs) {
@@ -576,75 +1045,73 @@ __global__ void __launch_bounds__(kThreads) select_kernel(Params p) {
     p.ps_live[i] = live;
     p.ing_parent[i] = ni > 0 ? p.ing[i * kTcap + clampi(ni - 1, 0, kTcap - 1)].x
                              : 0;
+    if (live) atomicAdd(p.row_cnt + rc, 1);
   }
   if (p.stage <= 0) return;
   for (int k = gt; k < N * kTcap; k += gs) p.ps_trav[k] = p.trav[k];
-  reduce_chunk<Sums>(N, [&](int i) { return enc_width(p, i); },
-                     agg + kAggE * G, ws);
-  grid.sync();
+  // the encapsulated split's widths (inputs only)
+  width_scan(p, N, [&](int i) { return enc_width(p, i); },
+             [&](int i) { return clampi(p.f_rid[i], 0, R - 1); }, p.ecap,
+             p.cum_e, p.e_marks, kFbEnc, p.desc[kDescE], kTotalE, sm);
+  grid_sync(grid, 0);
 
   // ---- stage 1: the encapsulated split ----
-  scan_chunk<Sums>(N, [&](int i) { return enc_width(p, i); },
-                   agg + kAggE * G, ws, [&](int i, int cum) {
-    expand_emit(i, cum, enc_width(p, i), p.ecap, p.cum_e, p.e_marks,
-                p.fallback, clampi(p.f_rid[i], 0, R - 1), kFbEnc);
-    if (i == N - 1) p.meta[kTotalE] = cum;
-  });
-  grid.sync();
-  reduce_chunk<Maxes>(p.ecap, [&](int g) { return p.e_marks[g]; },
-                      agg + kAggEm * G, ws);
-  grid.sync();
-  scan_chunk<Maxes>(p.ecap, [&](int g) { return p.e_marks[g]; },
-                    agg + kAggEm * G, ws, [&](int g, int mark) {
-    const int item = clampi(mark - 1, 0, N - 1);
-    const int start = add_wrap(p.cum_e[item], -enc_width(p, item));
-    const int off = add_wrap(g, -start);
-    const bool valid = g < min(p.meta[kTotalE], p.ecap);
-    const int occ = clampi(add_wrap(p.f_lo[item], off), 0, p.sa_size - 1);
-    const int node = p.ra_node[clampi(p.sa[occ], 0, p.n_ra - 1)];
-    const int site = valid ? p.nt_site[node] : 0;
-    p.e_item[g] = item;
-    p.occ_sa[g] = occ;
-    p.occ_site[g] = site;
-    p.occ_allele[g] = p.nt_allele[node];
-    p.e_valid[g] = valid;
-    if (valid && site == 0)
-      atomicAdd(p.nonvar + clampi(p.f_rid[item], 0, R - 1), 1);
-  });
-  grid.sync();
-  // lane g: enc, the same (item, site, allele) as lane g - 1 (prev_same)
-  auto enc = [&](int g) { return p.e_valid[g] && p.occ_site[g] > 0; };
-  auto prev_same = [&](int g) {
-    return g > 0 && p.e_item[g] == p.e_item[g - 1]
-        && p.occ_site[g] == p.occ_site[g - 1]
-        && p.occ_allele[g] == p.occ_allele[g - 1] && enc(g - 1) && enc(g);
-  };
-  // a run's start lane (or a lane outside any run): segment_first's flag
-  auto run_flag = [&](int g) { return !enc(g) || !prev_same(g); };
-  for (int g = gt; g < p.ecap; g += gs) {
-    const int s = N + g;
-    const bool start = enc(g) && !prev_same(g);
-    p.ps_row[s] = clampi(p.f_rid[p.e_item[g]], 0, R - 1);
-    p.ps_lo[s] = p.occ_sa[g];
-    if (!start) p.ps_hi[s] = 0;        // a start lane's hi: its run's end
-    p.ps_ntrav[s] = start;
-    p.ps_ning[s] = 0;
-    p.ps_live[s] = start;
-    p.ing_parent[s] = 0;
-    int2* row = p.ps_trav + (size_t)s * kTcap;
-    row[0] = start ? make_int2(p.occ_site[g], p.occ_allele[g])
-                   : make_int2(0, 0);
-    for (int k = 1; k < kTcap; ++k) row[k] = make_int2(0, 0);
+  // A tile of lanes: the marks' prefix max gives each lane its item; the
+  // tile also works out the lanes just before and after it, so the run
+  // starts and ends need no other tile; then the runs' starts' prefix max.
+  {
+    EncLane& L = ph.lane;
+    const int T = (int)tiles_of(p.ecap, kThreads);
+    for (int t = blockIdx.x; t < T; t += G) {
+      const int g0 = t * kThreads, g = g0 + threadIdx.x, k = threadIdx.x + 1;
+      int before;
+      const int mark = tile_scan<Maxes>(
+          g < p.ecap ? p.e_marks[g] : Maxes::id(), p.desc[kDescEm], t, sm,
+          &before);
+      if (g < p.ecap) enc_lane(p, g, mark, L, k);
+      if (threadIdx.x == 0 && g0 > 0) enc_lane(p, g0 - 1, before, L, 0);
+      if (threadIdx.x == kThreads - 1 && g + 1 < p.ecap)
+        enc_lane(p, g + 1, max(mark, p.e_marks[g + 1]), L, k + 1);
+      __syncthreads();
+      auto enc = [&](int j) { return L.valid[j] && L.site[j] > 0; };
+      // lane g0 - 1 + j: the same (item, site, allele) as the lane before
+      auto prev_same = [&](int j) {
+        return g0 - 1 + j > 0 && L.item[j] == L.item[j - 1]
+            && L.site[j] == L.site[j - 1] && L.allele[j] == L.allele[j - 1]
+            && enc(j - 1) && enc(j);
+      };
+      bool run_flag = false;
+      if (g < p.ecap) {
+        const int s = N + g;
+        const bool start = enc(k) && !prev_same(k);
+        const int row = clampi(p.f_rid[L.item[k]], 0, R - 1);
+        if (L.valid[k] && L.site[k] == 0) atomicAdd(p.nonvar + row, 1);
+        p.ps_row[s] = row;
+        p.ps_lo[s] = L.occ[k];
+        if (!start) p.ps_hi[s] = 0;      // a start lane's hi: its run's end
+        p.ps_ntrav[s] = start;
+        p.ps_ning[s] = 0;
+        p.ps_live[s] = start;
+        p.ing_parent[s] = 0;
+        if (start) atomicAdd(p.row_cnt + row, 1);
+        int2* trow = p.ps_trav + (size_t)s * kTcap;
+        trow[0] = start ? make_int2(L.site[k], L.allele[k]) : make_int2(0, 0);
+        for (int c = 1; c < kTcap; ++c) trow[c] = make_int2(0, 0);
+        // a run's start lane (or a lane outside any run): segment_first's
+        run_flag = !enc(k) || !prev_same(k);
+      }
+      const int first = tile_scan<Maxes>(
+          g < p.ecap ? (run_flag ? g : 0) : Maxes::id(), p.desc[kDescRun], t,
+          sm);
+      if (g < p.ecap) {
+        const bool next_same = g + 1 < p.ecap && prev_same(k + 1);
+        if (enc(k) && !next_same) p.ps_hi[N + first] = L.occ[k];
+      }
+      __syncthreads();
+    }
   }
-  reduce_chunk<Maxes>(p.ecap, [&](int g) { return run_flag(g) ? g : 0; },
-                      agg + kAggRun * G, ws);
-  grid.sync();
-  scan_chunk<Maxes>(p.ecap, [&](int g) { return run_flag(g) ? g : 0; },
-                    agg + kAggRun * G, ws, [&](int g, int first) {
-    const bool next_same = g + 1 < p.ecap && prev_same(g + 1);
-    if (enc(g) && !next_same) p.ps_hi[N + first] = p.occ_sa[g];
-  });
   if (p.stage <= 1) return;
+  grid_sync(grid, 0);
 
   // ---- stage 2: duplicate site in a live state's own path ----
   for (int s = gt; s < NS; s += gs)
@@ -653,31 +1120,24 @@ __global__ void __launch_bounds__(kThreads) select_kernel(Params p) {
   if (p.stage <= 2) return;
 
   // ---- stage 3: loci, ancestors, the dedup sort ----
-  // (a trav width reads ps_hi only where ps_ning > 0: pool states, whose
-  // hi the stage-0 loop wrote, so the run ends above may still be landing)
-  reduce_chunk<Sums>(NS, [&](int s) { return loci_width(p, s); },
-                     agg + kAggL * G, ws);
-  reduce_chunk<Sums>(NS, [&](int s) { return trav_width(p, s); },
-                     agg + kAggT * G, ws);
-  grid.sync();
-  scan_chunk<Sums>(NS, [&](int s) { return loci_width(p, s); },
-                   agg + kAggL * G, ws, [&](int s, int cum) {
-    expand_emit(s, cum, loci_width(p, s), p.lcap, p.cum_l, p.l_marks,
-                p.fallback, p.ps_row[s], kFbLoci);
-    if (s == NS - 1) p.meta[kTotalL] = cum;
-  });
-  scan_chunk<Sums>(NS, [&](int s) { return trav_width(p, s); },
-                   agg + kAggT * G, ws, [&](int s, int cum) {
-    expand_emit(s, cum, trav_width(p, s), p.trcap, p.cum_t, p.t_marks,
-                p.fallback, p.ps_row[s], kFbTrav);
-    if (s == NS - 1) p.meta[kTotalT] = cum;
-  });
-  grid.sync();
-  reduce_chunk<Maxes>(p.lcap, [&](int g) { return p.l_marks[g]; },
-                      agg + kAggLm * G, ws);
-  reduce_chunk<Maxes>(p.trcap, [&](int g) { return p.t_marks[g]; },
-                      agg + kAggTm * G, ws);
-  grid.sync();
+  auto state_row = [&](int s) { return p.ps_row[s]; };
+  width_scan(p, NS, [&](int s) { return loci_width(p, s); }, state_row,
+             p.lcap, p.cum_l, p.l_marks, kFbLoci, p.desc[kDescL], kTotalL,
+             sm);
+  width_scan(p, NS, [&](int s) { return trav_width(p, s); }, state_row,
+             p.trcap, p.cum_t, p.t_marks, kFbTrav, p.desc[kDescT], kTotalT,
+             sm);
+  // each row's first place among the live states bucketed by row
+  {
+    const int T = (int)tiles_of(R, kThreads);
+    for (int t = blockIdx.x; t < T; t += G) {
+      const int r = t * kThreads + threadIdx.x;
+      const int c = r < R ? p.row_cnt[r] : 0;
+      const int incl = tile_scan<Sums>(c, p.desc[kDescRows], t, sm);
+      if (r < R) p.row_off[r] = p.row_cur[r] = incl - c;
+    }
+  }
+  grid_sync(grid, 0);
   {
     int smin = INT_MAX, smax = INT_MIN, amin = INT_MAX, amax = INT_MIN;
     // a base lane b and its A ancestor lanes b + a * NB
@@ -700,8 +1160,7 @@ __global__ void __launch_bounds__(kThreads) select_kernel(Params p) {
         amin = min(amin, aa); amax = max(amax, aa);
       }
     };
-    scan_chunk<Maxes>(p.lcap, [&](int g) { return p.l_marks[g]; },
-                      agg + kAggLm * G, ws, [&](int g, int mark) {
+    marks_scan(p.lcap, p.l_marks, p.desc[kDescLm], sm, [&](int g, int mark) {
       const int item = clampi(mark - 1, 0, NS - 1);
       const int off = add_wrap(g, -add_wrap(p.cum_l[item],
                                             -loci_width(p, item)));
@@ -710,8 +1169,7 @@ __global__ void __launch_bounds__(kThreads) select_kernel(Params p) {
                                    clampi(off, 0, kTcap - 1)];
       put(g, item, locus.x, locus.y, valid && locus.x >= 5);
     });
-    scan_chunk<Maxes>(p.trcap, [&](int g) { return p.t_marks[g]; },
-                      agg + kAggTm * G, ws, [&](int g, int mark) {
+    marks_scan(p.trcap, p.t_marks, p.desc[kDescTm], sm, [&](int g, int mark) {
       const int item = clampi(mark - 1, 0, NS - 1);
       const int off = add_wrap(g, -add_wrap(p.cum_t[item],
                                             -trav_width(p, item)));
@@ -721,38 +1179,72 @@ __global__ void __launch_bounds__(kThreads) select_kernel(Params p) {
       const int site = valid ? p.ing_parent[item] : 0;
       put(p.lcap + g, item, site, p.nt_allele[node], valid && site >= 5);
     });
-    smin = block_reduce<Mins>(smin, ws);
-    smax = block_reduce<Maxes>(smax, ws);
-    amin = block_reduce<Mins>(amin, ws);
-    amax = block_reduce<Maxes>(amax, ws);
+    smin = block_reduce<Mins>(smin, sm);
+    smax = block_reduce<Maxes>(smax, sm);
+    amin = block_reduce<Mins>(amin, sm);
+    amax = block_reduce<Maxes>(amax, sm);
     if (threadIdx.x == 0) {
       atomicMin(p.meta + kSiteMin, smin);
       atomicMax(p.meta + kSiteMax, smax);
       atomicMin(p.meta + kAlleleMin, amin);
       atomicMax(p.meta + kAlleleMax, amax);
     }
+    for (int s = gt; s < NS; s += gs)
+      if (p.ps_live[s]) p.bucket[atomicAdd(p.row_cur + p.ps_row[s], 1)] = s;
   }
-  grid.sync();
-  const Packing pk = packing(p.meta);
-  for (int l = gt; l < LT; l += gs)
-    p.keys_a[l] = pk.pack((unsigned)p.lane_key[l], p.lane_site[l],
-                          p.lane_allele[l]);
-  grid.sync();
+  grid_sync(grid, 0);
+  const Packing<K> pk = packing<K>(p.meta);
   const int bits = bits_of((unsigned)(NS + 1)) + pk.low();
-  const int cur = radix_sort(grid, p.keys_a, p.keys_b, LT, bits, p.hist, ss);
-  const u128* keys = cur ? p.keys_b : p.keys_a;
-  if (gt == 0) p.meta[kSorted] = cur;
+  // the 64-bit instance holds what the host's bound promised, or traps
+  if (sizeof(K) * 8 < 128
+      && max(bits, bits_of((unsigned)(R + 1)) + pk.low()) > 64)
+    __trap();
+  const int F = pk.low() / 8, P = (bits + 7) / 8;
+  sort_histogram<K>(LT, 0, P, p.hist, ph.hist, [&](int l) {
+    const K k = pk.pack((unsigned)p.lane_key[l], p.lane_site[l],
+                        p.lane_allele[l]);
+    keys_a[l] = k;
+    return k;
+  });
+  grid_sync(grid, 0);
+  // the field passes, then the primary key's, each key's place in the
+  // field order (buffer mid, which they leave as it is) going with it:
+  // the triple sort starts from that order
+  K* buf[3] = {keys_a, keys_b, static_cast<K*>(p.keys_c)};
+  unsigned* vbuf[2] = {p.vals_a, p.vals_b};
+  int mid = 0;
+  for (int pass = 0; pass < F; ++pass)
+    if (sort_step<K, false>(grid, 0, buf[mid], buf[mid ^ 1], nullptr,
+                            nullptr, LT, pass, p.hist, p.sort_desc, 1,
+                            ph.sort, sm))
+      mid ^= 1;
+  const int spare[2] = {2, mid ^ 1};
+  int kc = mid, vc = -1, o = 0;
+  for (int pass = F; pass < P; ++pass) {
+    const int vd = vc < 0 ? 0 : vc ^ 1;
+    if (sort_step<K, true>(grid, 0, buf[kc], buf[spare[o]],
+                           vc < 0 ? nullptr : vbuf[vc], vbuf[vd], LT, pass,
+                           p.hist, p.sort_desc, 1, ph.sort, sm)) {
+      kc = spare[o];
+      vc = vd;
+      o ^= 1;
+    }
+  }
+  const K* keys = buf[kc];
+  const unsigned* place = vc < 0 ? nullptr : vbuf[vc];
+  if (gt == 0) p.meta[kMid] = mid;
   // kept: the first of its equal run, and valid (state <= NS)
   auto kept = [&](int q) {
     return (q == 0 || keys[q] != keys[q - 1]) && pk.primary(keys[q]) <= NS;
   };
   for (int q = gt; q < LT; q += gs) {
-    const u128 k = keys[q];
+    const K k = keys[q];
     const int state = pk.primary(k);
     const bool kq = kept(q);
     p.keep[q] = kq;
+    p.keep_mid[place ? place[q] : q] = kq;
     if (kq && q > 0 && kept(q - 1)) {
-      const u128 k1 = keys[q - 1];
+      const K k1 = keys[q - 1];
       const int sc = min(state, NS - 1), sc1 = min(pk.primary(k1), NS - 1);
       if (sc == sc1 && pk.site(k) == pk.site(k1))
         atomicOr(p.fallback + p.ps_row[sc], kFbConflict);
@@ -764,139 +1256,90 @@ __global__ void __launch_bounds__(kThreads) select_kernel(Params p) {
     }
   }
   if (p.stage <= 3) return;
-  grid.sync();
+  grid_sync(grid, 0);
 
-  // ---- stage 4: key rows, classes, the pick ----
-  const int kcap = p.kcap;
-  for (int s = gw; s < NS; s += nw) {
-    if (!p.ps_live[s]) continue;
-    if (lane == 0) atomicAdd(p.row_cnt + p.ps_row[s], 1);
-    const int a = p.seg_start[s], b = p.seg_end[s];
-    long long prev = LLONG_MIN;
-    int c = 0;
-    bool over = false;
-    for (;;) {
-      long long best = LLONG_MAX;
-      for (int q = a + lane; q < b; q += 32) {
-        if (!p.keep[q]) continue;
-        const int base = p.base_site[site_index(pk.site(keys[q]), p.n_sites)];
-        if (base > prev && base < best) best = base;
-      }
-#pragma unroll
-      for (int d = 16; d > 0; d >>= 1) {
-        const long long o = __shfl_xor_sync(kAll, best, d);
-        best = o < best ? o : best;
-      }
-      if (best == LLONG_MAX) break;
-      if (c == kcap) {
-        over = true;
-        break;
-      }
-      if (lane == 0) p.key_mat[(size_t)s * kcap + c] = (int)best;
-      ++c;
-      prev = best;
+  // ---- stages 4 and 5: a thread a row (a warp a row of more than
+  // kSmallRow live states), tiles of kRowTile rows ----
+  const bool trips = p.stage >= 5 && p.check_trips;
+  const int T = (int)tiles_of(R, kRowTile);
+  for (int t = blockIdx.x; t < T; t += G) {
+    const int i = threadIdx.x, r = t * kRowTile + i;
+    if (i == 0) ph.rows.n_big = 0;
+    __syncthreads();
+    int n = 0;
+    const int k = r < R ? p.row_cnt[r] : 0;
+    if (k > kSmallRow)
+      ph.rows.big[atomicAdd(&ph.rows.n_big, 1)] = i;
+    else if (k > 0)
+      n = row_pick_thread(p, keys, pk, r, k);
+    ph.rows.nsel[i] = n;
+    __syncthreads();
+    for (int b = warp; b < ph.rows.n_big; b += kWarps) {
+      const int j = ph.rows.big[b];
+      const int m = row_pick(p, keys, pk, t * kRowTile + j);
+      if (lane == 0) ph.rows.nsel[j] = m;
     }
-    for (int q = c + lane; q < kcap; q += 32)
-      p.key_mat[(size_t)s * kcap + q] = -1;
-    if (over && lane == 0) atomicOr(p.fallback + p.ps_row[s], kFbKcap);
-  }
-  grid.sync();
-  reduce_chunk<Sums>(R, [&](int r) { return p.row_cnt[r]; },
-                     agg + kAggRows * G, ws);
-  grid.sync();
-  scan_chunk<Sums>(R, [&](int r) { return p.row_cnt[r]; },
-                   agg + kAggRows * G, ws, [&](int r, int incl) {
-    p.row_off[r] = p.row_cur[r] = incl - p.row_cnt[r];
-  });
-  grid.sync();
-  for (int s = gt; s < NS; s += gs)
-    if (p.ps_live[s])
-      p.bucket[atomicAdd(p.row_cur + p.ps_row[s], 1)] = s;
-  grid.sync();
-  for (int r = gw; r < R; r += nw) {
-    const int k = p.row_cnt[r];
-    if (k == 0) continue;
-    const int* st = p.bucket + p.row_off[r];
-    unsigned char* first = p.first_occ + p.row_off[r];
-    auto key = [&](int i) { return p.key_mat + (size_t)st[i] * kcap; };
-    int n_first = 0;
-    for (int i = lane; i < k; i += 32) {
-      bool f = true;
-      for (int j = 0; j < i && f; ++j) f = key_cmp(key(j), key(i), kcap) != 0;
-      first[i] = f;
-      n_first += f;
+    __syncthreads();
+    if (trips) {
+      const int m = ph.rows.nsel[i];
+      const int incl = tile_scan<Sums>(m, p.desc[kDescTrips], t, sm);
+      if (m > 0 && incl > p.trip_cap) atomicOr(p.fallback + r, kFbTrips);
     }
-    __syncwarp();
-    const int n_classes = warp_reduce<Sums>(n_first);
-    // the pick: libstdc++'s uniform_int first draw, in 64-bit
-    const int nv = p.nonvar[r];
-    const int total = add_wrap(nv, n_classes);
-    const bool active = n_classes > 0;
-    const long long totals = total < 1 ? 1 : total;
-    const long long scaling = 0xFFFFFFFFLL / totals;
-    const long long rdraw = p.row_first_raw[r] & 0xFFFFFFFFLL;
-    if (lane == 0 && active && rdraw >= totals * scaling)
-      atomicOr(p.fallback + r, kFbRng);
-    const int selected = add_wrap(1, (int)(rdraw / (scaling < 1 ? 1 : scaling)));
-    const int chosen = add_wrap(add_wrap(selected, -nv), -1);
-    const bool record = active && chosen >= 0 && chosen < n_classes;
-    for (int i = lane; i < k && record; i += 32) {
-      int ord = 0;
-      for (int j = 0; j < k; ++j)
-        ord += first[j] && key_cmp(key(j), key(i), kcap) < 0;
-      if (ord == chosen) p.st_selected[st[i]] = 1;
-    }
-    __syncwarp();
+    __syncthreads();
   }
-  if (p.stage <= 4 || !p.check_trips) return;
-  grid.sync();
-
-  // ---- stage 5: the preliminary triple-capacity check ----
-  for (int q = gt; q < LT; q += gs) {
-    if (!p.keep[q]) continue;
-    const int s = min(pk.primary(keys[q]), NS - 1);
-    const int r = p.ps_row[s];
-    if (p.st_selected[s] && p.fallback[r] == 0) atomicAdd(p.n_sel + r, 1);
-  }
-  grid.sync();
-  reduce_chunk<Sums>(R, [&](int r) { return p.n_sel[r]; },
-                     agg + kAggTrips * G, ws);
-  grid.sync();
-  scan_chunk<Sums>(R, [&](int r) { return p.n_sel[r]; },
-                   agg + kAggTrips * G, ws, [&](int r, int incl) {
-    if (p.n_sel[r] > 0 && incl > p.trip_cap) atomicOr(p.fallback + r, kFbTrips);
-  });
+  stamp_k8(0, 1);
 }
 
 // ---------------------------------------------------------------------------
 // the second launch: the triples
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads) triples_kernel(Params p) {
+template <class K>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+triples_kernel(Params p) {
   cg::grid_group grid = cg::this_grid();
-  __shared__ SortSmem ss;
+  __shared__ ScanSmem sm;
+  __shared__ PhaseSmem ph;
   const int R = p.R, NS = p.N + p.ecap;
   const int LT = (p.lcap + p.trcap) * (p.A + 1);
   const int gt = blockIdx.x * kThreads + threadIdx.x, gs = gridDim.x * kThreads;
-  const Packing pk = packing(p.meta);
-  const int cur = p.meta[kSorted];
-  const u128* keys = cur ? p.keys_b : p.keys_a;
-  u128* out = cur ? p.keys_a : p.keys_b;
-  for (int q = gt; q < LT; q += gs) {
-    const u128 k = keys[q];
-    const int s = min(pk.primary(k), NS - 1);
-    const int r = p.ps_row[s];
-    const bool sel = p.keep[q] && p.st_selected[s] && p.fb_final[r] == 0;
-    out[q] = ((u128)(unsigned)(sel ? r : R + 1) << pk.low()) | pk.fields(k);
-  }
-  grid.sync();
-  const int bits = bits_of((unsigned)(R + 1)) + pk.low();
-  u128* a = cur ? p.keys_a : p.keys_b;
-  u128* b = cur ? p.keys_b : p.keys_a;
-  const u128* sorted = radix_sort(grid, a, b, LT, bits, p.hist, ss) ? b : a;
+#ifdef K8_SYNCS
+  if (gt == 0) g_k8[1] = g_k8[3] = 0;
+#endif
+  stamp_k8(1, 0);
+  // the keys in the dedup sort's field order (buffer mid), each with its
+  // row key in place of its state; then only the row key's passes
+  const Packing<K> pk = packing<K>(p.meta);
+  const int mid = p.meta[kMid];
+  K* buf[3] = {static_cast<K*>(p.keys_a), static_cast<K*>(p.keys_b),
+               static_cast<K*>(p.keys_c)};
+  const K* fields = buf[mid];
+  K* a = buf[2];
+  K* b = buf[mid ^ 1];
+  const int F = pk.low() / 8;
+  const int P = (bits_of((unsigned)(R + 1)) + pk.low() + 7) / 8;
+  int* hist = p.hist + kMaxPasses * kRadix;
+  sort_histogram<K>(LT, F, P, hist, ph.hist, [&](int i) {
+    const K k = fields[i];
+    const int st = min(pk.primary(k), NS - 1);
+    const int r = p.ps_row[st];
+    const bool sel = p.keep_mid[i] && p.st_selected[st] && p.fb_final[r] == 0;
+    const K k2 = ((K)(unsigned)(sel ? r : R + 1) << pk.low()) | pk.fields(k);
+    a[i] = k2;
+    return k2;
+  });
+  grid_sync(grid, 1);
+  int cur = 0;
+  K* ab[2] = {a, b};
+  for (int pass = F; pass < P; ++pass)
+    if (sort_step<K, false>(grid, 1, ab[cur], ab[cur ^ 1], nullptr, nullptr,
+                            LT, pass, hist, p.sort_desc, 1 + kMaxPasses,
+                            ph.sort, sm))
+      cur ^= 1;
+  const K* sorted = ab[cur];
   for (int q = gt; q < p.trip_cap; q += gs) {
     if (q < LT) {
-      const u128 k = sorted[q];
+      const K k = sorted[q];
       p.t_row[q] = pk.primary(k);
       p.t_site[q] = pk.site(k);
       p.t_allele[q] = pk.allele(k);
@@ -906,13 +1349,15 @@ __global__ void __launch_bounds__(kThreads) triples_kernel(Params p) {
       p.t_allele[q] = 0;
     }
   }
+  stamp_k8(1, 1);
 }
 
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
-int g_grid[2][kMaxDevices];
+// [kernel (select, triples) * 2 + instance (64, 128-bit keys)][device]
+int g_grid[4][kMaxDevices];
 
 template <class Kernel>
 int coop_grid(Kernel kernel, int* cache) {
@@ -938,10 +1383,25 @@ int coop_grid(Kernel kernel, int* cache) {
 }
 
 struct Dims {
-  int N, R, ecap, lcap, trcap, A, kcap, grid;
+  int N, R, ecap, lcap, trcap, A, kcap, grid, wide;
   long long NS() const { return (long long)N + ecap; }
   long long LT() const { return (long long)(lcap + trcap) * (A + 1); }
-  long long tiles() const { return (LT() + kTile - 1) / kTile; }
+  long long key_bytes() const { return wide ? 16 : 8; }
+  long long sort_tiles() const {
+    return tiles_of(LT(), (long long)kThreads * sort_items(LT(), grid));
+  }
+  // the descriptor words of each chained scan
+  long long desc_words(int which) const {
+    switch (which) {
+      case kDescE: return tiles_of(N, kThreads);
+      case kDescEm: case kDescRun: return tiles_of(ecap, kThreads);
+      case kDescL: case kDescT: return tiles_of(NS(), kThreads);
+      case kDescRows: return tiles_of(R, kThreads);
+      case kDescLm: return tiles_of(lcap, kThreads);
+      case kDescTm: return tiles_of(trcap, kThreads);
+      default: return tiles_of(R, kRowTile);
+    }
+  }
 };
 
 // Carves the scratch at ``base`` (null: only sizes it) into p's scratch
@@ -960,14 +1420,9 @@ long long carve(const Dims& d, char* base, Params* p) {
   Params q;
   q.ps_ning = ints(NS);
   q.ing_parent = ints(NS);
+  q.ps_live = bytes(NS);
   q.cum_e = ints(d.N);
   q.e_marks = ints(d.ecap);
-  q.e_item = ints(d.ecap);
-  q.occ_sa = ints(d.ecap);
-  q.occ_site = ints(d.ecap);
-  q.occ_allele = ints(d.ecap);
-  q.e_valid = bytes(d.ecap);
-  q.ps_live = bytes(NS);
   q.nonvar = ints(d.R);
   q.cum_l = ints(NS);
   q.cum_t = ints(NS);
@@ -976,10 +1431,14 @@ long long carve(const Dims& d, char* base, Params* p) {
   q.lane_key = ints(LT);
   q.lane_site = ints(LT);
   q.lane_allele = ints(LT);
-  q.keys_a = (u128*)take(LT * 16);
-  q.keys_b = (u128*)take(LT * 16);
+  q.keys_a = take(LT * d.key_bytes());
+  q.keys_b = take(LT * d.key_bytes());
+  q.keys_c = take(LT * d.key_bytes());
+  q.vals_a = (unsigned*)ints(LT);
+  q.vals_b = (unsigned*)ints(LT);
   q.keep = bytes(LT);
-  q.hist = ints(kDigits * d.tiles());
+  q.keep_mid = bytes(LT);
+  q.hist = ints(2 * kMaxPasses * kRadix);
   q.seg_start = ints(NS);
   q.seg_end = ints(NS);
   q.key_mat = ints(NS * d.kcap);
@@ -988,36 +1447,48 @@ long long carve(const Dims& d, char* base, Params* p) {
   q.row_cur = ints(d.R);
   q.bucket = ints(NS);
   q.first_occ = bytes(NS);
-  q.n_sel = ints(d.R);
-  q.agg = ints((long long)kAggs * d.grid);
+  long long words = 0;
+  for (int i = 0; i < kDescs; ++i) words += d.desc_words(i);
+  Word* desc = (Word*)take(words * 8);
+  q.n_desc = (int)words;
+  for (int i = 0; i < kDescs; ++i) {
+    q.desc[i] = desc;
+    if (desc) desc += d.desc_words(i);
+  }
+  q.sort_tiles = (int)d.sort_tiles();
+  q.sort_desc = (Word*)take(d.sort_tiles() * kRadix * 8);
   q.meta = ints(kMeta);
   if (p) {
     p->ps_ning = q.ps_ning; p->ing_parent = q.ing_parent;
-    p->cum_e = q.cum_e; p->e_marks = q.e_marks; p->e_item = q.e_item;
-    p->occ_sa = q.occ_sa; p->occ_site = q.occ_site;
-    p->occ_allele = q.occ_allele; p->e_valid = q.e_valid;
-    p->ps_live = q.ps_live; p->nonvar = q.nonvar; p->cum_l = q.cum_l;
-    p->cum_t = q.cum_t; p->l_marks = q.l_marks; p->t_marks = q.t_marks;
+    p->ps_live = q.ps_live; p->cum_e = q.cum_e; p->e_marks = q.e_marks;
+    p->nonvar = q.nonvar; p->cum_l = q.cum_l; p->cum_t = q.cum_t;
+    p->l_marks = q.l_marks; p->t_marks = q.t_marks;
     p->lane_key = q.lane_key; p->lane_site = q.lane_site;
     p->lane_allele = q.lane_allele; p->keys_a = q.keys_a;
-    p->keys_b = q.keys_b; p->keep = q.keep; p->hist = q.hist;
+    p->keys_b = q.keys_b; p->keys_c = q.keys_c; p->vals_a = q.vals_a;
+    p->vals_b = q.vals_b; p->keep = q.keep; p->keep_mid = q.keep_mid;
+    p->hist = q.hist;
     p->seg_start = q.seg_start; p->seg_end = q.seg_end;
     p->key_mat = q.key_mat; p->row_cnt = q.row_cnt; p->row_off = q.row_off;
     p->row_cur = q.row_cur; p->bucket = q.bucket;
-    p->first_occ = q.first_occ; p->n_sel = q.n_sel; p->agg = q.agg;
-    p->meta = q.meta;
+    p->first_occ = q.first_occ;
+    for (int i = 0; i < kDescs; ++i) p->desc[i] = q.desc[i];
+    p->n_desc = q.n_desc; p->sort_tiles = q.sort_tiles;
+    p->sort_desc = q.sort_desc; p->meta = q.meta;
   }
   return off + 16;
 }
 
 }  // namespace
 
-// the cooperative grid of both launches on the current device (the
-// smaller of the two kernels' co-resident blocks, at most kBlocksPerSm an
-// SM); -(CUDA error) on failure
-extern "C" int select_grid() {
-  const int a = coop_grid(select_kernel, g_grid[0]);
-  const int b = coop_grid(triples_kernel, g_grid[1]);
+// the cooperative grid of both launches of an instance (wide: 128-bit keys)
+// on the current device (the smaller of the two kernels' co-resident
+// blocks, at most kBlocksPerSm an SM); -(CUDA error) on failure
+extern "C" int select_grid(int wide) {
+  const int a = wide ? coop_grid(select_kernel<u128>, g_grid[1])
+                     : coop_grid(select_kernel<uint64_t>, g_grid[0]);
+  const int b = wide ? coop_grid(triples_kernel<u128>, g_grid[3])
+                     : coop_grid(triples_kernel<uint64_t>, g_grid[2]);
   if (a < 0) return a;
   if (b < 0) return b;
   return a < b ? a : b;
@@ -1025,14 +1496,37 @@ extern "C" int select_grid() {
 
 extern "C" long long select_scratch_bytes(int N, int R, int ecap, int lcap,
                                           int trcap, int A, int kcap,
-                                          int grid) {
-  const Dims d{N, R, ecap, lcap, trcap, A, kcap, grid};
+                                          int grid, int wide) {
+  const Dims d{N, R, ecap, lcap, trcap, A, kcap, grid, wide ? 1 : 0};
   return carve(d, nullptr, nullptr);
 }
 
-extern "C" int select_attrs(int* out) {
+// the byte offset in the scratch of field 0: row_cnt (R ints, each row's
+// live states), 1: seg_start, 2: seg_end (NS ints each, each state's run
+// of sorted lanes), for the smoke's stage-4 counts
+extern "C" long long select_scratch_offset(int field, int N, int R, int ecap,
+                                           int lcap, int trcap, int A,
+                                           int kcap, int grid, int wide) {
+  const Dims d{N, R, ecap, lcap, trcap, A, kcap, grid, wide ? 1 : 0};
+  char* const base = reinterpret_cast<char*>(uintptr_t(1) << 40);
+  Params p;
+  carve(d, base, &p);
+  const void* at = field == 0 ? (const void*)p.row_cnt
+                 : field == 1 ? (const void*)p.seg_start
+                              : (const void*)p.seg_end;
+  return (long long)(static_cast<const char*>(at) - base);
+}
+
+// registers, local bytes and static shared bytes of a kernel (which 0:
+// select_kernel, 1: triples_kernel) of an instance
+extern "C" int select_attrs(int* out, int which, int wide) {
   cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(&a, select_kernel);
+  const void* fn =
+      which == 0 ? (wide ? (const void*)select_kernel<u128>
+                         : (const void*)select_kernel<uint64_t>)
+                 : (wide ? (const void*)triples_kernel<u128>
+                         : (const void*)triples_kernel<uint64_t>);
+  const cudaError_t err = cudaFuncGetAttributes(&a, fn);
   if (err != cudaSuccess) return (int)err;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
@@ -1040,8 +1534,27 @@ extern "C" int select_attrs(int* out) {
   return 0;
 }
 
+#ifdef K8_SYNCS
+// the last launches' grid syncs and sort passes (g_k8) into out[0..4),
+// their stamps (g_k8_t, kK8Stamps a launch) after them
+extern "C" int select_syncs(long long* out) {
+  constexpr int n = 4 + 2 * kK8Stamps + 2 * kMaxPasses * 2 * 4;
+  unsigned long long v[n];
+  cudaError_t err = cudaMemcpyFromSymbol(v, g_k8, 4 * sizeof(v[0]));
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(v + 4, g_k8_t, 2 * kK8Stamps * sizeof(v[0]));
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(v + 4 + 2 * kK8Stamps, g_k8_p,
+                               2 * kMaxPasses * 2 * 4 * sizeof(v[0]));
+  if (err != cudaSuccess) return (int)err;
+  for (int i = 0; i < n; ++i) out[i] = (long long)v[i];
+  return 0;
+}
+#endif
+
 // which = 0: the selection (select_kernel, stages up to ``stage``);
-// which = 1: the triples (triples_kernel) after K9, on the same scratch
+// which = 1: the triples (triples_kernel) after K9, on the same scratch;
+// wide: the 128-bit key instance, else the 64-bit one
 extern "C" int select_launch(
     int which, int N, const void* f_rid, const void* f_lo, const void* f_hi,
     const void* trav, const void* n_trav, const void* ing, const void* n_ing,
@@ -1051,8 +1564,8 @@ extern "C" int select_launch(
     const void* nt_allele, const void* anc_len, const void* anc_site,
     const void* anc_allele, const void* base_site, int n_sites,
     int anc_stride, int A, int ecap, int lcap, int trcap, int kcap,
-    int trip_cap, int stage, void* fallback, void* mapped, void* ps_row,
-    void* ps_lo, void* ps_hi, void* ps_trav, void* ps_ntrav,
+    int trip_cap, int stage, int wide, void* fallback, void* mapped,
+    void* ps_row, void* ps_lo, void* ps_hi, void* ps_trav, void* ps_ntrav,
     void* st_selected, const void* fb_final, void* t_row, void* t_site,
     void* t_allele, void* scratch, int grid, void* stream) {
   if (kcap < 1 || kcap > kMaxKcap) return (int)cudaErrorInvalidValue;
@@ -1087,7 +1600,7 @@ extern "C" int select_launch(
   p.trcap = trcap;
   p.kcap = kcap;
   p.trip_cap = trip_cap;
-  const Dims d{N, R, ecap, lcap, trcap, A, kcap, grid};
+  const Dims d{N, R, ecap, lcap, trcap, A, kcap, grid, wide ? 1 : 0};
   p.check_trips = d.LT() > trip_cap;
   p.stage = stage;
   p.fallback = static_cast<int*>(fallback);
@@ -1104,8 +1617,11 @@ extern "C" int select_launch(
   p.t_allele = static_cast<int*>(t_allele);
   carve(d, static_cast<char*>(scratch), &p);
   void* args[] = {&p};
-  const void* fn = which == 0 ? (const void*)select_kernel
-                              : (const void*)triples_kernel;
+  const void* fn =
+      which == 0 ? (wide ? (const void*)select_kernel<u128>
+                         : (const void*)select_kernel<uint64_t>)
+                 : (wide ? (const void*)triples_kernel<u128>
+                         : (const void*)triples_kernel<uint64_t>);
   const cudaError_t err = cudaLaunchCooperativeKernel(
       fn, dim3(grid), dim3(kThreads), args, 0,
       reinterpret_cast<cudaStream_t>(stream));

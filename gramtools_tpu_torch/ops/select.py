@@ -8,14 +8,29 @@ launches of ``csrc/select.cu``:
   * ``select_cuda`` launches ``select_kernel``, the function's stages
     0-5 (FB_CHAIN and ``mapped``; the encapsulated split and the state
     table; the duplicate-site check; the loci and their dedup sort; the
-    key rows, the classes and the pick; the preliminary triple check).
-    It returns a ``Selection``: the fallback bits so far, ``mapped``,
-    the state table (``ps_row``, ``ps_lo``, ``ps_hi``, ``ps_trav``,
+    key rows, the classes and the pick, a thread a row or a warp for a
+    row of more than 4 live states; the preliminary triple check). It
+    returns a ``Selection``: the fallback bits so far, ``mapped``, the
+    state table (``ps_row``, ``ps_lo``, ``ps_hi``, ``ps_trav``,
     ``ps_ntrav``) and ``st_selected``, which K9 takes as they are, and
     the scratch that the second launch reads;
   * ``triples_cuda`` launches ``triples_kernel`` on a Selection and the
     fallback bits after K9: the (trip_cap,) triple arrays, sorted by
     (row, site, allele), unselected lanes after the selected ones.
+
+Every scan of the two launches is a chained scan with decoupled
+look-back, and both sorts are one-sweep LSD radix sorts of 8-bit
+digits (one histogram sweep, then one grid sync a pass); the triple
+sort starts from the dedup sort's (site, allele) order and runs the
+row key's passes only: 7 grid syncs and the dedup sort's passes in the
+first launch, 1 and the row key's passes in the second
+(csrc/select.cu). The sorts' keys are 64-bit where ``key_bits`` (a
+bound from the shapes: the states, the rows, the site markers and the
+graph's nodes) is at most 64, 128-bit otherwise; ``WIDE_KEYS`` forces
+one instance. The kernels fix the exact packing from the lanes
+themselves, so the outputs do not depend on the instance; a 64-bit
+launch given sites or alleles outside the graph's tables, past its
+bound, traps (a launch error).
 
 The plain version is mapping/record.py::select_torch; CPU tensors take
 it there (record.select_and_record_device routes by device). Both
@@ -36,9 +51,29 @@ from ..mapping.search_log_host import TCAP
 I32 = torch.int32
 MAX_KCAP = 12        # the kernels' widest key row (csrc/select.cu)
 GRID_CAP = None
-"""A cap on the kernels' grid (tests set it to run several chunks and
-tiles a block at small shapes); None: the co-resident blocks, at most two
-an SM."""
+"""A cap on the kernels' grid (tests set it to run many tiles a block at
+small shapes); None: the co-resident blocks, at most two an SM."""
+WIDE_KEYS = None
+"""True or False forces the 128-bit or the 64-bit key instance; None:
+the one ``key_bits`` asks for."""
+
+
+def key_bits(NS: int, R: int, n_sites: int, n_nodes: int) -> int:
+    """An upper bound on the width of both sorts' packed keys: the bits
+    of the larger primary key (a state, at most NS + 1, or a row key, at
+    most R + 1) over those of the lanes' site range (site markers 5 +
+    2 * site below 5 + 2 * n_sites, or 0) and allele range (-1 to below
+    the graph's node count), the two together rounded up to whole 8-bit
+    digits. The kernels pack by the exact ranges, which lie inside these
+    for lanes of the graph's own loci."""
+    fields = (3 + 2 * n_sites).bit_length() + (n_nodes + 1).bit_length()
+    return max(NS + 1, R + 1).bit_length() + (fields + 7) // 8 * 8
+
+
+def wide_keys(bits: int) -> bool:
+    """Whether keys of ``bits`` (``key_bits``) take the 128-bit instance,
+    unless ``WIDE_KEYS`` forces one."""
+    return bits > 64 if WIDE_KEYS is None else bool(WIDE_KEYS)
 
 
 class Selection(NamedTuple):
@@ -67,24 +102,26 @@ def _kernel_lib() -> ctypes.CDLL:
             + [i, p, p]                          # rows
             + [p, i, p, i, p, p]                 # sa, ra_node, nt_*
             + [p, p, p, p, i, i, i]              # anc_*, base_site
-            + [i, i, i, i, i, i]                 # budgets, stage
+            + [i, i, i, i, i, i, i]              # budgets, stage, wide
             + [p] * 8                            # the selection's outputs
             + [p, p, p, p]                       # fb_final, the triples
             + [p, i, p])                         # scratch, grid, stream
         lib.select_launch.restype = ctypes.c_int
-        lib.select_scratch_bytes.argtypes = [i] * 8
+        lib.select_scratch_bytes.argtypes = [i] * 9
         lib.select_scratch_bytes.restype = ctypes.c_longlong
-        lib.select_grid.argtypes = []
+        lib.select_grid.argtypes = [i]
         lib.select_grid.restype = ctypes.c_int
     return lib
 
 
-def kernel_attrs() -> dict:
-    """The selection kernel's registers a thread, local (spill) bytes a
-    thread and static shared bytes a block."""
+def kernel_attrs(which: int = 0, wide: bool = False) -> dict:
+    """A selection kernel's registers a thread, local (spill) bytes a
+    thread and static shared bytes a block: ``which`` 0 the first launch's
+    (select_kernel), 1 the second's (triples_kernel), of the 64-bit or
+    (``wide``) the 128-bit key instance."""
     from . import _build
 
-    return _build.kernel_attrs(_kernel_lib().select_attrs)
+    return _build.kernel_attrs(_kernel_lib().select_attrs, which, int(wide))
 
 
 def _check(fn: str, named: dict, dtypes: dict, dev):
@@ -154,9 +191,10 @@ def select_cuda(sa, ra_node, nt_site, nt_allele, anc_len, anc_site,
     if NS * TCAP >= 1 << 31 or LT >= 1 << 30 or NS * kcap >= 1 << 31:
         raise ValueError(f"{fn}: {NS} states or {LT} loci lanes are past "
                          "the kernels' int32 indexing")
+    wide = wide_keys(key_bits(NS, R, n_sites, nt_site.shape[0]))
     lib = _kernel_lib()
     with torch.cuda.device(dev):
-        grid = lib.select_grid()
+        grid = lib.select_grid(int(wide))
     if grid < 1:
         raise RuntimeError(f"{fn}: no cooperative grid on {dev}: CUDA error "
                            f"{-grid}")
@@ -173,8 +211,8 @@ def select_cuda(sa, ra_node, nt_site, nt_allele, anc_len, anc_site,
     ps_ntrav = torch.empty(NS, dtype=I32, device=dev)
     st_selected = torch.empty(NS, dtype=torch.bool, device=dev)
     scratch = torch.empty(lib.select_scratch_bytes(
-        N, R, ecap, lcap, trcap, max_anc, kcap, grid), dtype=torch.uint8,
-        device=dev)
+        N, R, ecap, lcap, trcap, max_anc, kcap, grid, int(wide)),
+        dtype=torch.uint8, device=dev)
     args = ([N] + [t.data_ptr() for t in (f_rid, f_lo, f_hi, trav, n_trav,
                                           ing, n_ing, state_bad)]
             + [R, row_ok.data_ptr(), row_first_raw.data_ptr(),
@@ -183,7 +221,7 @@ def select_cuda(sa, ra_node, nt_site, nt_allele, anc_len, anc_site,
                anc_len.data_ptr(), anc_site.data_ptr(),
                anc_allele.data_ptr(), base_site.data_ptr(), n_sites,
                anc_site.shape[1], max_anc, ecap, lcap, trcap, kcap, trip_cap,
-               int(stage)]
+               int(stage), int(wide)]
             + [t.data_ptr() for t in [fallback, mapped] + ps
                + [ps_trav, ps_ntrav, st_selected]])
     with torch.cuda.device(dev):             # the stream's own device

@@ -1540,6 +1540,93 @@ def test_select_wrapper_checks_inputs(cuda):
                              for t in tables), *(a.cpu() for a in raw), **ok)
 
 
+def _select_on(idx, args, trip_cap, stage=99):
+    """select_and_record_device on the card only: [outputs..., cov_diff]."""
+    cuda = args[0].device
+    di = DeviceIndex.build(idx, device=cuda)
+    rt = RecordTables.build(idx, cuda)
+    cov = torch.zeros(rt.cov_size + 1, dtype=torch.int32, device=cuda)
+    out = record.select_and_record_device(di, rt, *args, cov,
+                                          trip_cap=trip_cap, stage=stage)
+    return [o.cpu() for o in out] + [cov.cpu()]
+
+
+@pytest.mark.parametrize("stage", [3, 5, 99])
+@pytest.mark.parametrize("kind", ["sites", "random"])
+def test_select_wide_keys_match_64_bit_keys(cuda, monkeypatch, kind, stage):
+    """The 128-bit key instance forced on the same buffer: equal to the
+    64-bit instance (the path's, which ``key_bits`` picks here) and to
+    the plain version."""
+    from gramtools_tpu_torch.ops import select
+
+    if kind == "random":
+        idx, args, trip_cap = _select_random(7, cuda)
+    else:
+        idx, args, trip_cap = _select_captured(kind, cuda, monkeypatch)
+    rt = RecordTables.build(idx, "cpu")
+    assert not select.wide_keys(select.key_bits(
+        args[0].shape[0] + buffer_caps(args[8].shape[0])[0],
+        args[8].shape[0], rt.anc_len.shape[0], rt.nt_site.shape[0]))
+    narrow = _select_on(idx, args, trip_cap, stage)
+    monkeypatch.setattr(select, "WIDE_KEYS", True)
+    got, want = _select_both(idx, args, trip_cap, stage)
+    for i, (g, n, w) in enumerate(zip(got, narrow, want)):
+        assert torch.equal(g, n), f"wide != 64-bit keys, output {i}"
+        assert torch.equal(g, w), f"wide != plain, output {i}"
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_select_each_instance_repeated_launches_identical(cuda, monkeypatch,
+                                                          wide):
+    """20 launches of each key instance on the same inputs (the sorts'
+    and scans' look-backs can race): equal outputs, equal to the plain
+    version."""
+    from gramtools_tpu_torch.ops import select
+
+    idx, args, trip_cap = _select_captured("nested", cuda, monkeypatch)
+    monkeypatch.setattr(select, "WIDE_KEYS", wide)
+    want = _select_both(idx, args, trip_cap)[1]
+    for _ in range(20):
+        for i, (g, w) in enumerate(zip(_select_on(idx, args, trip_cap),
+                                       want)):
+            assert torch.equal(g, w), f"output {i}"
+
+
+def test_select_lanes_past_the_grid(cuda, monkeypatch):
+    """Two blocks: the lanes span many more sort tiles (8 keys a thread)
+    and scan tiles than the grid has blocks, so each block takes many
+    tiles of every pass and scan in turn."""
+    from gramtools_tpu_torch.ops import select
+
+    monkeypatch.setattr(select, "GRID_CAP", 2)
+    idx, args, trip_cap = _select_captured("sites", cuda, monkeypatch)
+    ecap, trcap, _, _, lcap = buffer_caps(args[8].shape[0])
+    assert lcap + trcap > 4 * 2 * 256 * 8
+    got, want = _select_both(idx, args, trip_cap)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), f"output {i}"
+
+
+def test_select_lanes_in_one_tile(cuda, monkeypatch):
+    """Budgets so small that every scan (the states, the rows, the
+    encapsulated lanes) and both sorts (lcap + trcap lanes and their
+    ancestors, at most 256) fit in one tile, which alone publishes its
+    inclusive prefix, with the spills they flag: equal to the plain
+    version."""
+    idx, args, trip_cap = _select_random(8, cuda, N=120, R=40)
+    A = max(RecordTables.build(idx, "cpu").max_anc, 0)
+    trcap = 16
+    small = dict(ecap=64, trcap=trcap, lcap=256 // (A + 1) - trcap)
+    keys = ("ecap", "trcap", "wcap", "emitcap", "lcap")
+    monkeypatch.setattr(record, "buffer_caps", lambda R: tuple(
+        small.get(k, v) for k, v in zip(keys, buffer_caps(R))))
+    assert (small["lcap"] + trcap) * (A + 1) <= 256 and small["lcap"] > 0
+    got, want = _select_both(idx, args, trip_cap)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), f"output {i}"
+    assert want[1].any()
+
+
 # --------------------------------------------------------------------------
 # the mesh and the index-sharded scan on the card
 # --------------------------------------------------------------------------
