@@ -141,14 +141,16 @@ this order, each printing one line or a few:
      between cards);
   5b. the SA-range-sharded index (K10): one whole 20,000-read buffer's
      scan (R = 30,720, the engine's phases, dense rank) with the index
-     split over 4 and over 3 "idx" shards on the card, K2 and K3 reading
-     the shards in place, must equal the replicated scan's flat result,
-     the engine's and the plain version's (the torch steps over the
-     shards' masked gathers: one run counts them, another is timed);
-     K10's launches (2 a scan, counted around one scan), its time by
-     queued events and traced (in a process of its own, ``--trace-k10``;
-     both marked windows or the phase fails) beside the replicated
-     dense-rank K2 and K3, its bound;
+     split over 4 and over 3 "idx" shards on the card, the scan in
+     gather rounds (csrc/sharded_step.cu, two launches a step, no
+     collective on one card), must equal the replicated scan's flat
+     result, the engine's and the plain version's (the torch steps over
+     the shards' masked gathers: one run counts them, another is timed),
+     also over 20 repeated scans; K10's launches and collectives (counted
+     around one scan), its time by events and traced (in a process of
+     its own, ``--trace-k10``; both marked windows or the phase fails)
+     beside the replicated dense-rank K2 and K3, its host enqueue, its
+     bound;
   5c. ``genotype --engine device --max_threads 2`` on the 4,000 parity
      reads (spawned workers, since CUDA is initialised) must write files
      byte-equal to phase 4's host engine run.
@@ -175,8 +177,8 @@ K9 inside, its entry also holding its grid syncs and sort passes a
 launch, one empty grid sync's time and the sync floor; K6's are the K2 and K3 launches that decode packed reads, its
 time theirs on the packed windows, its plain time the unpack and the
 two launches on its rows; K10's (``sharded_index``) launches are phase
-5b's sharded scan's, its time the 4-shard K2 and K3, its plain time the
-torch gather scan's); the last is
+5b's 4-shard scan's, its time that scan's, its plain time the torch
+gather scan's); the last is
 ``{"ok": true, "device": {...}}``. Any failed
 check raises, and the script exits non-zero; it also exits non-zero,
 printing no result, when no CUDA device is available. It imports no
@@ -198,7 +200,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 LIBS = ("packed_rank", "replay", "walk", "wide_step", "locked_step",
-        "select")                                        # csrc/<name>.cu
+        "select", "sharded_step")                        # csrc/<name>.cu
 # each entry of the kernels line: its __global__ functions (trace names
 # read "(anonymous namespace)::<name>_kernel(...)", or "<name>_kernel<...>"
 # for an instance of a scan kernel's template); K3's hole-allocated and
@@ -209,11 +211,11 @@ KERNELS = {"packed_rank": ("packed_rank",), "replay": ("replay",),
            "wide_step": ("wide_steps",), "narrow_step": ("locked_tail",),
            "locked_step": ("locked_tail",), "select": ("select", "triples"),
            "unpack": ("wide_steps", "locked_tail"),
-           "sharded_index": ("wide_steps", "locked_tail")}
+           "sharded_index": ("sharded_open", "sharded_mid")}
 # the standalone K1 runs on no path since the scan kernels fold its rank
 # in; K6 (the 2-bit read decode, "unpack") runs inside K2 and K3; K10 (the
-# sharded tables, "sharded_index") only on the index-sharded path (phase
-# 5b); every other kernel must launch on each path
+# scan over sharded tables, "sharded_index") only on the index-sharded
+# path (phase 5b); every other kernel must launch on each path
 PATH_KERNELS = ("replay", "per_base", "wide_step", "narrow_step",
                 "locked_step", "select", "unpack")
 LABEL = "per_base"        # the record_function around the per-base call
@@ -691,11 +693,8 @@ def phase_path(cfg: SmokeConfig, idx, kmer_index, reads, device,
         return wrapper
 
     def keep_scan(name, fn):
-        # the scan kernels' calls without their trailing ``tables`` (None
-        # on this path: the index is whole)
         def wrapper(*args):
-            assert args[-1] is None, "the path's scan read sharded tables"
-            captured[name] = (args[:-1], {})
+            captured[name] = (args, {})
             out = fn(*args)
             captured[name + "_out"] = out
             return out
@@ -1035,13 +1034,12 @@ def k1_wide_steps(*args, **kwargs):
 
 
 def k1_narrow_tail(di, reads, carry, log_base, lp, le, hits, wide_budget,
-                   blocks=None, lock=True, narrow=None, tables=None):
+                   blocks=None, lock=True, narrow=None):
     """The narrow phase as the path ran it before K3 narrow (the torch
     steps, their occ gathers through K1), then the locked phase as one
     launch of the K3 kernel."""
     from gramtools_tpu_torch.ops import locked_step
 
-    assert tables is None
     if narrow is None:
         return locked_step.locked_tail(di, reads, carry, log_base, lp, le,
                                        hits, wide_budget, blocks, lock)
@@ -1432,7 +1430,7 @@ def check_wide(cfg: SmokeConfig, captured, work: Path, probe):
                     lambda: run(wide_step.wide_steps_cuda, phases), got)
     syncs = read_syncs(lib.wide_steps_syncs)
     say(f"[phase 1f] K2 kernel: wide_steps_kernel (the path's instance: "
-        f"packed reads, whole tables) {attrs['registers']} "
+        f"packed reads) {attrs['registers']} "
         f"registers a thread, {attrs['local_bytes']} local (spill) bytes, "
         f"{attrs['shared_bytes']} static shared bytes a block; ptxas: "
         f"{ptxas_line(probe, 'wide_ptxas', 'wide_steps_kernel')}; grid "
@@ -1692,8 +1690,7 @@ def phase_locked(cfg: SmokeConfig, captured, args, probe):
         f"kernel at "
         + ("-" if trace is None else f"{100 * floor_ms / trace:.2f}%")
         + f" of it traced; byte bound {m['bound_ms']:.4f} ms; "
-        f"locked_tail_kernel (the path's instance: packed reads, whole "
-        f"tables) {attrs['registers']} registers a thread, "
+        f"locked_tail_kernel (the path's instance: packed reads) {attrs['registers']} registers a thread, "
         f"{attrs['local_bytes']} local (spill) bytes, "
         f"{attrs['shared_bytes']} static shared bytes a block; ptxas: "
         f"{ptxas_line(probe, 'tail_ptxas', 'locked_tail_kernel')}")
@@ -2413,9 +2410,9 @@ def probe_lib(probe, name: str = "probes"):
     return _PROBES[name][0]
 
 
-PATH_LAYOUT = "LayoutILb1ELb0E"
+PATH_LAYOUT = "LayoutILb1EE"
 """The mangled template arguments of the scan kernels' path instance,
-Layout<true, false> (csrc/scan_common.cuh: packed reads, whole tables)."""
+Layout<true> (csrc/scan_common.cuh: packed reads)."""
 
 
 def ptxas_line(probe, name: str, kernel: str) -> str:
@@ -2877,9 +2874,9 @@ def _counted():
     """The kernels' launch counts, by name: each wrapper's ``launches``;
     K3 narrow's is the narrow-tail launches that ran hole-allocated
     steps; K6's the K2 and K3 launches that decoded packed reads, K10's
-    those that read sharded tables."""
+    the sharded scan's launches on every card."""
     from gramtools_tpu_torch.ops import (locked_step, rank, replay, select,
-                                         walk, wide_step)
+                                         sharded, walk, wide_step)
 
     return {"packed_rank": rank.packed_rank, "replay": replay.replay,
             "per_base": walk.per_base_cuda,
@@ -2889,9 +2886,7 @@ def _counted():
             "select": select.select_cuda,
             "unpack": _Count((wide_step.wide_steps, locked_step.locked_tail),
                              "packed_launches"),
-            "sharded_index": _Count((wide_step.wide_steps,
-                                     locked_step.locked_tail),
-                                    "sharded_launches")}
+            "sharded_index": sharded.sharded_scan}
 
 
 class TimerLines(logging.Handler):
@@ -3098,17 +3093,20 @@ def phase_index_sharded(cfg: SmokeConfig, idx, kmer_index, reads, device,
                         work: Path):
     """Phase 5b, the index-sharded path (K10): one whole buffer's scan
     (DEVICE_BUFFER_SIZE reads, the engine's own phases, dense rank) with
-    the index split over 4 and over 3 SA-range shards on the card, K2
-    and K3 reading the shards in place; its flat result equal to the
-    replicated scan's, the engine's and the plain version's (the torch
-    steps over the masked gathers of build_tables' shards: one run
-    counts its gathers' calls and bytes, one uncounted run is timed);
-    K10's launches (2 a scan: the counts set to 0 just before one
-    sharded scan and read just after), its time by queued events and
+    the index split over 4 and over 3 SA-range shards on the card, the
+    scan in gather rounds (csrc/sharded_step.cu: two launches a step,
+    the card's masked gathers summing its own shards, no collective on
+    one card); its flat result equal to the replicated scan's, the
+    engine's and the plain version's (the torch steps over the masked
+    gathers of build_tables' shards: one run counts its gathers' calls
+    and bytes, one uncounted run is timed), and the same over 20
+    repeated 4-shard scans; K10's launches and collectives (the counts
+    set to 0 just before one sharded scan and read just after: 2 a step
+    and 1); its time by events, each scan queued alone behind a sleep
+    of the card, beside the replicated dense-rank scan (K2 and K3), and
     traced (trace_k10_apart; the phase fails without both marked
-    windows) beside the replicated dense-rank K2 and K3's, its bound
-    (the two launches' bytes). Returns K10's entry of the kernels
-    line."""
+    windows); its bound (the replicated launches' bytes: one card moves
+    nothing over NVLink). Returns K10's entry of the kernels line."""
     import numpy as np
     import torch
 
@@ -3137,32 +3135,31 @@ def phase_index_sharded(cfg: SmokeConfig, idx, kmer_index, reads, device,
     calls = {}
     path = (wide_step.wide_steps_cuda, locked_step.locked_tail_cuda)
 
-    def capture(tag):
-        def keep(name, fn):
-            def wrapper(*a):
-                calls[tag, name] = a
-                return fn(*a)
-            return wrapper
-        wide_step.wide_steps_cuda = keep("wide", path[0])
-        locked_step.locked_tail_cuda = keep("tail", path[1])
+    def keep(name, fn):
+        def wrapper(*a):
+            calls[name] = a
+            return fn(*a)
+        return wrapper
 
     def flat(out):
         (rid, lo, hi, pref, ovf), (lp, le) = out
         return torch.cat([rid, lo, hi, pref, ovf.to(torch.int32), lp,
                           le]).cpu().numpy()
 
-    flats, secs, launched = {}, {}, {}
-    runs = [("replicated", lambda rt, c: log_search_phases(
-        engine.di, rt, c, phases, R))]
+    flats, secs, launched, collectives = {}, {}, {}, {}
+    runs = {"replicated": lambda rt, c: log_search_phases(
+        engine.di, rt, c, phases, R)}
     for n_idx in (4, 3):
-        runs.append((f"{n_idx} shards", sharded_index.
-                     make_index_sharded_log_search(
-                         Mesh([device] * n_idx, ("idx",)), engine.di,
-                         engine.cfg, R, phases=phases)))
-    for name, run in runs:
+        runs[f"{n_idx} shards"] = sharded_index.make_index_sharded_log_search(
+            Mesh([device] * n_idx, ("idx",)), engine.di, engine.cfg, R,
+            phases=phases)
+    for name, run in runs.items():
         a = args()
-        capture(name)
+        calls.clear()
+        wide_step.wide_steps_cuda = keep("wide", path[0])
+        locked_step.locked_tail_cuda = keep("tail", path[1])
         counted.launches = 0
+        sharded.sharded_scan.collectives = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         try:
@@ -3172,12 +3169,25 @@ def phase_index_sharded(cfg: SmokeConfig, idx, kmer_index, reads, device,
             wide_step.wide_steps_cuda, locked_step.locked_tail_cuda = path
         secs[name] = time.perf_counter() - t0
         launched[name] = counted.launches
+        collectives[name] = sharded.sharded_scan.collectives
         flats[name] = flat(out)
-        calls[name, "le"] = out[1][1]
-    if launched["replicated"] or launched["4 shards"] != 2 or \
-            launched["3 shards"] != 2:
-        raise AssertionError(f"K10 launches {launched}: 2 a sharded scan, "
+        if name == "replicated":
+            rep_w, rep_t = calls["wide"], calls["tail"]
+        elif calls:
+            raise AssertionError(f"the {name} scan ran K2 or K3")
+    steps = sum(e[0] for e in phases)
+    if launched["replicated"] or any(
+            launched[f"{n} shards"] != 2 * steps + 1
+            or collectives[f"{n} shards"] for n in (4, 3)):
+        raise AssertionError(f"K10 launches {launched}, collectives "
+                             f"{collectives}: {2 * steps + 1} launches and "
+                             f"no collective a sharded scan on one card, "
                              f"none in the replicated one")
+    a = args()
+    repeated = [flat(runs["4 shards"](*a)) for _ in range(20)]
+    if any(not np.array_equal(r, repeated[0]) for r in repeated[1:]):
+        raise AssertionError("20 repeated 4-shard scans differ")
+    flats["4 shards, repeated"] = repeated[-1]
     # the plain version: the torch steps over the shards' masked gathers,
     # once counting its gathers (torch.unique synchronises: not timed),
     # then once timed, uncounted
@@ -3219,78 +3229,96 @@ def phase_index_sharded(cfg: SmokeConfig, idx, kmer_index, reads, device,
         if not np.array_equal(got, engine_flat):
             raise AssertionError(f"{name} scan != the engine's flat result "
                                  f"({int((got != engine_flat).sum())} words)")
-    # the two launches of the 4-shard scan and of the replicated one, timed
-    # in turns and traced
-    saved = {"le": calls["replicated", "le"], **{
-        tag: (calls[tag, "wide"], calls[tag, "tail"])
-        for tag in ("4 shards", "replicated", "3 shards")}}
-    lp_t = torch.empty_like(saved["le"])
-    pairs = k10_pairs(saved, lp_t, torch.empty_like(lp_t))
-    ms = {tag: time_ms(pairs[tag], cfg.timing_runs)
-          for tag in ("4 shards", "replicated", "3 shards")}
-    ms["4 shards again"] = time_ms(pairs["4 shards"], cfg.timing_runs)
-    windows = trace_k10_apart(saved, work)
-    rep_w, rep_t = calls["replicated", "wide"], calls["replicated", "tail"]
-    le_rep = calls["replicated", "le"]
-    nbytes = (wide_bytes(rep_w[:8], le_rep) + tail_bytes(rep_t[:11], le_rep))
+    # by events (each sharded scan alone behind a sleep: its launches would
+    # fill the card's queue), and traced in a process of its own
+    a = args()
+    ms = {"replicated": time_ms(lambda: runs["replicated"](*a),
+                                cfg.timing_runs)}
+    for name in ("4 shards", "3 shards", "4 shards again"):
+        ms[name] = time_each_ms(lambda: runs[name[:8]](*a), cfg.timing_runs)
+    enqueue = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs["4 shards"](*a)
+        enqueue.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    windows = trace_k10_apart({"di": di, "reads": a[0], "carry": a[1],
+                               "phases": phases, "R": R}, work)
+    nbytes = wide_bytes(rep_w[:8], rep_w[6]) + tail_bytes(rep_t[:11],
+                                                          rep_t[5])
+    attrs = [sharded.kernel_attrs(w) for w in (0, 1)]
     shown = lambda w: f"{w[1]:.4f} ms busy over {w[0]} device events"
     say(f"[phase 5b] index of {engine.di.size} rows in 4 and in 3 SA-range "
         f"shards on {device} (rows a shard {-(-(engine.di.size + 1) // 4)}"
         f" and {-(-(engine.di.size + 1) // 3)}), dense rank, phases "
         f"{phases}: flat result of {len(token[1])} reads (R={R}, "
         f"{engine_flat.size} int32) equal to the replicated scan's, the "
-        f"engine's and the plain version's (the torch steps over the "
+        f"engine's, the plain version's (the torch steps over the "
         f"masked gathers: {k10['calls']} gather calls, {k10['bytes']} "
         f"bytes, bound {bound_ms(k10['bytes']):.4f} ms, in a counting "
-        f"run; {plain_s:.3f} s host clock, one uncounted run); K10 "
-        f"launches (K2 and K3 reading the shards) {launched}; scan + "
+        f"run; {plain_s:.3f} s host clock, one uncounted run) and over 20 "
+        f"repeated 4-shard scans; K10 launches (sharded_open_kernel and "
+        f"sharded_mid_kernel, {steps} steps) {launched}, collectives "
+        f"{collectives}; open kernel {attrs[0]['registers']} registers, "
+        f"{attrs[0]['local_bytes']} local bytes, {attrs[0]['shared_bytes']}"
+        f" shared bytes; mid kernel {attrs[1]['registers']}, "
+        f"{attrs[1]['local_bytes']}, {attrs[1]['shared_bytes']}; scan + "
         f"fetch, host clock, s: "
         + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
-        + "; K2 + K3 by queued events, ms: "
-        + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
-        + f"; traced: 4 shards {shown(windows[0])}, replicated dense "
-        f"{shown(windows[1])}; bound {bound_ms(nbytes):.4f} ms ({nbytes} "
-        f"bytes, the replicated launches'), the 4-shard launches at "
+        + "; by events, ms (a sharded scan alone behind a sleep, the "
+        "median of " + f"{cfg.timing_runs}; the replicated K2 + K3 queued):"
+        " " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+        + f"; the 4-shard scan's enqueue on the host "
+        f"{1000 * min(enqueue):.3f} ms (the least of 5); traced: 4 shards "
+        f"{shown(windows[0])}, replicated dense {shown(windows[1])}; bound "
+        f"{bound_ms(nbytes):.4f} ms ({nbytes} bytes, the replicated "
+        f"launches', none over NVLink on one card), the 4-shard scan at "
         f"{100 * bound_ms(nbytes) / ms['4 shards']:.2f}% of it by events")
     m = {"max_abs_err": 0, "ms": ms["4 shards"], "plain_ms": 1000 * plain_s,
          "bound_ms": bound_ms(nbytes), "library_ms": None}
     entry = kernel_entry(
-        "sharded_index", "gramtools_tpu_torch/csrc/scan_common.cuh",
+        "sharded_index", "gramtools_tpu_torch/csrc/sharded_step.cu",
         "gramtools_tpu/parallel/sharded_index.py:98", m,
         [{"sharded_index": launched["4 shards"]}],
         {"sharded_index": windows[0][1]})
     entry.update(launches=launched["4 shards"], path="index-sharded (5b)",
-                 replicated_ms=ms["replicated"], three_shards_ms=ms[
-                     "3 shards"])
+                 collectives=collectives["4 shards"],
+                 replicated_ms=ms["replicated"],
+                 three_shards_ms=ms["3 shards"],
+                 enqueue_ms=1000 * min(enqueue))
     return entry
 
 
-def k10_pairs(saved, lp_t, le_t):
-    """{tag: a phase 5b scan's two launches (K2, K3) on their captured
-    arguments ``saved[tag]``, into lp_t and le_t}."""
-    from gramtools_tpu_torch.ops import locked_step, wide_step
+def k10_scans(saved):
+    """{tag: a phase 5b scan of the inputs ``saved`` (the index, reads,
+    carry, phases, R)}: its 4-shard scan and the replicated one."""
+    from gramtools_tpu_torch.mapping.search_log import log_search_phases
+    from gramtools_tpu_torch.ops import sharded
 
-    def pair(w, t):
-        return lambda: (wide_step.wide_steps_cuda(*w[:5], lp_t, le_t, *w[7:]),
-                        locked_step.locked_tail_cuda(*t[:4], lp_t, le_t,
-                                                     *t[6:]))
-    return {tag: pair(*v) for tag, v in saved.items() if tag != "le"}
+    di, R, phases = saved["di"], saved["R"], saved["phases"]
+    dev = saved["reads"].device
+    tables = sharded.build_tables(
+        di.occ.cpu().numpy(), di.narrow_tab.cpu().numpy(), di.size,
+        [dev] * 4, dev)
+    args = (saved["reads"], saved["carry"])
+    return {"4 shards": lambda: log_search_phases(di, *args, phases, R,
+                                                  occ_rows=tables),
+            "replicated": lambda: log_search_phases(di, *args, phases, R)}
 
 
 def trace_k10_apart(saved, work: Path):
     """Phase 5b's trace, in a process of its own (``--trace-k10``): the
-    4-shard scan's two launches and the replicated scan's, each between
-    markers, on the arguments phase 5b captured (``saved``, written to
-    a file).
-    Late in a long run, a short trace in this process loses most of the
-    card's kernel records (PERF.md, PR 12), while the first traces of a
-    process keep them all. Returns the two windows; raises unless the
-    trace shows both."""
+    4-shard scan and the replicated scan, each between markers, on the
+    inputs phase 5b saved (``saved``, written to a file). Late in a long
+    run, a short trace in this process loses most of the card's kernel
+    records (PERF.md §7), while the first traces of a process keep
+    them all. Returns the two windows; raises unless the trace shows
+    both."""
     import torch
 
-    path = work / "k10_pairs.pt"
-    torch.save({k: saved[k] for k in ("le", "4 shards", "replicated")},
-               path)
+    path = work / "k10_scans.pt"
+    torch.save(saved, path)
     proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"),
                            "--trace-k10", str(path)], capture_output=True,
                           text=True, timeout=600)
@@ -3308,21 +3336,18 @@ def trace_k10_apart(saved, work: Path):
 
 
 def trace_k10(saved: Path) -> dict:
-    """The body of ``--trace-k10``: trace_k10_apart's trace of the
-    launches saved in ``saved``. Returns its marked windows and its
+    """The body of ``--trace-k10``: trace_k10_apart's trace of the scans
+    of the inputs saved in ``saved``. Returns its marked windows and its
     device events and markers."""
     import torch
 
-    args = torch.load(saved, weights_only=False)
-    lp_t = torch.empty_like(args["le"])
-    le_t = torch.empty_like(lp_t)
-    pairs = k10_pairs(args, lp_t, le_t)
+    scans = k10_scans(torch.load(saved, weights_only=False))
 
     def traced():
-        pairs["4 shards"]()
+        scans["4 shards"]()
         torch.cuda.synchronize()
-        marked(pairs["4 shards"])()
-        marked(pairs["replicated"])()
+        marked(scans["4 shards"])()
+        marked(scans["replicated"])()
 
     busy, _, _, timeline = _profile_device(traced, saved.parent / "trace_k10")
     return {"windows": marked_windows(timeline) if busy is not None else [],

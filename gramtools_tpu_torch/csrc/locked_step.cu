@@ -12,11 +12,7 @@
 // = 10 the tail is 8 hole-allocated and 130 slot-locked steps of a
 // 144-step scan. Here the whole tail is one launch. Like the wide launch
 // (wide_step.cu) it decodes packed reads where it loads a base (K6: the
-// tail starts at a step offset that need not be a multiple of 4) and reads
-// sharded occ and narrow tables from their owner shards in place (K10;
-// the L2 prefetch of the next step's narrow word is kept for a peer's
-// shard too: a hint, which cannot fault; whether it helps across NVLink is
-// not measured).
+// tail starts at a step offset that need not be a multiple of 4).
 //
 // The carry (read_id, lo, hi, pref) lives in ``carry`` (2, 4, C), C >=
 // every pool size; the inputs are never written. ``ovf`` (R + 1,) gets the
@@ -353,13 +349,10 @@ __device__ void narrow_tile(const Params& p, NarrowShared& ts, Carry cur,
   const bool cov = wide && w_rank < W;
   const bool spill_w = wide && !cov;
   if (!cov) w = LF{0, 0, 0, 0};                  // wball: 0 unless covered
-  const int sym = t >> 24, val = t & 0xFFFFFF;
-  const bool ok = single ? sym == base : w.nlo <= w.nhi;
-  const bool ac = active && (single || cov);
-  const bool keep = (ac && ok) || (valid && !active);
-  const int klo = ac ? (single ? val : w.nlo) : lo;
-  const int khi = ac ? (single ? val : w.nhi) : hi;
-  const int cnt = ac ? (single ? (sym == 5 ? 1 : 0) : w.mhi - w.mlo) : 0;
+  const Merged m = narrow_merge(valid, active, single, cov, base, t, w, lo,
+                                hi);
+  const bool keep = m.keep;
+  const int klo = m.klo, khi = m.khi, cnt = m.cnt;
   const bool hole = in && !keep;
   const unsigned with_hits = __ballot_sync(kAll, cnt > 0);
   if ((x & 31) == 0)
@@ -368,7 +361,7 @@ __device__ void narrow_tile(const Params& p, NarrowShared& ts, Carry cur,
   const int hole_rank = block_scan(hole ? 1 : 0, &n_holes);
   const int excl = block_scan(cnt, &tile_cnt);
   ts.pt.incl[x] = excl + cnt;
-  ts.pt.hit[x] = single ? val : w.mlo;
+  ts.pt.hit[x] = m.hit;
   ts.pt.base[x] = base;
   ts.pt.single[x] = single;
   ts.pt.pref[x] = pref;
@@ -638,20 +631,17 @@ __device__ void locked_tile(const Params& p, TileShared& ts, Carry h,
   const bool cov_wide = wide && w_rank < p.W;
   if (cov_wide) w = lf_extend<L>(p.x, lo, hi, base, sent);
   const bool spill_w = wide && !cov_wide;
-  const int sym = t >> 24, val = t & 0xFFFFFF;
-  const bool ok = single ? sym == base : w.nlo <= w.nhi;
-  const bool ac = active && (single || cov_wide);
-  const bool keep = (ac && ok) || (valid && !active);
-  const int klo = ac ? (single ? val : w.nlo) : lo;
-  const int khi = ac ? (single ? val : w.nhi) : hi;
-  const int cnt = ac ? (single ? (sym == 5 ? 1 : 0) : w.mhi - w.mlo) : 0;
+  const Merged m = narrow_merge(valid, active, single, cov_wide, base, t, w,
+                                lo, hi);
+  const bool keep = m.keep;
+  const int klo = m.klo, khi = m.khi, cnt = m.cnt;
   const unsigned with_hits = __ballot_sync(kAll, cnt > 0);
   if ((x & 31) == 0)
     ts.warp_last[x >> 5] = with_hits ? x + 31 - __clz(with_hits) : -1;
   int tile_cnt;
   const int excl = block_scan(cnt, &tile_cnt);
   ts.pt.incl[x] = excl + cnt;
-  ts.pt.hit[x] = single ? val : w.mlo;
+  ts.pt.hit[x] = m.hit;
   ts.pt.base[x] = base;
   ts.pt.single[x] = single;
   ts.pt.pref[x] = pref;
@@ -852,16 +842,13 @@ locked_tail_kernel(const Params p) {
   locked_range<L>(p, sc, buf, rs, log_base, place);
 }
 
-// the kernel's instance for layout_slot(packed, sharded)
+// the kernel's instance for int32 (0) or packed (1) reads
 using Kernel = void (*)(const Params);
-const Kernel kKernels[4] = {
-    locked_tail_kernel<Layout<false, false>>,
-    locked_tail_kernel<Layout<false, true>>,
-    locked_tail_kernel<Layout<true, false>>,
-    locked_tail_kernel<Layout<true, true>>};
+const Kernel kKernels[2] = {locked_tail_kernel<Layout<false>>,
+                            locked_tail_kernel<Layout<true>>};
 
 // co-resident blocks of each instance on each device, queried once
-int g_max_blocks[4][kMaxDevices];
+int g_max_blocks[2][kMaxDevices];
 
 }  // namespace
 
@@ -870,12 +857,12 @@ extern "C" long long locked_tail_scratch(int C, int Kn, int n_narrow, int Nn,
   return scratch_ints(C, Kn, n_narrow, Nn, n_locked, R);
 }
 
-// The grid a launch of the instance for packed or int32 reads and sharded
-// or whole tables will use for C slots: at most the blocks co-resident on
-// the current device (queried once a device), no more than the largest
-// pool's tiles. Returns -(CUDA error) on failure.
-extern "C" int locked_tail_grid(int C, int packed, int sharded) {
-  const int slot = layout_slot(packed, sharded);
+// The grid a launch of the instance for packed or int32 reads will use for
+// C slots: at most the blocks co-resident on the current device (queried
+// once a device), no more than the largest pool's tiles. Returns -(CUDA
+// error) on failure.
+extern "C" int locked_tail_grid(int C, int packed) {
+  const int slot = packed ? 1 : 0;
   return coop_grid(kKernels[slot], g_max_blocks[slot], n_tiles(C));
 }
 
@@ -901,12 +888,11 @@ extern "C" int locked_tail_stamps(void* host, int narrow) {
 #endif
 
 // The registers a thread, local (spill) bytes a thread and static shared
-// bytes a block of the kernel's instance for packed or int32 reads and
-// sharded or whole tables, into out[0:3]; returns the CUDA error.
-extern "C" int locked_tail_attrs(int* out, int packed, int sharded) {
+// bytes a block of the kernel's instance for packed or int32 reads, into
+// out[0:3]; returns the CUDA error.
+extern "C" int locked_tail_attrs(int* out, int packed) {
   cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(
-      &a, kKernels[layout_slot(packed, sharded)]);
+  const cudaError_t err = cudaFuncGetAttributes(&a, kKernels[packed ? 1 : 0]);
   if (err != cudaSuccess) return (int)err;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
@@ -920,23 +906,14 @@ extern "C" int locked_tail(
     const void* reads, const void* packed, const void* row_len, int k,
     int total, int step0, int R, int n_narrow, int Nn, int Gn, int Wn,
     int lock, int n_locked, int G, int W,
-    const void* const* narrow_tab, int nt_rps, int n,
-    const void* const* occ, int n_shards, int occ_rps, const void* blocks,
+    const void* narrow_tab, int n, const void* occ, const void* blocks,
     const void* sym_start, const void* sentinel_row,
     const void* mrl, int n_mrl, const void* out_lo, const void* out_hi,
     int L, int B, int log_base, void* lp, void* le,
     void* carry, int C, void* ovf, void* scratch, int grid, void* stream) {
-  if (n_shards < 1 || n_shards > kMaxShards)
-    return (int)cudaErrorInvalidValue;
   Params p;
-  for (int s = 0; s < kMaxShards; ++s) {
-    const bool in = s < n_shards;
-    p.x.narrow_tab[s] = in ? static_cast<const int*>(narrow_tab[s]) : nullptr;
-    p.x.occ[s] = in && occ != nullptr ? static_cast<const int4*>(occ[s])
-                                      : nullptr;
-  }
-  p.x.occ_rps = occ_rps;
-  p.x.nt_rps = nt_rps;
+  p.x.narrow_tab = static_cast<const int*>(narrow_tab);
+  p.x.occ = static_cast<const int4*>(occ);
   p.x.n = n;
   p.x.blocks = static_cast<const uint4*>(blocks);
   p.x.sym_start = static_cast<const int*>(sym_start);
@@ -974,7 +951,7 @@ extern "C" int locked_tail(
   p.scratch = static_cast<int*>(scratch);
   void* args[] = {&p};
   const cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)kKernels[layout_slot(packed != nullptr, n_shards > 1)],
+      (const void*)kKernels[packed != nullptr ? 1 : 0],
       dim3(grid), dim3(kThreads), args, 0,
       reinterpret_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;

@@ -1,22 +1,23 @@
 // Device code shared by the scan's cooperative kernels: wide_step.cu (K2,
 // the wide steps of gramtools_tpu/mapping/search_jax_log.py::
-// _build_log_step) and locked_step.cu (K3, the hole-allocated and the
-// slot-locked narrow steps of _build_narrow_step).
+// _build_log_step), locked_step.cu (K3, the hole-allocated and the
+// slot-locked narrow steps of _build_narrow_step) and sharded_step.cu (the
+// same steps in gather rounds over an SA-range-sharded index, K10).
 //
 // Both run one thread a pool slot in tiles of kThreads slots; a block owns
 // tiles place, place + gridDim.x, ... of a step (its place: consecutive
 // places on distinct SMs) and takes them in increasing order. What they
 // share:
 //   * the index tables (Index) and the occ-row fetch, from the dense
-//     (n + 1, 4) table, whole or in SA-range shards on the cards of a mesh
-//     row (K10), or through K1's per-row count (packed_rank.cuh);
+//     (n + 1, 4) table or through K1's per-row count (packed_rank.cuh);
 //   * the read matrix (Reads): int32 base rows, or the 2-bit packed rows
 //     decoded where a base is loaded (K6);
-//   * Layout: each kernel is built in four instances, for int32 or packed
-//     rows and whole or sharded tables, so that an instance carries only
-//     the loads its launch makes;
-//   * lf_extend: the LF extension of [lo, hi] by one base and the marker
-//     counts at both ends (scan_steps._lf_extend);
+//   * Layout: K2 and K3 are built in two instances, for int32 or packed
+//     rows, so that an instance carries only the loads its launch makes;
+//   * lf_extend and lf_of: the LF extension of [lo, hi] by one base and the
+//     marker counts at both ends (scan_steps._lf_extend), from the two occ
+//     rows' (channel base, DNA total); narrow_merge: a narrow step's
+//     merged extension of a single or a covered wide state;
 //   * block_scan: a block's exclusive scan with warp shuffles;
 //   * the chained scans with decoupled look-back (Merrill and Garland,
 //     NVIDIA 2016) that rank a step's slots across tiles without a grid
@@ -25,9 +26,9 @@
 //     each field a word of its own with the state beside it, so a reader
 //     needs one round trip and no memory ordering; a wait past ~seconds
 //     traps. Every rank equals the integer cumsum the torch twin takes;
-//   * a tile's hit pairs by its own block (tile_pair): a pair finds its
-//     owner by a binary search over the tile's prefix of marker hits in
-//     shared memory, its jump locus, and its newborn's LF, by a team of
+//   * a tile's hit pairs by its own block (pair_head, tile_pair): a pair
+//     finds its owner by a binary search over the tile's prefix of marker
+//     hits in shared memory, its jump locus, and its newborn's LF, by a team of
 //     1 or 4 lanes (each lane counting the newborn's base in its code
 //     vectors of a packed occ record); staged_pairs writes each pair's log record in place and
 //     compacts the tile's newborn candidates in pair order;
@@ -114,24 +115,12 @@ __device__ __forceinline__ void zero_syncs() {
 #endif
 }
 
-// the DeviceIndex tables a step reads. The dense occ table and the narrow
-// table may be split by SA range into n_shards shards (parallel/
-// sharded_index.py, K10): shard s holds rows [s * rps, (s + 1) * rps), each
-// on its card of the mesh row, read in place (a peer's over NVLink); every
-// row is owned by exactly one shard and the padding rows past n are never
-// addressed, so one load equals the JAX package's masked gather of every
-// shard and the psum over them. Only a Layout<*, true> instance reads the
-// shards; the others read each table whole, from its first pointer.
-constexpr int kMaxShards = 8;
-
+// the DeviceIndex tables a step reads (the sharded scan, sharded_step.cu,
+// reads its own card's shards of occ and narrow_tab and leaves both null)
 struct Index {
-  const int* narrow_tab[kMaxShards];  // (n,) in shards of nt_rps rows, or a
-                                      // stub the wide step never reads
+  const int* narrow_tab;      // (n,), or a stub the wide step never reads
   int n;
-  const int4* occ[kMaxShards];        // dense (n + 1, 4) in shards of
-                                      // occ_rps rows, or null
-  int occ_rps;
-  int nt_rps;
+  const int4* occ;            // dense (n + 1, 4), or null
   const uint4* blocks;        // packed records, or null
   const int* sym_start;       // (>= 5,)
   const int* sentinel_row;    // ()
@@ -143,57 +132,24 @@ struct Index {
   int B;
 };
 
-// a[s] of a kernel parameter's shard array, by selects (a dynamic index
-// would copy the parameters to local memory)
-template <class T>
-__device__ __forceinline__ T shard_of(T const (&a)[kMaxShards], int s) {
-  T v = a[0];
-#pragma unroll
-  for (int i = 1; i < kMaxShards; ++i)
-    if (s == i) v = a[i];
-  return v;
-}
-
-// What a kernel instance is compiled for: packed or int32 read rows,
-// sharded or whole tables. The wrappers launch the instance their
-// arguments need, so the path's build (packed reads, whole tables) carries
-// neither the int32-row load nor the owner-shard selects.
-template <bool Packed, bool Sharded>
+// What a kernel instance is compiled for: packed or int32 read rows. The
+// wrappers launch the instance their arguments need, so the path's build
+// (packed reads) carries no int32-row load.
+template <bool Packed>
 struct Layout {
   static constexpr bool kPacked = Packed;
-  static constexpr bool kSharded = Sharded;
 };
-
-// the index of Layout<packed, sharded> among a kernel's four instances
-__host__ __device__ constexpr int layout_slot(bool packed, bool sharded) {
-  return (packed ? 2 : 0) + (sharded ? 1 : 0);
-}
-
-// the address of row r (in range) of a table, in shards of rps rows where
-// the layout is sharded, else whole in a[0]
-template <class L, class T>
-__device__ __forceinline__ const T* shard_row(T const* const (&a)[kMaxShards],
-                                              int rps, int r) {
-  if constexpr (!L::kSharded) {
-    return a[0] + r;
-  } else {
-    const int s = r / rps;
-    return shard_of(a, s) + (r - s * rps);
-  }
-}
 
 // dense occ row r, clamped to [0, n] as the gather clamps it
 template <class L>
 __device__ __forceinline__ int4 occ_row(const Index& x, int r) {
-  return __ldg(shard_row<L>(x.occ, x.occ_rps, r < 0 ? 0
-                            : (r > x.n ? x.n : r)));
+  return __ldg(x.occ + (r < 0 ? 0 : (r > x.n ? x.n : r)));
 }
 
 // the address of narrow-table row r, clamped to [0, n - 1]
 template <class L>
 __device__ __forceinline__ const int* narrow_at(const Index& x, int r) {
-  return shard_row<L>(x.narrow_tab, x.nt_rps,
-                      r < 0 ? 0 : (r > x.n - 1 ? x.n - 1 : r));
+  return x.narrow_tab + (r < 0 ? 0 : (r > x.n - 1 ? x.n - 1 : r));
 }
 
 // The read matrix a launch steps through: int32 base rows (steps, R), or
@@ -328,6 +284,18 @@ __device__ __forceinline__ int2 occ_chan_dna(const Index& x, int r, int base) {
   return make_int2(chan(v, base), v.x + v.y + v.z + v.w);
 }
 
+// the LF of [lo, hi1 - 1] from its two rows' (channel base, DNA total) rl
+// and rh, with first = sym_start[base]
+__device__ __forceinline__ LF lf_of(int lo, int hi1, int2 rl, int2 rh,
+                                    int first, int sent) {
+  LF out;
+  out.nlo = first + rl.x;
+  out.nhi = first + rh.x - 1;
+  out.mlo = lo - rl.y - (lo > sent ? 1 : 0);
+  out.mhi = hi1 - rh.y - (hi1 > sent ? 1 : 0);
+  return out;
+}
+
 template <class L>
 __device__ __forceinline__ LF lf_extend(const Index& x, int lo, int hi,
                                         int base, int sent) {
@@ -335,12 +303,34 @@ __device__ __forceinline__ LF lf_extend(const Index& x, int lo, int hi,
   const int2 rl = occ_chan_dna<L>(x, lo, base);
   const int2 rh = occ_chan_dna<L>(x, hi1, base);
   const int first = __ldg(x.sym_start + clampi(base, 0, 4));
-  LF out;
-  out.nlo = first + rl.x;
-  out.nhi = first + rh.x - 1;
-  out.mlo = lo - rl.y - (lo > sent ? 1 : 0);
-  out.mhi = hi1 - rh.y - (hi1 > sent ? 1 : 0);
-  return out;
+  return lf_of(lo, hi1, rl, rh, first, sent);
+}
+
+// A narrow step's merged extension (scan_steps.build_narrow_step, 3.): a
+// single state by its narrow word t (symbol t >> 24; its LF destination or
+// jump locus t & 0xFFFFFF), a wide one by its LF w where the wide budget
+// covers it (cov; w is zeros where it does not): keep, the kept interval,
+// the marker hits and the hit field (the locus of a single state, the
+// marker rank of a wide one).
+struct Merged {
+  bool keep;
+  int klo, khi, cnt, hit;
+};
+
+__device__ __forceinline__ Merged narrow_merge(bool valid, bool active,
+                                               bool single, bool cov,
+                                               int base, int t, LF w, int lo,
+                                               int hi) {
+  const int sym = t >> 24, val = t & 0xFFFFFF;
+  const bool ok = single ? sym == base : w.nlo <= w.nhi;
+  const bool ac = active && (single || cov);
+  Merged m;
+  m.keep = (ac && ok) || (valid && !active);
+  m.klo = ac ? (single ? val : w.nlo) : lo;
+  m.khi = ac ? (single ? val : w.nhi) : hi;
+  m.cnt = ac ? (single ? (sym == 5 ? 1 : 0) : w.mhi - w.mlo) : 0;
+  m.hit = single ? val : w.mlo;
+  return m;
 }
 
 // _resize_pool on carry buffer b, from n_from live-packed slots to n_to:
@@ -661,35 +651,42 @@ __device__ __forceinline__ int team_chan(const Index& x, int r, int c, int v,
   return ck + (int)n;
 }
 
-// The tile's pair q (its hit q / B, outcome q % B) by its team (this lane
-// is v of it), from the tile's shared fields alone: the owner by a binary
+// The head of the tile's pair q (its hit q / B, outcome q % B), from the
+// tile's shared fields alone: the owner (into r->s, 0 on entry) by a binary
 // search over the prefix of hits, its jump locus (direct for a single
 // state, marker_rank_locus for a wide one: hit - start_of is the owner's
-// own hit index, so the tile's start is not needed), both outcome bounds
-// together, and the newborn's LF by the owner's base. Every lane of the
-// warp calls it together; ``live`` is false for a lane without a pair.
+// own hit index, so the tile's start is not needed), clamped into r->li,
+// the outcome into r->b, and both outcome bounds together: *j_lo and
+// *j_hi1 = j_hi + 1 where the pair has a locus (else left as they are).
+__device__ __forceinline__ void pair_head(const Index& x, const PairTile& ts,
+                                          int q, Pair* r, int* j_lo,
+                                          int* j_hi1) {
+  const int B = x.B;
+  const int h = q / B;
+  r->b = q - h * B;
+#pragma unroll
+  for (int half = kThreads / 2; half > 0; half >>= 1)     // incl[s] > h
+    if (ts.incl[r->s + half - 1] <= h) r->s += half;
+  const int hf = ts.hit[r->s];
+  const int own = h - (r->s > 0 ? ts.incl[r->s - 1] : 0);
+  const int loc = ts.single[r->s]
+      ? hf : __ldg(x.mrl + clampi(add_wrap(hf, own), 0, x.n_mrl - 1));
+  r->li = clampi(loc, 0, x.L - 1);
+  if (loc >= 0) {
+    *j_lo = __ldg(x.out_lo + r->li * B + r->b);
+    *j_hi1 = add_wrap(__ldg(x.out_hi + r->li * B + r->b), 1);
+  }
+}
+
+// The tile's pair q by its team (this lane is v of it): pair_head, and the
+// newborn's LF by the owner's base. Every lane of the warp calls it
+// together; ``live`` is false for a lane without a pair.
 template <class L>
 __device__ __forceinline__ Pair tile_pair(const Index& x, const PairTile& ts,
                                           int q, int v, int team, bool live) {
-  const int B = x.B;
   Pair r = {0, 0, 0, false, 0, 0};
   int j_lo = -1, j_hi1 = 0;
-  if (live) {
-    const int h = q / B;
-    r.b = q - h * B;
-#pragma unroll
-    for (int half = kThreads / 2; half > 0; half >>= 1)   // incl[s] > h
-      if (ts.incl[r.s + half - 1] <= h) r.s += half;
-    const int hf = ts.hit[r.s];
-    const int own = h - (r.s > 0 ? ts.incl[r.s - 1] : 0);
-    const int loc = ts.single[r.s]
-        ? hf : __ldg(x.mrl + clampi(add_wrap(hf, own), 0, x.n_mrl - 1));
-    r.li = clampi(loc, 0, x.L - 1);
-    if (loc >= 0) {
-      j_lo = __ldg(x.out_lo + r.li * B + r.b);
-      j_hi1 = add_wrap(__ldg(x.out_hi + r.li * B + r.b), 1);
-    }
-  }
+  if (live) pair_head(x, ts, q, &r, &j_lo, &j_hi1);
   const bool rows = j_lo >= 0;
   const int jb = rows ? ts.base[r.s] : 0;
   const int cl = team_chan<L>(x, rows ? j_lo : 0, jb, v, team);

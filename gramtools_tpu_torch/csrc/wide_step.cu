@@ -9,13 +9,11 @@
 // step and its packed-rank occ gathers (gramtools_tpu/ops/rank.py::
 // _rank_kernel, K1; packed_rank.cuh). In eager PyTorch one wide step is
 // ~200 launches; here the 6 wide steps of a buffer are one launch. It also
-// takes the place of two more XLA functions (scan_common.cuh): the fused
+// takes the place of one more XLA function (scan_common.cuh): the fused
 // program's 2-bit read unpack (search_jax_log.py::_unpack_reads2, K6),
 // each base decoded where it is loaded from the packed rows, so the
-// unpacked (steps, R) int32 matrix is never written; and, on the
-// index-sharded path, the masked shard gathers and their psum
-// (gramtools_tpu/parallel/sharded_index.py, K10), each dense occ row read
-// from its owner shard in place, on another card over NVLink.
+// unpacked (steps, R) int32 matrix is never written. (The index-sharded
+// path runs the same steps in gather rounds, sharded_step.cu.)
 //
 // A step's output is survivors then newborns then empty slots: a survivor
 // of keep rank r goes to slot r, the newborn candidate of rank c (in (hit,
@@ -433,39 +431,17 @@ wide_steps_kernel(const Params p) {
     if (!(in_place && i < v.nk && i < v.lim)) put_row(out, i, vread(v, i));
 }
 
-// the kernel's instance for layout_slot(packed, sharded)
+// the kernel's instance for int32 (0) or packed (1) reads
 using Kernel = void (*)(const Params);
-const Kernel kKernels[4] = {
-    wide_steps_kernel<Layout<false, false>>,
-    wide_steps_kernel<Layout<false, true>>,
-    wide_steps_kernel<Layout<true, false>>,
-    wide_steps_kernel<Layout<true, true>>};
+const Kernel kKernels[2] = {wide_steps_kernel<Layout<false>>,
+                            wide_steps_kernel<Layout<true>>};
 
 // co-resident blocks of each instance on each device, queried once
-int g_max_blocks[4][kMaxDevices];
+int g_max_blocks[2][kMaxDevices];
 
 }  // namespace
 
 extern "C" int wide_steps_max_phases() { return kMaxPhases; }
-
-// Lets device ``home`` read device ``peer``'s memory (the index shards on
-// the other cards of a mesh row); access enabled already counts as success.
-// Returns the CUDA error, 0 on success.
-extern "C" int scan_enable_peer(int home, int peer) {
-  int prev = 0;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaSetDevice(home);
-  if (err == cudaSuccess) {
-    err = cudaDeviceEnablePeerAccess(peer, 0);
-    if (err == cudaErrorPeerAccessAlreadyEnabled) {
-      cudaGetLastError();                   // clears the sticky report
-      err = cudaSuccess;
-    }
-  }
-  const cudaError_t back = cudaSetDevice(prev);
-  return (int)(err != cudaSuccess ? err : back);
-}
 
 extern "C" long long wide_steps_scratch(int n_phases, const int* steps,
                                         const int* pool, int K) {
@@ -491,12 +467,11 @@ extern "C" int wide_steps_pubs(void* host) {
 #endif
 
 // The registers a thread, local (spill) bytes a thread and static shared
-// bytes a block of the kernel's instance for packed or int32 reads and
-// sharded or whole tables, into out[0:3]; returns the CUDA error.
-extern "C" int wide_steps_attrs(int* out, int packed, int sharded) {
+// bytes a block of the kernel's instance for packed or int32 reads, into
+// out[0:3]; returns the CUDA error.
+extern "C" int wide_steps_attrs(int* out, int packed) {
   cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(
-      &a, kKernels[layout_slot(packed, sharded)]);
+  const cudaError_t err = cudaFuncGetAttributes(&a, kKernels[packed ? 1 : 0]);
   if (err != cudaSuccess) return (int)err;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
@@ -504,12 +479,12 @@ extern "C" int wide_steps_attrs(int* out, int packed, int sharded) {
   return 0;
 }
 
-// The grid a launch of the instance for packed or int32 reads and sharded
-// or whole tables will use for C slots: at most the blocks co-resident on
-// the current device (queried once a device), no more than the largest
-// pool's tiles. Returns -(CUDA error) on failure.
-extern "C" int wide_steps_grid(int C, int packed, int sharded) {
-  const int slot = layout_slot(packed, sharded);
+// The grid a launch of the instance for packed or int32 reads will use for
+// C slots: at most the blocks co-resident on the current device (queried
+// once a device), no more than the largest pool's tiles. Returns -(CUDA
+// error) on failure.
+extern "C" int wide_steps_grid(int C, int packed) {
+  const int slot = packed ? 1 : 0;
   return coop_grid(kKernels[slot], g_max_blocks[slot], n_tiles(C));
 }
 
@@ -519,8 +494,7 @@ extern "C" int wide_steps(
     const void* reads, const void* packed, const void* row_len, int k,
     int total, int step0, int R, int n_phases, const int* steps,
     const int* pool, const int* hits,
-    const void* const* occ, int n_shards, int occ_rps, const void* blocks,
-    int n,
+    const void* occ, const void* blocks, int n,
     const void* sym_start, const void* sentinel_row,
     const void* mrl, int n_mrl, const void* out_lo, const void* out_hi,
     int L, int B, int log_base, void* lp, void* le,
@@ -528,15 +502,8 @@ extern "C" int wide_steps(
   if (n_phases < 0 || n_phases > kMaxPhases)
     return (int)cudaErrorInvalidValue;
   Params p;
-  if (n_shards < 1 || n_shards > kMaxShards)
-    return (int)cudaErrorInvalidValue;
-  for (int s = 0; s < kMaxShards; ++s) {
-    p.x.narrow_tab[s] = nullptr;
-    p.x.occ[s] = s < n_shards && occ != nullptr
-        ? static_cast<const int4*>(occ[s]) : nullptr;
-  }
-  p.x.occ_rps = occ_rps;
-  p.x.nt_rps = 1;
+  p.x.narrow_tab = nullptr;
+  p.x.occ = static_cast<const int4*>(occ);
   p.x.n = n;
   p.x.blocks = static_cast<const uint4*>(blocks);
   p.x.sym_start = static_cast<const int*>(sym_start);
@@ -573,7 +540,7 @@ extern "C" int wide_steps(
   p.n_tiles_all = step_tiles(n_phases, steps, pool);
   void* args[] = {&p};
   const cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)kKernels[layout_slot(packed != nullptr, n_shards > 1)],
+      (const void*)kKernels[packed != nullptr ? 1 : 0],
       dim3(grid), dim3(kThreads), args, 0,
       reinterpret_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;

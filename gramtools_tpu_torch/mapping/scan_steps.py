@@ -360,6 +360,43 @@ def run_steps(step, carry, reads, log_base: int, lp, le, GB: int):
     return carry, log_base
 
 
+def run_phases(di, reads, carry, phases, num_reads: int, lp, le,
+               log_base: int = 0, occ_rows=None, narrow_rows=None):
+    """The torch steps over each phase (n_steps, pool, hits, narrow_w,
+    kind) of ``phases`` on the consecutive rows of ``reads``: a phase
+    whose narrow_w > 0 runs the narrow step where there is a narrow
+    table (an injected ``narrow_rows``, or di's of n rows), slot-locked
+    after ``lock_pool`` for kind "locked", else hole-allocated after
+    ``resize_pool``; any other phase the wide step after
+    ``resize_pool``. occ_rows / narrow_rows: the gathers (None: di's
+    dense tables). Returns (carry, the log offset after the last step)."""
+    from .search_log_host import LogConfig
+
+    has_narrow = narrow_rows is not None or di.narrow_tab.shape[0] == di.size
+    B = di.n_outcomes
+    offset = 0
+    for n_steps, pool, hits, narrow_w, kind in phases:
+        cfg = LogConfig(pool=pool, hits=hits)
+        if narrow_w > 0 and has_narrow and kind == "locked":
+            carry = lock_pool(carry, pool, num_reads)
+            step = build_narrow_step(di, cfg, num_reads, narrow_w,
+                                     occ_rows=occ_rows, locked=True,
+                                     narrow_rows=narrow_rows)
+        elif narrow_w > 0 and has_narrow:
+            carry = resize_pool(carry, pool, num_reads)
+            step = build_narrow_step(di, cfg, num_reads, narrow_w,
+                                     occ_rows=occ_rows,
+                                     narrow_rows=narrow_rows)
+        else:
+            carry = resize_pool(carry, pool, num_reads)
+            step = build_log_step(di, cfg, num_reads, occ_rows=occ_rows)
+        carry, log_base = run_steps(step, carry,
+                                    reads[offset:offset + n_steps], log_base,
+                                    lp, le, hits * B)
+        offset += n_steps
+    return carry, log_base
+
+
 def lock_pool(carry, pool: int, num_reads: int):
     """Transition into a slot-locked phase: scatter each read's SOLE
     live state into slot rid; reads holding >1 state are flagged

@@ -37,11 +37,10 @@ from ..ops.locked_step import locked_tail
 from ..ops.packed_reads import PackedReads, as_rows
 from ..ops.packed_reads import unpack_reads2  # noqa: F401 (re-exported)
 from ..ops.rank import PackedOccRows, make_packed_occ_rows
-from ..ops.sharded import ShardedTables
+from ..ops.sharded import ShardedTables, sharded_scan
 from ..ops.wide_step import wide_steps
 from .record import replay_device, select_and_record_device
-from .scan_steps import (build_log_step, build_narrow_step, lock_pool,
-                         resize_pool, run_steps)
+from .scan_steps import run_phases
 from .search_log_host import LogConfig, _phase4, auto_phases
 
 I32 = torch.int32
@@ -89,13 +88,15 @@ def _scan_phases(di, reads, carry, phases, num_reads: int, occ_rows,
     and narrow_tab gathers (None = the dense tables in di; occ_rows may
     be the packed rank, a ``PackedOccRows``, or the SA-range-sharded
     tables, a ``ShardedTables``: K10, parallel/sharded_index.py). Over
-    those tables the plan runs as two calls, each one kernel launch on
-    CUDA: ``ops/wide_step.wide_steps`` for the wide phases and
-    ``ops/locked_step.locked_tail`` for the hole-allocated narrow phase
-    and the locked phase after it. Injected gather functions keep the
-    torch steps. collect_live=True also returns the live-state count
-    after each phase, a (n_phases,) int64 device tensor (the kernels
-    then run one phase a call)."""
+    the dense tables or the packed rank the plan runs as two calls, each
+    one kernel launch on CUDA: ``ops/wide_step.wide_steps`` for the wide
+    phases and ``ops/locked_step.locked_tail`` for the hole-allocated
+    narrow phase and the locked phase after it. Over the sharded tables
+    it is one call of ``ops/sharded.sharded_scan``, the scan in gather
+    rounds on the row's cards. Injected gather functions keep the torch
+    steps. collect_live=True also returns the live-state count after
+    each phase, a (n_phases,) int64 device tensor (the kernels then run
+    one phase a call)."""
     dev = di.device
     B = di.n_outcomes
     read_id, lo, hi, pref, overflow = carry
@@ -108,12 +109,16 @@ def _scan_phases(di, reads, carry, phases, num_reads: int, occ_rows,
     carry = tuple(a.contiguous() for a in (read_id, lo, hi, pref)) + (
         overflow,)
     plan = [_phase4(e) for e in phases]
-    tables = occ_rows if isinstance(occ_rows, ShardedTables) else None
-    has_narrow = (tables.has_narrow if tables is not None
-                  else di.narrow_tab.shape[0] == di.size)
+    if isinstance(occ_rows, ShardedTables):
+        if collect_live:
+            raise ValueError("the live-state probe takes no sharded tables")
+        rid, lo, hi, pref, overflow = sharded_scan(
+            di, reads, carry, plan, num_reads, lp, le, occ_rows)
+        return rid, lo, hi, pref, overflow[:num_reads]
+    has_narrow = di.narrow_tab.shape[0] == di.size
     narrow_ok = lambda w: w > 0 and (narrow_rows is not None or has_narrow)
     kernels = narrow_rows is None and (occ_rows is None or isinstance(
-        occ_rows, (PackedOccRows, ShardedTables)))
+        occ_rows, PackedOccRows))
     blocks = occ_rows.blocks if isinstance(occ_rows, PackedOccRows) else None
     live = []
     log_base = 0
@@ -122,27 +127,11 @@ def _scan_phases(di, reads, carry, phases, num_reads: int, occ_rows,
         n_run = sum(e[0] for e in run)
         rows = reads[offset:offset + n_run]
         if not kernels:
-            rows = as_rows(rows)
-            n_steps, pool, hits, narrow_w, phase_kind = run[0]
-            cfg = LogConfig(pool=pool, hits=hits)
-            if phase_kind == "locked" and narrow_ok(narrow_w):
-                carry = lock_pool(carry, pool, num_reads)
-                step = build_narrow_step(di, cfg, num_reads, narrow_w,
-                                         occ_rows=occ_rows, locked=True,
-                                         narrow_rows=narrow_rows)
-            elif narrow_ok(narrow_w):
-                carry = resize_pool(carry, pool, num_reads)
-                step = build_narrow_step(di, cfg, num_reads, narrow_w,
-                                         occ_rows=occ_rows,
-                                         narrow_rows=narrow_rows)
-            else:
-                carry = resize_pool(carry, pool, num_reads)
-                step = build_log_step(di, cfg, num_reads, occ_rows=occ_rows)
-            carry, _ = run_steps(step, carry, rows, log_base, lp, le,
-                                 hits * B)
+            carry, _ = run_phases(di, as_rows(rows), carry, run, num_reads,
+                                  lp, le, log_base, occ_rows, narrow_rows)
         elif kind == "wide":
             carry = wide_steps(di, rows, carry, [e[:3] for e in run],
-                               log_base, lp, le, blocks=blocks, tables=tables)
+                               log_base, lp, le, blocks=blocks)
         else:
             narrow = None if run[0][4] == "locked" else run[0][:4]
             locked = run[-1] if run[-1][4] == "locked" else None
@@ -152,8 +141,7 @@ def _scan_phases(di, reads, carry, phases, num_reads: int, occ_rows,
             hits, wide_budget = (locked or narrow)[2:4]
             carry = locked_tail(di, rows, carry, log_base, lp, le, hits,
                                 wide_budget, blocks=blocks,
-                                lock=locked is not None, narrow=narrow,
-                                tables=tables)
+                                lock=locked is not None, narrow=narrow)
         log_base += sum(e[0] * e[2] for e in run) * B
         offset += n_run
         if collect_live:

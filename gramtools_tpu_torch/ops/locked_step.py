@@ -21,9 +21,7 @@ Pallas). ``locked_tail`` takes
     hole-allocated steps, run after resizing the pool to ``pool``;
   * the slot-locked steps' hit budget ``hits`` (G) and wide-state budget
     ``wide_budget`` (W), and the occ source: ``blocks`` (the packed rank
-    records), ``tables`` (a ``ShardedTables``, ops/sharded.py, K10: the
-    dense occ and narrow tables in SA-range shards, read in place; ``di``
-    then carries stubs of both) or neither for the dense ``di.occ`` and
+    records) or None for the dense ``di.occ``; the narrow steps read
     ``di.narrow_tab``;
   * ``lock``: True locks the pool before the slot-locked steps
     (``lock_pool``), False takes a carry that is locked already (a later
@@ -36,16 +34,16 @@ never written.
 ``locked_tail`` routes by device: CPU tensors take the twin,
 ``locked_tail_torch`` (``scan_steps.resize_pool`` and the torch
 hole-allocated step, then ``lock_pool`` and the torch locked step, each
-stepped over its range, with the plain packed rank or the shards' plain
-gathers, packed reads unpacked by ``unpack_reads2``); CUDA tensors launch
+stepped over its range, with the plain packed rank, packed reads
+unpacked by ``unpack_reads2``); CUDA tensors launch
 ``csrc/locked_step.cu``, one cooperative launch for the whole range,
 which needs no host synchronisation (its slot-locked steps take no grid
 barrier: the wide rank and the hit prefix come from chained scans with
 decoupled look-back, each tile's hits and newborns from its own block;
 the kernel's source note). ``locked_tail.launches`` counts
 kernel launches, ``locked_tail.narrow_launches`` those that ran
-hole-allocated steps, ``packed_launches`` those that decoded packed reads
-(K6) and ``sharded_launches`` those that read sharded tables (K10).
+hole-allocated steps and ``packed_launches`` those that decoded packed
+reads (K6).
 """
 from __future__ import annotations
 
@@ -59,8 +57,6 @@ from ..mapping.search_log_host import LogConfig
 from . import rank
 from .packed_reads import PackedReads, as_rows
 from .rank import BLOCK, WORDS
-from .sharded import (MAX_SHARDS, ShardedTables, enable_peers,
-                      shard_pointers)
 
 I32 = torch.int32
 GRID_CAP = None
@@ -72,11 +68,9 @@ at small shapes); None: the blocks co-resident on the card."""
 # plain torch twin
 # --------------------------------------------------------------------------
 
-def twin_gathers(di, blocks=None, tables=None):
-    """(occ_rows, narrow_rows) of the twins' torch steps: the shards'
-    plain gathers, the plain packed rank, or the dense tables (None)."""
-    if tables is not None:
-        return tables.occ_rows(), tables.narrow_rows()
+def twin_gathers(di, blocks=None):
+    """(occ_rows, narrow_rows) of the twins' torch steps: the plain
+    packed rank, or the dense tables (None)."""
     if blocks is not None:
         return rank.plain_packed_rows(blocks, di.size), None
     return None, None
@@ -84,7 +78,7 @@ def twin_gathers(di, blocks=None, tables=None):
 
 def locked_tail_torch(di, reads, carry, log_base: int, lp, le, hits: int,
                       wide_budget: int, blocks=None, lock: bool = True,
-                      narrow=None, tables=None):
+                      narrow=None):
     """``resize_pool`` and the torch hole-allocated step over the first
     ``narrow[0]`` rows of ``reads``, then ``lock_pool`` and the torch
     slot-locked step over the rest, each step's log records written into
@@ -92,7 +86,7 @@ def locked_tail_torch(di, reads, carry, log_base: int, lp, le, hits: int,
     reads = as_rows(reads)
     R = reads.shape[1]
     B = di.n_outcomes
-    occ_rows, narrow_rows = twin_gathers(di, blocks, tables)
+    occ_rows, narrow_rows = twin_gathers(di, blocks)
     n_narrow = 0
     if narrow is not None:
         n_narrow, pool, g_n, w_n = narrow
@@ -122,18 +116,15 @@ def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load("locked_step")
     if lib.locked_tail.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        ptrs = ctypes.POINTER(ctypes.c_void_p)
         lib.locked_tail.argtypes = (
             [p, p, p, p, p, i]                   # carry in, n_in
             + [p, p, p, i, i, i]                 # reads: rows, packed,
                                                  # row_len, k, total, step0
             + [i, i, i, i, i, i]                 # R, narrow range, lock
             + [i, i, i]                          # locked steps, G, W
-            + [ptrs, i, i]                       # narrow_tab shards, rows a
-                                                 # shard, n
-            + [ptrs, i, i, p, p, p]              # occ shards, their count,
-                                                 # rows a shard, blocks,
-                                                 # sym_start, sentinel_row
+            + [p, i, p, p, p, p]                 # narrow_tab, n, occ,
+                                                 # blocks, sym_start,
+                                                 # sentinel_row
             + [p, i, p, p, i, i]                 # mrl, outcomes
             + [i, p, p]                          # log_base, lp, le
             + [p, i, p, p, i, p])                # carry, C, ovf, scratch,
@@ -141,20 +132,18 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.locked_tail.restype = ctypes.c_int
         lib.locked_tail_scratch.argtypes = [i, i, i, i, i, i]
         lib.locked_tail_scratch.restype = ctypes.c_longlong
-        lib.locked_tail_grid.argtypes = [i, i, i]
+        lib.locked_tail_grid.argtypes = [i, i]
         lib.locked_tail_grid.restype = ctypes.c_int
     return lib
 
 
-def kernel_attrs(packed_reads: bool = True, sharded: bool = False) -> dict:
+def kernel_attrs(packed_reads: bool = True) -> dict:
     """The registers a thread, local (spill) bytes a thread and static
     shared bytes a block of the built kernel's instance for packed or
-    int32 reads and sharded or whole tables (default: the fused path's,
-    packed reads and whole tables)."""
+    int32 reads (default: the fused path's, packed reads)."""
     from . import _build
 
-    return _build.kernel_attrs(_kernel_lib().locked_tail_attrs,
-                               packed_reads, sharded)
+    return _build.kernel_attrs(_kernel_lib().locked_tail_attrs, packed_reads)
 
 
 def check_tensor(fn: str, name: str, t, dtype, shape):
@@ -169,23 +158,18 @@ def check_tensor(fn: str, name: str, t, dtype, shape):
 
 
 def check_scan_args(fn: str, di, reads, carry, lp, le, end: int,
-                    blocks=None, tables=None):
+                    blocks=None):
     """The checks the scan kernels' wrappers share: every tensor on one
-    CUDA device (a sharded table's shards on any card the scan's card
-    can read: peer access is enabled here, once a pair), reads (S, R)
-    int32 or a ``PackedReads`` window of S steps, the carry's four
-    (n_in,) int32 fields and (R + 1,) overflow, the log halves 1-D int32
-    holding records up to ``end``, and the index tables the kernels read
-    (the dense occ table, the packed records or the sharded tables).
+    CUDA device, reads (S, R) int32 or a ``PackedReads`` window of S
+    steps, the carry's four (n_in,) int32 fields and (R + 1,) overflow,
+    the log halves 1-D int32 holding records up to ``end``, and the index
+    tables the kernels read (the dense occ table or the packed records).
     Returns (S, R, n_in)."""
     rid, lo, hi, pref, overflow = carry
     B = di.n_outcomes
     n = di.size
     packed = isinstance(reads, PackedReads)
-    if blocks is not None and tables is not None:
-        raise ValueError(f"{fn}: takes packed records or sharded tables, "
-                         f"not both")
-    occ = [] if tables is not None else [di.occ if blocks is None else blocks]
+    occ = [di.occ if blocks is None else blocks]
     index = occ + [di.sym_start, di.sentinel_row, di.marker_rank_locus,
                    di.out_lo, di.out_hi]
     rows = [reads.packed, reads.row_len] if packed else [reads]
@@ -218,9 +202,7 @@ def check_scan_args(fn: str, di, reads, carry, lp, le, end: int,
                          f"({lp.shape[0]}, {le.shape[0]})")
     if n >= 2 ** 31 - 1:
         raise ValueError(f"{fn}: the index needs n < 2**31 - 1")
-    if tables is not None:
-        check_tables(fn, tables, n, dev)
-    elif blocks is None:
+    if blocks is None:
         check_tensor(fn, "occ", occ[0], I32, (n + 1, 4))
     else:
         check_tensor(fn, "blocks", occ[0], I32, (n // BLOCK + 1, WORDS))
@@ -243,31 +225,6 @@ def check_scan_args(fn: str, di, reads, carry, lp, le, end: int,
     return S, R, n_in
 
 
-def check_tables(fn: str, tables: ShardedTables, n: int, home) -> None:
-    """Raise unless ``tables`` shard the (n + 1, 4) occ table and the
-    (n,) narrow table as the kernels read them, every shard on a CUDA
-    card that ``home`` can read (peer access enabled here)."""
-    S = tables.n_shards
-    rps, nt_rps = tables.rows_per_shard, tables.nt_rows_per_shard
-    if not 1 <= S <= MAX_SHARDS or len(tables.narrow) != S:
-        raise ValueError(f"{fn}: 1 to {MAX_SHARDS} shards of each table")
-    if tables.size != n or rps * S < n + 1:
-        raise ValueError(f"{fn}: {S} occ shards of {rps} rows do not cover "
-                         f"the {n + 1} rows")
-    if tables.has_narrow and nt_rps * S < n:
-        raise ValueError(f"{fn}: {S} narrow shards of {nt_rps} rows do not "
-                         f"cover the {n} rows")
-    if rps * S >= 2 ** 31 or nt_rps * S >= 2 ** 31:
-        raise ValueError(f"{fn}: shard rows need int32 indices")
-    for t in tables.occ:
-        check_tensor(fn, "occ shard", t, I32, (rps, 4))
-    for t in tables.narrow:
-        check_tensor(fn, "narrow shard", t, I32, (nt_rps,))
-    if any(t.device.type != "cuda" for t in tables.occ + tables.narrow):
-        raise ValueError(f"{fn}: every index shard must be on a CUDA card")
-    enable_peers(tables, home)
-
-
 def reads_args(reads):
     """The kernels' read-matrix arguments: rows, packed, row_len, k,
     total steps, the first step."""
@@ -277,57 +234,37 @@ def reads_args(reads):
     return [reads.data_ptr(), None, None, 0, reads.shape[0], 0]
 
 
-def index_args(di, blocks=None, tables=None):
-    """The index tables' kernel arguments after the narrow table:
-    (occ shards, their count, rows a shard, blocks) and (sym_start,
-    sentinel_row, mrl, n_mrl, out_lo, out_hi, L, B)."""
-    if tables is not None:
-        occ = [shard_pointers(tables.occ), tables.n_shards,
-               tables.rows_per_shard, None]
-    elif blocks is None:
-        occ = [shard_pointers([di.occ]), 1, di.size + 1, None]
-    else:
-        occ = [None, 1, di.size + 1, blocks.data_ptr()]
+def index_args(di, blocks=None):
+    """The index tables' kernel arguments after the narrow table: (occ,
+    blocks) and (sym_start, sentinel_row, mrl, n_mrl, out_lo, out_hi, L,
+    B)."""
+    occ = ([di.occ.data_ptr(), None] if blocks is None
+           else [None, blocks.data_ptr()])
     return occ, [di.sym_start.data_ptr(), di.sentinel_row.data_ptr(),
                  di.marker_rank_locus.data_ptr(),
                  di.marker_rank_locus.shape[0], di.out_lo.data_ptr(),
                  di.out_hi.data_ptr(), di.out_lo.shape[0], di.n_outcomes]
 
 
-def narrow_args(fn: str, di, tables=None):
-    """The narrow table's kernel arguments (shards, rows a shard)."""
+def narrow_args(fn: str, di):
+    """The narrow table's kernel argument."""
     n = di.size
     if n >= 2 ** 24:
         raise ValueError(f"{fn}: the narrow table needs n < 2**24")
-    if tables is not None:
-        if not tables.has_narrow:
-            raise ValueError(f"{fn}: the sharded tables have no narrow table")
-        return [shard_pointers(tables.narrow), tables.nt_rows_per_shard]
     check_tensor(fn, "narrow_tab", di.narrow_tab, I32, (n,))
-    return [shard_pointers([di.narrow_tab]), n]
+    return [di.narrow_tab.data_ptr()]
 
 
-def layout(reads, tables):
-    """(packed, sharded): the kernel instance a launch takes
-    (``csrc/scan_common.cuh`` ``Layout``), as the kernels pick it: packed
-    reads, and sharded tables of more than one shard (one shard is the
-    whole table)."""
-    return (int(isinstance(reads, PackedReads)),
-            int(tables is not None and tables.n_shards > 1))
-
-
-def launched(fn, reads, tables) -> None:
+def launched(fn, reads) -> None:
     """One kernel launch counted on the wrapper ``fn``: in ``launches``,
-    and in ``packed_launches`` (K6) or ``sharded_launches`` (K10) where
-    it decoded packed reads or read sharded tables."""
+    and in ``packed_launches`` (K6) where it decoded packed reads."""
     fn.launches += 1
     fn.packed_launches += isinstance(reads, PackedReads)
-    fn.sharded_launches += tables is not None
 
 
 def locked_tail_cuda(di, reads, carry, log_base: int, lp, le, hits: int,
                      wide_budget: int, blocks=None, lock: bool = True,
-                     narrow=None, tables=None):
+                     narrow=None):
     """Launch csrc/locked_step.cu on PyTorch's current stream. Raises on
     what the kernel does not take and on a failed build or launch; does
     not synchronise."""
@@ -336,8 +273,7 @@ def locked_tail_cuda(di, reads, carry, log_base: int, lp, le, hits: int,
     n_narrow, pool, g_n, w_n = (0, 0, 0, 0) if narrow is None else narrow
     n_locked = reads.shape[0] - n_narrow if reads.dim() == 2 else 0
     end = log_base + n_narrow * g_n * B + n_locked * hits * B
-    S, R, n_in = check_scan_args(fn, di, reads, carry, lp, le, end, blocks,
-                                 tables)
+    S, R, n_in = check_scan_args(fn, di, reads, carry, lp, le, end, blocks)
     if log_base < 0 or hits < 1 or wide_budget < 0:
         raise ValueError(f"{fn}: needs log_base >= 0, hits >= 1 and "
                          f"wide_budget >= 0, got {log_base}, {hits}, "
@@ -349,8 +285,8 @@ def locked_tail_cuda(di, reads, carry, log_base: int, lp, le, hits: int,
     n_pool = pool if narrow is not None else n_in
     if n_locked and not lock and n_pool != R:
         raise ValueError(f"{fn}: a locked carry has R states")
-    nt = narrow_args(fn, di, tables)
-    occ, rest = index_args(di, blocks, tables)
+    nt = narrow_args(fn, di)
+    occ, rest = index_args(di, blocks)
 
     lib = _kernel_lib()
     C = max(n_in, pool, R)
@@ -361,7 +297,7 @@ def locked_tail_cuda(di, reads, carry, log_base: int, lp, le, hits: int,
                           dtype=I32, device=reads.device)
     rid, lo, hi, pref, overflow = carry
     with torch.cuda.device(reads.device):
-        grid = lib.locked_tail_grid(C, *layout(reads, tables))
+        grid = lib.locked_tail_grid(C, isinstance(reads, PackedReads))
         if GRID_CAP:
             grid = min(grid, GRID_CAP)
         if grid < 1:
@@ -378,7 +314,7 @@ def locked_tail_cuda(di, reads, carry, log_base: int, lp, le, hits: int,
     if err != 0:
         raise RuntimeError(f"locked_tail kernel launch failed: CUDA error "
                            f"{err}")
-    launched(locked_tail, reads, tables)
+    launched(locked_tail, reads)
     locked_tail.narrow_launches += n_narrow > 0
     last = out[(n_narrow + int(lock) + n_locked) % 2]
     n_out = R if lock or n_locked else n_pool
@@ -388,19 +324,18 @@ def locked_tail_cuda(di, reads, carry, log_base: int, lp, le, hits: int,
 
 def locked_tail(di, reads, carry, log_base: int, lp, le, hits: int,
                 wide_budget: int, blocks=None, lock: bool = True,
-                narrow=None, tables=None):
+                narrow=None):
     """CPU tensors take the plain twin; CUDA tensors launch the kernel
     or raise."""
     if reads.device.type == "cpu":
         return locked_tail_torch(di, reads, carry, log_base, lp, le, hits,
-                                 wide_budget, blocks, lock, narrow, tables)
+                                 wide_budget, blocks, lock, narrow)
     if reads.device.type == "cuda":
         return locked_tail_cuda(di, reads, carry, log_base, lp, le, hits,
-                                wide_budget, blocks, lock, narrow, tables)
+                                wide_budget, blocks, lock, narrow)
     raise ValueError(f"locked_tail: unsupported device {reads.device}")
 
 
 locked_tail.launches = 0
 locked_tail.narrow_launches = 0
 locked_tail.packed_launches = 0
-locked_tail.sharded_launches = 0

@@ -16,22 +16,19 @@ jnp on the TPU, not Pallas). ``wide_steps`` takes
   * ``log_base``, the log offset of the first step, and the log halves
     ``lp``, ``le`` (int32, 1-D), whose records from log_base on the steps
     write in place;
-  * the occ source: ``blocks`` (the packed rank records), ``tables`` (a
-    ``ShardedTables``, ops/sharded.py, K10: the dense occ table in
-    SA-range shards, read in place) or neither for the dense ``di.occ``
-    table;
+  * the occ source: ``blocks`` (the packed rank records) or None for the
+    dense ``di.occ`` table;
 
 and returns the final carry (the last phase's pool) with its (R + 1,)
 overflow. The inputs are never written.
 
 ``wide_steps`` routes by device: CPU tensors take the twin,
 ``wide_steps_torch`` (``scan_steps.resize_pool`` and the torch wide step
-stepped over each phase, with the plain packed rank or the shards' plain
-gathers, packed reads unpacked by ``unpack_reads2``); CUDA tensors
-launch ``csrc/wide_step.cu``, one cooperative launch for every phase,
-which needs no host synchronisation. ``wide_steps.launches`` counts
-kernel launches, ``packed_launches`` those that decoded packed reads
-(K6) and ``sharded_launches`` those that read sharded tables (K10).
+stepped over each phase, with the plain packed rank, packed reads
+unpacked by ``unpack_reads2``); CUDA tensors launch
+``csrc/wide_step.cu``, one cooperative launch for every phase, which
+needs no host synchronisation. ``wide_steps.launches`` counts kernel
+launches and ``packed_launches`` those that decoded packed reads (K6).
 """
 from __future__ import annotations
 
@@ -41,9 +38,9 @@ import torch
 
 from ..mapping.scan_steps import build_log_step, resize_pool, run_steps
 from ..mapping.search_log_host import LogConfig
-from .locked_step import (check_scan_args, index_args, launched, layout,
-                          reads_args, twin_gathers)
-from .packed_reads import as_rows
+from .locked_step import (check_scan_args, index_args, launched, reads_args,
+                          twin_gathers)
+from .packed_reads import PackedReads, as_rows
 
 I32 = torch.int32
 GRID_CAP = None
@@ -52,12 +49,12 @@ at small shapes); None: the blocks co-resident on the card."""
 
 
 def wide_steps_torch(di, reads, carry, phases, log_base: int, lp, le,
-                     blocks=None, tables=None):
+                     blocks=None):
     """``resize_pool`` and the torch wide step over each phase's rows of
     ``reads``, each step's log records written into lp/le in place."""
     reads = as_rows(reads)
     R = reads.shape[1]
-    occ_rows = twin_gathers(di, blocks, tables)[0]
+    occ_rows = twin_gathers(di, blocks)[0]
     offset = 0
     for n_steps, pool, hits in phases:
         carry = resize_pool(carry, pool, R)
@@ -77,14 +74,12 @@ def _kernel_lib() -> ctypes.CDLL:
     if lib.wide_steps.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         ints = ctypes.POINTER(ctypes.c_int)
-        ptrs = ctypes.POINTER(ctypes.c_void_p)
         lib.wide_steps.argtypes = (
             [p, p, p, p, p, i]                   # carry in, n_in
             + [p, p, p, i, i, i]                 # reads: rows, packed,
                                                  # row_len, k, total, step0
             + [i, i, ints, ints, ints]           # R, the phases
-            + [ptrs, i, i, p, i, p, p]           # occ shards, their count,
-                                                 # rows a shard, blocks, n,
+            + [p, p, i, p, p]                    # occ, blocks, n,
                                                  # sym_start, sentinel_row
             + [p, i, p, p, i, i]                 # mrl, outcomes
             + [i, p, p]                          # log_base, lp, le
@@ -93,28 +88,24 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.wide_steps.restype = ctypes.c_int
         lib.wide_steps_scratch.argtypes = [i, ints, ints, i]
         lib.wide_steps_scratch.restype = ctypes.c_longlong
-        lib.wide_steps_grid.argtypes = [i, i, i]
+        lib.wide_steps_grid.argtypes = [i, i]
         lib.wide_steps_grid.restype = ctypes.c_int
         lib.wide_steps_max_phases.argtypes = []
         lib.wide_steps_max_phases.restype = ctypes.c_int
-        lib.scan_enable_peer.argtypes = [i, i]
-        lib.scan_enable_peer.restype = ctypes.c_int
     return lib
 
 
-def kernel_attrs(packed_reads: bool = True, sharded: bool = False) -> dict:
+def kernel_attrs(packed_reads: bool = True) -> dict:
     """The registers a thread, local (spill) bytes a thread and static
     shared bytes a block of the built kernel's instance for packed or
-    int32 reads and sharded or whole tables (default: the fused path's,
-    packed reads and whole tables)."""
+    int32 reads (default: the fused path's, packed reads)."""
     from . import _build
 
-    return _build.kernel_attrs(_kernel_lib().wide_steps_attrs,
-                               packed_reads, sharded)
+    return _build.kernel_attrs(_kernel_lib().wide_steps_attrs, packed_reads)
 
 
 def wide_steps_cuda(di, reads, carry, phases, log_base: int, lp, le,
-                    blocks=None, tables=None):
+                    blocks=None):
     """Launch csrc/wide_step.cu on PyTorch's current stream. Raises on
     what the kernel does not take and on a failed build or launch; does
     not synchronise."""
@@ -122,8 +113,7 @@ def wide_steps_cuda(di, reads, carry, phases, log_base: int, lp, le,
     B = di.n_outcomes
     phases = [tuple(int(v) for v in ph) for ph in phases]
     end = log_base + sum(s * g * B for s, _, g in phases)
-    S, R, n_in = check_scan_args(fn, di, reads, carry, lp, le, end, blocks,
-                                 tables)
+    S, R, n_in = check_scan_args(fn, di, reads, carry, lp, le, end, blocks)
     if log_base < 0 or not phases or any(
             s < 0 or pool < 1 or g < 1 for s, pool, g in phases):
         raise ValueError(f"{fn}: needs log_base >= 0 and phases of (steps "
@@ -147,9 +137,9 @@ def wide_steps_cuda(di, reads, carry, phases, log_base: int, lp, le,
                                                  K),
                           dtype=I32, device=reads.device)
     rid, lo, hi, pref, overflow = carry
-    occ, rest = index_args(di, blocks, tables)
+    occ, rest = index_args(di, blocks)
     with torch.cuda.device(reads.device):
-        grid = lib.wide_steps_grid(C, *layout(reads, tables))
+        grid = lib.wide_steps_grid(C, isinstance(reads, PackedReads))
         if GRID_CAP:
             grid = min(grid, GRID_CAP)
         if grid < 1:
@@ -165,7 +155,7 @@ def wide_steps_cuda(di, reads, carry, phases, log_base: int, lp, le,
     if err != 0:
         raise RuntimeError(f"wide_steps kernel launch failed: CUDA error "
                            f"{err}")
-    launched(wide_steps, reads, tables)
+    launched(wide_steps, reads)
     last = out[S % 2]
     N = phases[-1][1]
     return last[0, :N], last[1, :N], last[2, :N], last[3, :N], ovf
@@ -173,18 +163,17 @@ def wide_steps_cuda(di, reads, carry, phases, log_base: int, lp, le,
 
 
 def wide_steps(di, reads, carry, phases, log_base: int, lp, le,
-               blocks=None, tables=None):
+               blocks=None):
     """CPU tensors take the plain twin; CUDA tensors launch the kernel
     or raise."""
     if reads.device.type == "cpu":
         return wide_steps_torch(di, reads, carry, phases, log_base, lp, le,
-                                blocks, tables)
+                                blocks)
     if reads.device.type == "cuda":
         return wide_steps_cuda(di, reads, carry, phases, log_base, lp, le,
-                               blocks, tables)
+                               blocks)
     raise ValueError(f"wide_steps: unsupported device {reads.device}")
 
 
 wide_steps.launches = 0
 wide_steps.packed_launches = 0
-wide_steps.sharded_launches = 0

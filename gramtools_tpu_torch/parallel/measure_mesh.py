@@ -25,11 +25,18 @@ genome, 100,000 SNP sites, 150 bp reads, k = 10, seed 42), then:
   * with ``--index``, the SA-range-sharded index's scan (K10) of one
     whole 20,000-read buffer (the engine's own phases, dense rank): for
     each spec, the index split into that many shards ("n": shard i on
-    card i; "nx1": n shards on the first card), the scan run on the first
-    card, its K2 and K3 reading the other cards' shards over NVLink; its
-    flat result must equal the replicated scan's; each scan timed by
-    CUDA events on the first card over ``--repeats`` queued scans, beside
-    the replicated dense scan's, and on the host clock.
+    card i; "nx1": n shards on the first card), every card of the row
+    running the scan in gather rounds on its own shards, an NCCL
+    all-reduce between two launches; its flat result must equal the
+    replicated scan's; its launches and collectives a scan; each scan
+    timed by CUDA events on the first card, the median of 5 x
+    ``--repeats`` scans each run alone (the cards synchronised before
+    and after), beside the replicated dense scan's, and the host's
+    enqueue of one scan (the host clock from its call to its return, no
+    synchronisation), the median of as many; and, on more than one
+    card, the bytes its all-reduces must move over each card's NVLink
+    (2 (n - 1) / n of the bytes reduced, as a ring moves them) and
+    their time at 450 GB/s, the bound a scan adds to the device's.
 
 Each line starts with the card's name and power limit. Raises on any
 failed check.
@@ -49,7 +56,7 @@ import numpy as np
 import torch
 
 KERNELS = ("packed_rank", "replay", "walk", "wide_step", "locked_step",
-           "select")
+           "select", "sharded_step")
 
 # Run in each checkout (one whose port carries its own index loader and
 # quasimap driver): its single-device engine through its quasimap_reads,
@@ -175,14 +182,35 @@ def mesh_runs(specs, idx, kmer_index, k: int, n_reads: int, work: Path,
         del engine
 
 
+NVLINK_BYTES_PER_S = 450e9
+"""An H100's NVLink, each way (NVIDIA's data sheet: 900 GB/s in all)."""
+
+
+def _reduced_bytes(phases, R: int, n_in: int, B: int) -> int:
+    """The bytes the index-sharded scan's all-reduces sum a scan, from
+    its step table (ops/sharded.py): each step's round-1 answers (4
+    ints a slot of a wide step; a word a slot and 4 ints a wide state
+    of the budget of a narrow one) and round-2 answers (2 ints a hit
+    pair)."""
+    from ..mapping.search_log_host import _phase4
+    from ..ops.sharded import step_table
+
+    rows = step_table([_phase4(e) for e in phases], R, n_in, B, True)[0]
+    ints = sum((4 * N if k == 0 else -(-N // 4) * 4 + 4 * W) + 2 * G * B
+               for k, N, G, W, *_ in rows)
+    return 4 * ints
+
+
 def index_runs(specs, idx, kmer_index, reads, k: int, repeats: int, say):
     """The index-sharded scan of one buffer for each spec, against the
     replicated scan (see the module doc)."""
     from ..mapping.engine import LogBatchedEngine
     from ..mapping.quasimap import (DEVICE_BUFFER_SIZE, QuasimapStats,
                                     ReadBatch)
+    import statistics
+
     from ..mapping.search_log import log_search_phases
-    from ..ops import locked_step, wide_step
+    from ..ops import sharded
     from .mesh import Mesh
     from .sharded_index import make_index_sharded_log_search
 
@@ -210,31 +238,41 @@ def index_runs(specs, idx, kmer_index, reads, k: int, repeats: int, say):
         say(f"[index] {spec}: tables built in {time.perf_counter() - t0:.2f}"
             f" s")
     for name, run, devices in runs:
-        launches = (wide_step.wide_steps.sharded_launches
-                    + locked_step.locked_tail.sharded_launches)
+        before = (sharded.sharded_scan.launches,
+                  sharded.sharded_scan.collectives)
         (rid, lo, hi, pref, ovf), (lp, le) = run(*args)
         got = torch.cat([rid, lo, hi, pref, ovf.to(torch.int32), lp,
                          le]).cpu().numpy()
-        launches = (wide_step.wide_steps.sharded_launches
-                    + locked_step.locked_tail.sharded_launches) - launches
+        launches = sharded.sharded_scan.launches - before[0]
+        collectives = sharded.sharded_scan.collectives - before[1]
         if not np.array_equal(got, want):
             raise AssertionError(f"index {name}: the flat result differs "
                                  f"from the engine's")
-        _sync(devices)
-        start, end = (torch.cuda.Event(enable_timing=True),
-                      torch.cuda.Event(enable_timing=True))
-        t0 = time.perf_counter()
-        start.record()
+        ms, enqueue = [], []
         for _ in range(repeats):
+            _sync(devices)
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            t0 = time.perf_counter()
             run(*args)
-        end.record()
-        _sync(devices)
-        host_s = (time.perf_counter() - t0) / repeats
+            enqueue.append(time.perf_counter() - t0)
+            end.record()
+            _sync(devices)
+            ms.append(start.elapsed_time(end))
+        n_cards = len(set(devices))
+        reduced = _reduced_bytes(phases, R, carry[0].shape[0],
+                                 engine.di.n_outcomes)
+        link = (2 * (n_cards - 1) / n_cards * reduced) if n_cards > 1 else 0
         say(f"[index] {name} {[d.index for d in devices]}: R={R}, phases "
             f"{phases}, flat result equal to the engine's; K10 launches a "
-            f"scan {launches}; {start.elapsed_time(end) / repeats:.4f} ms a "
-            f"scan by CUDA events on cuda:0 ({repeats} queued scans), "
-            f"{1000 * host_s:.3f} ms a scan on the host clock")
+            f"scan {launches}, collectives {collectives}; "
+            f"{statistics.median(ms):.4f} ms a scan by CUDA events on "
+            f"cuda:0 (the median of {repeats}, each run alone; min "
+            f"{min(ms):.4f}, max {max(ms):.4f}), the host's enqueue "
+            f"{1000 * statistics.median(enqueue):.3f} ms a scan (median); "
+            f"NVLink bytes a card {link:.0f} ({reduced} bytes all-reduced "
+            f"a scan), {1000 * link / NVLINK_BYTES_PER_S:.4f} ms at 450 GB/s")
 
 
 def main(argv=None) -> int:

@@ -4,16 +4,19 @@ Port of gramtools_tpu/parallel/sharded_index.py (K10). The occ table is
 the index's dominant device array, 16 bytes per BWT position; the
 narrow-step table adds 4. Both shard by SA range over the mesh axis
 "idx": idx shard i holds rows [i*rows_per_shard, (i+1)*rows_per_shard)
-on its device. In the JAX module every gather of the scan is each idx
-shard's masked local gather, then a ``psum`` over "idx". Here the shards
-are one ``ops/sharded.ShardedTables`` a data shard, which the scan
-kernels (K2 and K3) read in place: each row from its owner shard, a
-peer card's over NVLink, so the scan of a data shard is the replicated
-scan's two kernel launches. The masked gathers summed on the querying
-device (``ops/sharded._sharded_gather``) are the plain version, which
-the twins run on CPU tensors. With a ("data", "idx") mesh, reads shard
-over "data" as well: data shard d scans its columns on devices[d, 0]
-and reads the index shards on devices[d, :].
+on its device. In the JAX module every device of the axis runs the same
+scan on the same pool, each gather a masked local gather of its shard
+and a ``psum`` over "idx". Here the shards of a mesh row are one
+``ops/sharded.ShardedTables``, and the scan of a data shard is
+``ops/sharded.sharded_scan``: on CUDA every distinct card of the row
+steps the same pool in gather rounds, gathers only from the shards it
+holds, and the row's cards all-reduce their answers by NCCL between two
+launches (a row on one card needs none); the scan's outputs are taken
+on the row's first device, devices[d, 0]. The torch steps over the
+shards' masked gathers summed (``ops/sharded._sharded_gather``) are the
+plain version, which CPU tensors take. With a ("data", "idx") mesh,
+reads shard over "data" as well: data shard d scans its columns on
+every card of row d, each row with its own communicator.
 
 The step itself is the production genealogy-log scan
 (search_log.log_search_phases) given the sharded tables -- no second

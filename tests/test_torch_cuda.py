@@ -3,7 +3,7 @@
 steps) kernels and the per-base recorder's kernels (K9) against their
 plain torch versions (K3's barrier-free locked range also on the cases
 its chained scans must get right, and over repeated launches; K2 and K3
-decoding packed reads, K6, and reading SA-range-sharded tables, K10),
+decoding packed reads, K6; the index-sharded scan's round kernels, K10),
 the scan and the fused record program on CUDA against the CPU, the
 engine against the host oracle, the mesh engine and the index-sharded
 scan on one card and, where the machine has two cards or more, across
@@ -626,7 +626,7 @@ def _locked_design_case(name, rank_kind):
     elif name == "many_tiles":
         with torch.cuda.device(0):
             grid = locked_step._kernel_lib().locked_tail_grid(
-                carry[0].shape[0], *locked_step.layout(reads, None))
+                carry[0].shape[0], 0)         # int32 rows
         assert 0 < grid < T
     assert not bool((reads[1] > 0).any())
     return di, reads, carry, blocks, G, W, lock
@@ -1001,8 +1001,8 @@ def test_scan_kernels_do_not_synchronise(cuda):
 
 
 # --------------------------------------------------------------------------
-# K6 and K10 inside the scan kernels: packed reads decoded where a base is
-# loaded, the SA-range-sharded tables read in place
+# K6 inside the scan kernels (packed reads decoded where a base is
+# loaded); K10, the scan over SA-range-sharded tables in gather rounds
 # --------------------------------------------------------------------------
 
 def _packed_window(R, S, start, seed, k=5):
@@ -1121,12 +1121,20 @@ def _no_plain_gather(monkeypatch):
     monkeypatch.setattr(sharded, "_sharded_gather", refuse)
 
 
+def _k10_counts():
+    from gramtools_tpu_torch.ops import sharded
+
+    return (sharded.sharded_scan.launches, sharded.sharded_scan.collectives,
+            wide_step.wide_steps.launches, locked_step.locked_tail.launches)
+
+
 @pytest.mark.parametrize("n_idx", [1, 3, 4, 8])
 def test_index_sharded_scan_one_card_runs_the_kernels(cuda, monkeypatch,
                                                       n_idx):
     """The index split over 1, 3, 4 or 8 SA-range shards on the card: the
-    scan is K2 and K3 reading the shards in place (two sharded launches,
-    the plain gather never called), equal to the replicated scan."""
+    scan is the round kernels' 2 launches a step and 1 (no collective,
+    no K2 or K3, the plain gather never called), equal to the
+    replicated scan over 20 repeated scans."""
     from gramtools_tpu_torch.mapping.search_log import log_search_phases
     from gramtools_tpu_torch.mapping.search_log_host import auto_phases
     from gramtools_tpu_torch.parallel.mesh import Mesh
@@ -1140,13 +1148,12 @@ def test_index_sharded_scan_one_card_runs_the_kernels(cuda, monkeypatch,
     run = make_index_sharded_log_search(Mesh([cuda] * n_idx, ("idx",)), di,
                                         cfg, R)
     _no_plain_gather(monkeypatch)
-    counted = lambda: (wide_step.wide_steps.sharded_launches,
-                       locked_step.locked_tail.sharded_launches)
-    before = counted()
+    before = _k10_counts()
     got = run(*args)
     runs = [run(*args) for _ in range(19)]
     torch.cuda.synchronize()
-    assert counted() == (before[0] + 20, before[1] + 20)
+    assert _k10_counts() == (before[0] + 20 * (2 * 32 + 1), before[1],
+                             before[2], before[3])
     want = log_search_phases(di, *args, auto_phases(32, R, cfg, narrow=True),
                              R)
     for g, w in zip(got[0] + got[1], want[0] + want[1]):
@@ -1698,6 +1705,36 @@ def test_index_sharded_scan_on_cuda_equals_replicated(cuda):
     assert (want[1][0] >= 0).any()
 
 
+@pytest.mark.parametrize("spread", ["one_card", "across_cards"])
+def test_index_sharded_scan_does_not_synchronise(cuda, spread):
+    """A warm index-sharded scan (4 shards on the card, or the shards on
+    the machine's cards with an all-reduce between launches) enqueues
+    every launch without one host synchronisation."""
+    from gramtools_tpu_torch.mapping.search_log_host import auto_phases
+    from gramtools_tpu_torch.parallel.mesh import Mesh
+    from gramtools_tpu_torch.parallel.sharded_index import \
+        make_index_sharded_log_search
+
+    devices = [cuda] * 4 if spread == "one_card" else _cards(2)
+    R = 64
+    di, cfg, reads_T, carry = _index_sharded_case(cuda, R)
+    args = (torch.from_numpy(reads_T).to(cuda),
+            tuple(torch.from_numpy(a).to(cuda) for a in carry))
+    run = make_index_sharded_log_search(Mesh(devices, ("idx",)), di, cfg, R,
+                                        phases=auto_phases(32, R, cfg,
+                                                           narrow=True))
+    want = run(*args)
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = run(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(g, w)
+
+
 def test_mesh_scan_submit_does_not_synchronise(cuda, monkeypatch):
     """A warm 2-shard fused scan_submit on the card enqueues both shards
     without one host synchronisation."""
@@ -1772,13 +1809,16 @@ def test_mesh_engine_across_cards_matches_one_card(cuda, monkeypatch,
 
 def test_index_sharded_scan_across_cards_equals_replicated(cuda,
                                                           monkeypatch):
-    """The index split over the cards ("idx"), and over a 2 x 2
-    ("data", "idx") mesh where the machine has 4: K2 and K3 on each data
-    shard's home card read the other cards' shards in place (the plain
-    gather never called), equal to the replicated scan; a pair of cards
-    without peer access raises, naming the pair."""
+    """The index split over 2 and 4 cards ("idx"), and over a 2 x 2
+    ("data", "idx") mesh where the machine has 4: every card of a row
+    runs the round kernels on its own shards, 2 launches a step and 1 a
+    card and an all-reduce between two launches (the plain gather never
+    called, no K2 or K3), equal to the replicated scan over 20 repeated
+    scans, every card of a row ending with the same carry and log; a row
+    whose cards NCCL cannot serve raises, naming them."""
     from gramtools_tpu_torch.mapping.search_log import log_search_phases
     from gramtools_tpu_torch.mapping.search_log_host import auto_phases
+    from gramtools_tpu_torch.mapping.search_log_host import _phase4
     from gramtools_tpu_torch.ops import sharded
     from gramtools_tpu_torch.parallel.mesh import Mesh
     from gramtools_tpu_torch.parallel.sharded_index import \
@@ -1789,17 +1829,42 @@ def test_index_sharded_scan_across_cards_equals_replicated(cuda,
     di, cfg, reads_T, carry = _index_sharded_case(cuda, R)
     args = (torch.from_numpy(reads_T).to(cuda),
             tuple(torch.from_numpy(a).to(cuda) for a in carry))
-    want = log_search_phases(di, *args, auto_phases(32, R, cfg, narrow=True),
-                             R)
-    run = make_index_sharded_log_search(Mesh(cards, ("idx",)), di, cfg, R)
-    with monkeypatch.context() as m:
-        _no_plain_gather(m)
-        before = wide_step.wide_steps.sharded_launches
-        got = run(*args)
-        torch.cuda.synchronize()
-        assert wide_step.wide_steps.sharded_launches == before + 1
-    for g, w in zip(got[0] + got[1], want[0] + want[1]):
-        assert g.device == cards[0] and torch.equal(g, w)
+    plan = auto_phases(32, R, cfg, narrow=True)
+    want = log_search_phases(di, *args, plan, R)
+    for n in sorted({2, len(cards)}):
+        run = make_index_sharded_log_search(Mesh(cards[:n], ("idx",)), di,
+                                            cfg, R)
+        with monkeypatch.context() as m:
+            _no_plain_gather(m)
+            before = _k10_counts()
+            outs = [run(*args) for _ in range(20)]
+            torch.cuda.synchronize()
+            assert _k10_counts() == (before[0] + 20 * n * (2 * 32 + 1),
+                                     before[1] + 20 * 2 * 32, before[2],
+                                     before[3])
+        for got in outs:
+            for g, w in zip(got[0] + got[1], want[0] + want[1]):
+                assert g.device == cards[0] and torch.equal(g, w)
+        # every card of the row: the same carry, flags and log
+        tables = sharded.build_tables(
+            di.occ.cpu().numpy(), di.narrow_tab.cpu().numpy(), di.size,
+            cards[:n], cards[0])
+        L = want[1][0].numel()
+        lp, le = (torch.empty(L, dtype=torch.int32, device=cuda)
+                  for _ in range(2))
+        c5 = args[1][:4] + (torch.cat([args[1][4].to(torch.bool),
+                                       torch.zeros(1, dtype=torch.bool,
+                                                   device=cuda)]),)
+        per_card = sharded.sharded_rounds(
+            di, args[0].to(torch.int32).contiguous(), c5,
+            [_phase4(e) for e in plan], R, lp, le, tables)
+        assert set(per_card) == set(cards[:n])
+        home = per_card[cards[0]]
+        for card, (c, log) in per_card.items():
+            for a, b in zip(c + log, home[0] + home[1]):
+                assert a.device == card and torch.equal(a.cpu(), b.cpu())
+        for a, b in zip(home[0][:4] + home[1], want[0][:4] + want[1]):
+            assert torch.equal(a, b)
     if len(cards) >= 4:
         # data shard d scans its half of the reads on card 2d and reads
         # the shards on cards 2d and 2d + 1
@@ -1824,11 +1889,13 @@ def test_index_sharded_scan_across_cards_equals_replicated(cuda,
             for g, w in zip(got2[0] + got2[1], ref[0] + ref[1]):
                 m_ = w.numel()
                 assert torch.equal(g[d * m_:(d + 1) * m_], w)
-    # a pair without peer access raises, naming it
-    monkeypatch.setattr(sharded, "_PEERS", set())
-    monkeypatch.setattr(torch.cuda, "can_device_access_peer",
-                        lambda a, b: False)
-    with pytest.raises(RuntimeError, match=f"cuda:{cards[0].index}.*"
+    # a row whose cards NCCL cannot serve raises, naming them
+    from torch.cuda import nccl
+
+    run = make_index_sharded_log_search(Mesh(cards[:2], ("idx",)), di, cfg,
+                                        R)
+    monkeypatch.setattr(nccl, "is_available", lambda tensors: False)
+    with pytest.raises(RuntimeError, match=f"cuda:{cards[0].index}, "
                                            f"cuda:{cards[1].index}"):
         run(*args)
 
