@@ -105,7 +105,7 @@ def execute_index_build(build_report, action, build_paths, args):
     with timer.phase("Reference check"):
         check_ref_against_graph(args.reference, graph)
     with timer.phase("Index build"):
-        build_all(prg, args.kmer_size, build_paths.gram_dir)
+        build_all(prg, args.kmer_size, build_paths.gram_dir, graph)
     timer.report()
     # per-phase wall + peak-RSS into the build report (the reference
     # wraps FM construction in sdsl's memory monitor,

@@ -135,10 +135,12 @@ def reference_sequence(prg_ints) -> str:
 
 def make_workload(work: Path, genome_len: int = 4_400_000,
                   num_sites: int = 100_000, n_reads: int = 40_000,
-                  read_len: int = 150, kmer_size: int = 10, seed: int = 42):
+                  read_len: int = 150, kmer_size: int = 10, seed: int = 42,
+                  load: bool = True):
     """Writes ``prg.bin``, ``ref.fa``, ``reads.fq`` and the built index
     ``gram/`` into ``work``. Returns (idx, kmer_index, reads, a one-line
-    summary)."""
+    summary); ``load=False`` leaves the index on disk (idx and kmer_index
+    None), for a caller that only writes the workload."""
     from ..cli import run as cli
     from ..index.build import load_all
     from ..prg.linearise import PrgString
@@ -165,9 +167,10 @@ def make_workload(work: Path, genome_len: int = 4_400_000,
             "--kmer_size", str(kmer_size), "--force"]) != 0:
         raise RuntimeError("build failed")
     build_s = time.perf_counter() - t0
-    idx, kmer_index = load_all(work / "gram")
-    summary = (f"{genome_len} bp genome, {num_sites} sites, fm size "
-               f"{idx.fm.size}, {n_reads} reads of {read_len} bp; generated "
-               f"in {gen_s:.1f} s, index built (k={kmer_size}) in "
+    idx, kmer_index = load_all(work / "gram") if load else (None, None)
+    summary = (f"{genome_len} bp genome, {num_sites} sites, "
+               + (f"fm size {idx.fm.size}, " if load else "")
+               + f"{n_reads} reads of {read_len} bp; generated in "
+               f"{gen_s:.1f} s, index built (k={kmer_size}) in "
                f"{build_s:.1f} s")
     return idx, kmer_index, reads, summary

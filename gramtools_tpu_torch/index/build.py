@@ -17,19 +17,21 @@ from .fm import FMIndex
 from .kmer_index_vec import ArrayKmerIndex, build_kmer_index_vectorised
 
 
-def build_prg_index(prg: PrgString) -> PrgIndex:
-    graph = build_cov_graph(prg)
+def build_prg_index(prg: PrgString, graph=None) -> PrgIndex:
+    graph = build_cov_graph(prg) if graph is None else graph
     fm = FMIndex.build(prg.ints)
     return PrgIndex(prg.ints, graph, fm, dict(prg.end_positions))
 
 
-def build_all(prg: PrgString, kmer_size: int, gram_dir: str | Path):
+def build_all(prg: PrgString, kmer_size: int, gram_dir: str | Path,
+              graph=None):
     """Build and persist the full index artifact set (the stage checkpoint
-    contract: build artifacts are what genotype consumes)."""
+    contract: build artifacts are what genotype consumes); ``graph`` is
+    the PRG's coverage graph where the caller has built it already."""
     gram_dir = Path(gram_dir)
     gram_dir.mkdir(parents=True, exist_ok=True)
     prg.write(gram_dir / "prg")
-    idx = build_prg_index(prg)
+    idx = build_prg_index(prg, graph)
     idx.fm.save(gram_dir / "fm_index.npz")
     kmer_index = build_kmer_index_vectorised(idx, kmer_size)
     kmer_index.save(gram_dir / "kmer_index.npz")

@@ -24,10 +24,26 @@ n = len(prg) + 1 (sentinel row included, as in sdsl).
 """
 from __future__ import annotations
 
+import zipfile
 from pathlib import Path
 from typing import Dict
 
 import numpy as np
+
+
+def save_npz(path: str | Path, **arrays):
+    """``np.savez_compressed``'s file (``np.load`` reads it as such), at
+    zlib level 1: a quarter of level 6's time for a few percent more
+    bytes, which a 25M-row index's build feels."""
+    path = Path(path)
+    if path.suffix != ".npz":
+        path = path.with_name(path.name + ".npz")
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED,
+                         compresslevel=1) as zf:
+        for name, a in arrays.items():
+            with zf.open(name + ".npy", "w", force_zip64=True) as fh:
+                np.lib.format.write_array(fh, np.asanyarray(a),
+                                          allow_pickle=False)
 
 from .suffix_array import suffix_array
 
@@ -105,7 +121,7 @@ class FMIndex:
     # -- serialisation (the gram dir artifact contract) ----------------------
 
     def save(self, path: str | Path):
-        np.savez_compressed(
+        save_npz(
             path,
             sa=self.sa,
             bwt=self.bwt,

@@ -31,6 +31,7 @@ import numpy as np
 from ..mapping.jump_table import JumpTable, OP_ENTER, OP_EXIT, build_jump_table
 from ..mapping.search import PrgIndex, SearchState
 from ..prg.markers import ALLELE_UNKNOWN
+from .fm import save_npz
 
 MAX_PATH = 8
 
@@ -173,8 +174,16 @@ class ArrayKmerIndex:
             code += (int(b) - 1) * (4 ** (k - 1 - i))
         return code
 
+    def _search(self, codes):
+        """np.searchsorted into the sorted codes, through an int64 copy
+        made once: searching the uint32 array itself with int64 or
+        Python-int keys casts all of it on every call."""
+        if getattr(self, "_codes64", None) is None:
+            self._codes64 = self.codes.astype(np.int64)
+        return np.searchsorted(self._codes64, codes)
+
     def _find(self, code: int) -> int:
-        pos = int(np.searchsorted(self.codes, code))
+        pos = int(self._search(code))
         if pos < self.codes.size and int(self.codes[pos]) == code:
             return pos
         return -1
@@ -230,7 +239,7 @@ class ArrayKmerIndex:
         if read.size < self.kmer_size:
             return False
         codes = self.read_kmer_codes(read)
-        pos = np.searchsorted(self.codes, codes)
+        pos = self._search(codes)
         pos_c = np.clip(pos, 0, self.codes.size - 1)
         return bool(np.all((pos < self.codes.size)
                            & (self.codes[pos_c] == codes)))
@@ -283,7 +292,7 @@ class ArrayKmerIndex:
         if present is not None:
             hit = present[np.where(in_read, codes, 0)] | ~in_read
         else:
-            pos = np.searchsorted(self.codes, codes)
+            pos = self._search(codes)
             pos_c = np.clip(pos, 0, max(self.codes.size - 1, 0))
             hit = ((pos < self.codes.size)
                    & (self.codes[pos_c] == codes)) | ~in_read
@@ -324,7 +333,7 @@ class ArrayKmerIndex:
             if present is not None:
                 hit = present[codes]
             else:
-                pos = np.searchsorted(self.codes, codes.reshape(-1))
+                pos = self._search(codes.reshape(-1))
                 pos_c = np.clip(pos, 0, max(self.codes.size - 1, 0))
                 hit = (((pos < self.codes.size)
                         & (self.codes[pos_c] == codes.reshape(-1)))
@@ -338,7 +347,7 @@ class ArrayKmerIndex:
         k = self.kmer_size
         powers = 4 ** np.arange(k - 1, -1, -1, dtype=np.int64)
         codes = (last_kmers.astype(np.int64) - 1) @ powers
-        pos = np.searchsorted(self.codes, codes)
+        pos = self._search(codes)
         pos_c = np.clip(pos, 0, max(self.codes.size - 1, 0))
         found = (pos < self.codes.size) & (self.codes[pos_c] == codes)
         starts = np.where(found, self.offsets[pos_c], 0)
@@ -375,7 +384,7 @@ class ArrayKmerIndex:
     # --- serialisation -----------------------------------------------------
 
     def save(self, path):
-        np.savez_compressed(
+        save_npz(
             path, kmer_size=np.int32(self.kmer_size), codes=self.codes,
             offsets=self.offsets, lo=self.lo, hi=self.hi, trav=self.trav,
             n_trav=self.n_trav, ing=self.ing, n_ing=self.n_ing)

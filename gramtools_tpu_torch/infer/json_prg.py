@@ -90,7 +90,7 @@ def make_json_prg(idx: PrgIndex, sites: List[GenotypedSite],
 
 def write_json_prg(prg_json: dict, path):
     with open(path, "w") as fh:
-        json.dump(prg_json, fh, separators=(",", ":"))
+        fh.write(json.dumps(prg_json, separators=(",", ":")))
         fh.write("\n")
 
 

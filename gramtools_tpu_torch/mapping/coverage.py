@@ -370,8 +370,9 @@ def dump_all(coverage: Coverage, idx: PrgIndex, allele_sum_path, allele_base_pat
             fh.write(" ".join(str(c) for c in site) + "\n")
 
     with open(allele_base_path, "w") as fh:
-        json.dump({"allele_base_counts": allele_base_non_nested(idx)}, fh,
-                  separators=(",", ":"))
+        fh.write(json.dumps(
+            {"allele_base_counts": allele_base_non_nested(idx)},
+            separators=(",", ":")))
         fh.write("\n")
 
     # group-ID assignment (grouped_allele_counts.cpp:51-67): the
@@ -390,9 +391,9 @@ def dump_all(coverage: Coverage, idx: PrgIndex, allele_sum_path, allele_base_pat
     ]
     allele_groups = {str(gid): list(group) for group, gid in group_ids.items()}
     with open(grouped_path, "w") as fh:
-        json.dump(
+        fh.write(json.dumps(
             {"grouped_allele_counts": {
                 "site_counts": site_counts,
                 "allele_groups": allele_groups,
-            }}, fh, separators=(",", ":"))
+            }}, separators=(",", ":")))
         fh.write("\n")

@@ -101,11 +101,10 @@ def build_jump_table(idx: PrgIndex) -> JumpTable:
 
     # adjusted locus per PRG position (left_markers_search semantics)
     pos_to_key: Dict[int, Tuple[int, int]] = {}
-    marker_follow_positions = np.flatnonzero(np.asarray(g.ra_target_site) != 0)
-    for pos in marker_follow_positions:
-        pos = int(pos)
-        site = int(g.ra_target_site[pos])
-        allele = int(g.ra_target_allele[pos])
+    follow = np.flatnonzero(np.asarray(g.ra_target_site) != 0)
+    for pos, site, allele in zip(
+            follow.tolist(), np.asarray(g.ra_target_site)[follow].tolist(),
+            np.asarray(g.ra_target_allele)[follow].tolist()):
         if site % 2 == 0 and idx.last_allele_positions[site] != pos - 1:
             site -= 1
         pos_to_key[pos] = (site, allele)
@@ -124,8 +123,9 @@ def build_jump_table(idx: PrgIndex) -> JumpTable:
     O = max(O, 1)
 
     pos_to_locus = np.full(n, -1, dtype=np.int32)
-    for pos, key in pos_to_key.items():
-        pos_to_locus[pos] = locus_index[key]
+    pos_to_locus[np.fromiter(pos_to_key, np.int64, len(pos_to_key))] = \
+        np.fromiter((locus_index[k] for k in pos_to_key.values()), np.int32,
+                    len(pos_to_key))
 
     out_lo = np.full((L, B), -1, dtype=np.int32)
     out_hi = np.full((L, B), -1, dtype=np.int32)

@@ -63,10 +63,10 @@ class ReadStats:
             site_id = g.node(entry).site_id
             if site_id in g.par_map:
                 continue  # nested sites not counted
-            allele, allele_cov = _extract_max_coverage_allele(
+            pb_cov, allele_cov = _extract_max_coverage_allele(
                 coverage, idx, entry, exit_)
-            if allele[1]:
-                site_pb_cov = float(np.mean(allele[1]))
+            if pb_cov:  # the exact integer sum, so np.mean's value
+                site_pb_cov = sum(pb_cov) / len(pb_cov)
             else:  # direct-deletion allele
                 site_pb_cov = float(allele_cov)
             site_coverages.append(site_pb_cov)
@@ -133,12 +133,12 @@ def _max_cov_haplogroup(gped_cov: Dict[Tuple[int, ...], int]) -> Tuple[int, int]
 def _extract_max_coverage_allele(coverage: Coverage, idx: PrgIndex,
                                  entry: int, exit_: int):
     """read_stats.cpp:94-117: walk the graph picking the max-coverage
-    haplogroup at every bubble; returns ((seq, pb_cov), allele_cov)."""
+    haplogroup at every bubble; returns (pb_cov, allele_cov) (the
+    reference's allele sequence is not used here)."""
     g = idx.graph
     cur = entry
     site_index = site_id_to_index(g.node(cur).site_id)
     hapg, allele_cov = _max_cov_haplogroup(coverage.grouped_counts[site_index])
-    seq_parts: List[str] = []
     cov_parts: List[int] = []
     while cur != exit_:
         node = g.node(cur)
@@ -147,8 +147,7 @@ def _extract_max_coverage_allele(coverage: Coverage, idx: PrgIndex,
             h, _ = _max_cov_haplogroup(coverage.grouped_counts[site_index])
             cur = node.edges[h]
             continue
-        if node.seq_size > 0:
-            seq_parts.append(node.seq_str())
-            cov_parts.extend(int(c) for c in g.node_coverage(cur))
+        if node.seq.size:
+            cov_parts.extend(g.node_coverage(cur).tolist())
         cur = node.edges[0]
-    return (("".join(seq_parts), cov_parts), allele_cov)
+    return cov_parts, allele_cov

@@ -287,10 +287,24 @@ def _stub(di, tables: ShardedTables, card):
     return kept[1]
 
 
-def _check_args(fn: str, di, reads, carry, lp, le, end: int):
+def check_index(fn: str, di, narrow: bool) -> None:
+    """Raise unless the index has its jump and symbol tables and, where
+    the plan reads the narrow table (``narrow``), n < 2**24, the rows its
+    24-bit words address. A wide-only plan takes any n: its rounds read
+    occ rows alone (the narrow table of an index of 2**24 rows or more is
+    a stub, mapping/device_index.py)."""
+    if narrow and di.size >= 2 ** 24:
+        raise ValueError(f"{fn}: the narrow table needs n < 2**24")
+    if di.sym_start.shape[0] < 5 or di.out_lo.shape != di.out_hi.shape or \
+            di.out_lo.shape[0] < 1:
+        raise ValueError(f"{fn}: needs the index's jump and symbol tables")
+
+
+def _check_args(fn: str, di, reads, carry, lp, le, end: int, narrow: bool):
     """reads (S, R) int32, the carry's four (n_in,) int32 fields and
     (R + 1,) bool flags, the log halves and the index's small tables,
-    all contiguous on the scan's card. Returns (S, R, n_in)."""
+    all contiguous on the scan's card, and the index as ``check_index``
+    takes it. Returns (S, R, n_in)."""
     if not isinstance(reads, torch.Tensor) or reads.dim() != 2 or \
             reads.dtype != I32:
         raise ValueError(f"{fn}: reads must be an int32 (steps, R) tensor")
@@ -318,10 +332,7 @@ def _check_args(fn: str, di, reads, carry, lp, le, end: int):
         if t.dtype != I32 or t.dim() != 1 or t.shape[0] < end:
             raise ValueError(f"{fn}: the log halves must be int32 holding "
                              f"{end} records")
-    if di.size >= 2 ** 24 or di.sym_start.shape[0] < 5 or \
-            di.out_lo.shape != di.out_hi.shape or di.out_lo.shape[0] < 1:
-        raise ValueError(f"{fn}: needs n < 2**24 and the index's jump and "
-                         f"symbol tables")
+    check_index(fn, di, narrow)
     return S, R, n_in
 
 
@@ -351,7 +362,8 @@ def sharded_rounds(di, reads, carry, plan, num_reads: int, lp, le,
     rows, C, K, a1 = step_table(plan, num_reads, carry[0].shape[0], B,
                                 tables.has_narrow)
     end = rows[-1][4] + rows[-1][2] * B
-    S, R, n_in = _check_args(fn, di, reads, carry, lp, le, end)
+    S, R, n_in = _check_args(fn, di, reads, carry, lp, le, end,
+                             any(r[0] != _WIDE for r in rows))
     if R != num_reads or S != len(rows):
         raise ValueError(f"{fn}: reads must be ({len(rows)}, {num_reads}), "
                          f"got {(S, R)}")

@@ -38,7 +38,12 @@ from .markers import ALLELE_UNKNOWN, FIRST_ALLELE
 SEQ, SITE_ENTRY, ALLELE_END, SITE_END = 0, 1, 2, 3
 
 
-@dataclass
+# shared by every node without sequence: a node's seq is replaced, never
+# written into
+_NO_SEQ = np.empty(0, dtype=np.uint8)
+
+
+@dataclass(slots=True)
 class CovNode:
     """One graph node: a maximal sequence run or a site boundary."""
 
@@ -47,7 +52,7 @@ class CovNode:
     site_id: int = 0
     allele_id: int = ALLELE_UNKNOWN
     is_boundary: bool = False
-    seq: np.ndarray = field(default_factory=lambda: np.empty(0, dtype=np.uint8))
+    seq: np.ndarray = field(default_factory=lambda: _NO_SEQ)
     edges: List[int] = field(default_factory=list)
     cov_start: int = -1  # slice into the graph-wide flat coverage array
     # (cov_start + len(seq) = cov_end) only when in_bubble
@@ -211,18 +216,22 @@ class _GraphBuilder:
             else:
                 g.nodes[back_wire].edges.append(target)
 
+        prg8 = prg.astype(np.uint8)
+        seg_lo, seg_node, seg_base = [], [], []
+
         def add_segment(lo: int, hi: int):
-            # All sequence chars in prg[lo:hi] extend cur_node.
+            # All sequence chars in prg[lo:hi] extend cur_node; their
+            # random access is filled for all segments at once below.
             nonlocal cur_pos
             if hi <= lo:
                 return
             node = g.nodes[cur_node]
-            seg = prg[lo:hi].astype(np.uint8)
-            base_off = node.seq_size
-            node.seq = np.concatenate([node.seq, seg]) if node.seq.size else seg
-            # random access for these positions
-            g.ra_node[lo:hi] = cur_node
-            g.ra_offset[lo:hi] = base_off + np.arange(hi - lo, dtype=np.int32)
+            seg = prg8[lo:hi].copy()
+            base_off = node.seq.size
+            node.seq = np.concatenate([node.seq, seg]) if base_off else seg
+            seg_lo.append(lo)
+            seg_node.append(cur_node)
+            seg_base.append(base_off)
             cur_pos += hi - lo
 
         def reach_allele_end(m: int) -> int:
@@ -292,6 +301,9 @@ class _GraphBuilder:
             g.ra_offset[pos] = max(g.nodes[back_wire].seq_size - 1, 0)
 
         add_segment(seg_start, n)
+        self._fill_segments(np.array(seg_lo, dtype=np.int64),
+                            np.array(seg_node, dtype=np.int32),
+                            np.array(seg_base, dtype=np.int32), types)
 
         # --- sink (coverage_graph.cpp:105-110)
         sink = self._new_node(cur_pos + 1)
@@ -302,6 +314,16 @@ class _GraphBuilder:
         self._map_targets(types)
         self._allocate_coverage()
         g.is_nested = len(g.par_map) > 0
+
+    def _fill_segments(self, lo, node, base, types):
+        """Random access of every sequence position: the node of the
+        segment holding it and its offset there (segments are the runs
+        between markers, in PRG order)."""
+        g = self.g
+        seq_pos = np.flatnonzero(types == SEQ)
+        seg = np.searchsorted(lo, seq_pos, side="right") - 1
+        g.ra_node[seq_pos] = node[seg]
+        g.ra_offset[seq_pos] = base[seg] + (seq_pos - lo[seg]).astype(np.int32)
 
     def _finalise_bubbles(self):
         # bubble order: highest pos first; ties -> higher site ID first
@@ -323,9 +345,15 @@ class _GraphBuilder:
         def add_exit_target(cur_m: int, tm: Tuple[int, int]):
             g.target_map.setdefault(cur_m, []).append(tm)
 
-        for pos in range(prg.size):
-            cur_m = int(prg[pos])
-            cur_t = int(types[pos])
+        # only markers and the first base after one change any state:
+        # a base after a base is passed over
+        after = np.flatnonzero(types[1:] == SEQ) + 1
+        after = after[types[after - 1] != SEQ]
+        visit = np.union1d(np.flatnonzero(types != SEQ), after)
+        for pos, cur_m, cur_t in zip(visit.tolist(), prg[visit].tolist(),
+                                     types[visit].tolist()):
+            if pos and types[pos - 1] == SEQ:
+                prev_t = SEQ
             if cur_t == SEQ:
                 if prev_t != SEQ:
                     g.ra_target_site[pos] = prev_m

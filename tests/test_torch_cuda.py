@@ -1164,6 +1164,46 @@ def test_index_sharded_scan_one_card_runs_the_kernels(cuda, monkeypatch,
     assert (want[1][0] >= 0).any()
 
 
+@pytest.mark.parametrize("n_idx", [1, 4])
+def test_index_sharded_scan_without_narrow_table_equals_wide_only(
+        cuda, monkeypatch, n_idx):
+    """A stub narrow table, as an index of 2**24 rows or more has: the
+    engine's narrow plan runs every step wide. The round scan over 1 or
+    4 shards (the kernels' argument rule takes the stub) equals the
+    replicated wide-only scan, one K2 launch and no K3, over 20 repeated
+    scans."""
+    import dataclasses
+
+    from gramtools_tpu_torch.mapping.search_log import log_search_phases
+    from gramtools_tpu_torch.mapping.search_log_host import auto_phases
+    from gramtools_tpu_torch.parallel.mesh import Mesh
+    from gramtools_tpu_torch.parallel.sharded_index import \
+        make_index_sharded_log_search
+
+    R = 64
+    di, cfg, reads_T, carry = _index_sharded_case(cuda, R)
+    di = dataclasses.replace(di, narrow_tab=torch.zeros(
+        1, dtype=torch.int32, device=cuda))
+    phases = auto_phases(32, R, cfg, narrow=True)
+    assert len(phases) == 4 and phases[-1][4] == "locked"
+    args = (torch.from_numpy(reads_T).to(cuda),
+            tuple(torch.from_numpy(a).to(cuda) for a in carry))
+    run = make_index_sharded_log_search(Mesh([cuda] * n_idx, ("idx",)), di,
+                                        cfg, R, phases=phases)
+    _no_plain_gather(monkeypatch)
+    before = _k10_counts()
+    got = run(*args)
+    runs = [run(*args) for _ in range(19)]
+    want = log_search_phases(di, *args, phases, R)
+    torch.cuda.synchronize()
+    assert _k10_counts() == (before[0] + 20 * (2 * 32 + 1), before[1],
+                             before[2] + 1, before[3])
+    for other in [got] + runs:
+        for g, w in zip(other[0] + other[1], want[0] + want[1]):
+            assert g.device.type == "cuda" and torch.equal(g, w)
+    assert (want[1][0] >= 0).any()
+
+
 # --------------------------------------------------------------------------
 # the fused record program and engine
 # --------------------------------------------------------------------------
