@@ -10,9 +10,11 @@ device`` with the packed rank (``GRAMTOOLS_TPU_RANK=packed``) and the
 fused device recorder (the default), at the repository's
 M. tuberculosis-scale workload: a 4.4 Mb genome with 100,000 biallelic
 SNP sites, 150 bp reads, k = 10 (the graph and read generators of
-gramtools_tpu_torch/common/workload.py, seeded), and then at a
-P. falciparum-scale graph past 2**24 index rows (phase 6). Phases, in
-this order, each printing one line or a few:
+gramtools_tpu_torch/common/workload.py, seeded), then at a
+P. falciparum-scale graph past 2**24 index rows (phase 6), then diploid
+on a mixed indel, multi-allelic and nested graph and on a nested MSA
+graph built by ``build --prgs_bed`` (phase 7). Phases, in this order,
+each printing one line or a few:
 
   0. the card (nvidia-smi name and power limit), the build of the
      six kernel sources and of the probes (the cursor walk and the
@@ -167,19 +169,46 @@ this order, each printing one line or a few:
      has n >= 2**24 and the one-element stub narrow table, so the
      engine's narrow plan runs every step wide: (a) ``genotype --engine
      device`` of 60,000 reads (three 20,000-read buffers) with the dense
-     rank and with the packed rank, each run's timer-report phases,
-     host-fallback share and launches (set to 0 just before and read
-     just after: K2 one launch a scan program, all four phases of the
-     plan; K3 and the standalone K1 none; K7, K8 and K9 above 0) and K8's
-     key instance; (b) on the 4,000 parity reads, the device run's
-     files byte-equal to the host engine's (the device run in a process
-     of its own, ``--genotype-parity``, beside the packed-rank run of
-     (a), which (c)'s timings wait for); (c) each run's warm-buffer
-     K2 launch (144 steps) equal bit for bit to its plain version over
-     20 repeated launches, timed by events, with its bound and share;
-     (d) the index-sharded scan (K10) of a buffer over 4 and 3 shards
-     equal to the replicated wide-only scan's and the plain version's,
-     its launches, time by events and host enqueue (as 5b, untraced).
+     rank and of 40,000 (two) with the packed rank, each run's
+     timer-report phases, host-fallback share and launches (set to 0
+     just before and read just after: K2 one launch a scan program, all
+     four phases of the plan; K3 and the standalone K1 none; K6, K7, K8
+     and K9 above 0) and K8's key instance; (b) on the 4,000 parity
+     reads, the device run's files byte-equal to the host engine's (the
+     device run in a process of its own, ``--genotype-parity``, beside
+     the packed run); (c) the dense run's warm-buffer K2 launch (144
+     steps) under the dense rank
+     and, on the same inputs, the packed rank, each equal bit for bit to
+     its plain version over 20 repeated launches, timed by events, with
+     its bound and share; (d) the index-sharded scan (K10) of a buffer
+     over 4 and 3 shards equal to the replicated wide-only scan's and
+     the plain version's, its launches, time by events and host enqueue
+     (as 5b, untraced);
+  7. the graphs gramtools is for, genotyped diploid (MixedConfig): the
+     mixed graph (bench.py's ``mixed`` profile at its sizes: 4.4 Mb,
+     100,000 sites, 70% SNPs, 10% direct deletions, 10% insertions, 5%
+     four-allele and 5% nested sites) and a nested MSA graph
+     (``build --prgs_bed`` of 40 regions of 1-4 kb, 24 rows each, on a
+     2 Mb reference; common/workload.make_msa_workload), both built,
+     with their 4,000 parity reads' host-engine diploid runs, by
+     ``--build-mixed`` in a process of its own started before phase 0;
+     (a) ``genotype --engine device --ploidy diploid`` of the mixed
+     graph's 40,000 reads with the dense and with the packed rank: each
+     run's phases, fallback share and reasons, launches (set to 0 just
+     before, read just after; K2, K3, K7, K8 and K9 each above 0), K8's
+     key instance, buffer 1's stage-4 live states a row and rows on its
+     warp path, and the mapped reads at four-allele sites and on direct
+     deletions (both above 0); (b) its parity reads' device run
+     (``--mixed-parity``, a process of its own beside (a)) byte-equal
+     to the host engine's: VCF without ##fileDate, jVCF, personalised
+     reference, coverage dumps and the report without its timings and
+     engine counters; (c) with the card to itself, on the dense run's
+     buffer 1: K2 and K3 (its hole-allocated and locked ranges in their
+     one launch) under the packed and the dense rank and K8 (K9 between
+     its two launches) each equal bit for bit to its plain version over
+     20 repeated launches, K7 and K9 once, each timed by events with
+     its bound; (d) the MSA graph's 20,000 reads, as (a) with the dense
+     rank, and its parity as (b).
 
 ``python3 chip_smoke.py --k8-turns <checkout> ...`` runs phases 0, 1,
 1d and 1e, then times K8 of the other checkouts (the parent commit,
@@ -205,8 +234,11 @@ time theirs on the packed windows, its plain time the unpack and the
 two launches on its rows; K10's (``sharded_index``) launches are phase
 5b's 4-shard scan's, its time that scan's, its plain time the torch
 gather scan's; ``launches_large`` counts each kernel's launches in phase
-6's two genotype runs, and K2's and K10's ``large`` their phase 6
-numbers); the last is
+6's two genotype runs (dense and packed rank), and K2's and K10's ``large`` their phase 6 numbers;
+``launches_mixed`` and ``launches_msa`` count phase 7's runs, K8's
+``warp_rows_mixed`` and ``warp_rows_msa`` the rows of a warm buffer on
+stage 4's warp path, and ``mixed`` holds the phase 7c numbers); the
+last is
 ``{"ok": true, "device": {...}}``. Any failed
 check raises, and the script exits non-zero; it also exits non-zero,
 printing no result, when no CUDA device is available. It imports no
@@ -1797,10 +1829,16 @@ def select_bytes(select_args, per_base_args) -> int:
             + R * 5 + 12 * trip_cap + per_base_bytes(per_base_args)[0])
 
 
+# csrc/select.cu's kSmallRow: stage 4 ranks a row of more live states
+# than this with a warp (its O(k^2) path), a thread a row otherwise
+K8_SMALL_ROW = 4
+
+
 def stage4_counts(sargs, trip_cap: int) -> dict:
     """Stage 4's sizes on the selection's inputs ``sargs``, from the
     first launch's scratch (csrc/select.cu ``select_scratch_offset``): the
-    most live states in a row, the rows with one and with more, and the
+    most live states in a row, the rows with one and with more, the rows
+    that take the warp path (more than K8_SMALL_ROW states), and the
     longest and the mean run of one state's sorted lanes."""
     import ctypes
 
@@ -1838,6 +1876,7 @@ def stage4_counts(sargs, trip_cap: int) -> dict:
     return {"max_states": int(row_cnt.max()),
             "rows_one": int((row_cnt == 1).sum()),
             "rows_more": int((row_cnt > 1).sum()),
+            "rows_warp": int((row_cnt > K8_SMALL_ROW).sum()),
             "max_run": int(run.max()),
             "mean_run": float(run[run > 0].double().mean())}
 
@@ -2874,10 +2913,12 @@ def phase_fused_parity(cfg: SmokeConfig, idx, kmer_index, reads, device):
         f" {cuda_s:.3f} s cuda submit+wait, {cpu_s:.3f} s cpu")
 
 
-def genotype_args(gram: Path, out: Path, reads: Path, engine: str):
+def genotype_args(gram: Path, out: Path, reads: Path, engine: str,
+                  ploidy: str = "haploid"):
     return ["genotype", "--gram_dir", str(gram), "--genotype_dir", str(out),
             "--reads", str(reads), "--sample_id", "smoke", "--seed", "7",
-            "--engine", engine, "--force"]
+            "--engine", engine, "--force"] + (
+                ["--ploidy", ploidy] if ploidy != "haploid" else [])
 
 
 class _Count:
@@ -3545,6 +3586,7 @@ class LargeConfig:
     read_len: int = 150
     kmer_size: int = 10
     reads: int = 60_000           # three 20,000-read device buffers
+    packed_reads: int = 40_000    # the packed-rank run's: two buffers
     parity_reads: int = 4_000
     seed: int = 42
 
@@ -3565,6 +3607,7 @@ def build_large(out: Path) -> dict:
                                 lc.read_len, lc.kmer_size, lc.seed,
                                 load=False)
     write_fastq(out / "reads_parity.fq", reads[:lc.parity_reads])
+    write_fastq(out / "reads_packed.fq", reads[:lc.packed_reads])
     print(json.dumps({"summary": summary,
                       "made_s": time.perf_counter() - t0}), flush=True)
     t0 = time.perf_counter()
@@ -3578,16 +3621,19 @@ class LargeBuild:
     """Phase 6's workload, built by ``--build-large`` in a process of its
     own (the card hidden from it, two threads for its libraries) while
     phases 0-5b run, so that the host's build of a 25M-row index overlaps
-    them; its host-engine oracle run overlaps phase 6a's first run."""
+    them; its host-engine oracle run overlaps phase 6a's first run.
+    Phase 7's two graphs are built the same way by ``--build-mixed``
+    (``name`` "mixed")."""
 
-    def __init__(self, work: Path):
-        self.out = work / "large"
+    def __init__(self, work: Path, name: str = "large"):
+        self.out = work / name
         self.out.mkdir()
-        self.log_path = work / "large_build.log"
+        self.what = {"large": "phase 6", "mixed": "phase 7"}[name]
+        self.log_path = work / f"{name}_build.log"
         self.log = open(self.log_path, "w")
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(
-            [sys.executable, str(REPO / "chip_smoke.py"), "--build-large",
+            [sys.executable, str(REPO / "chip_smoke.py"), f"--build-{name}",
              str(self.out)], stdout=self.log, stderr=subprocess.STDOUT,
             env=dict(os.environ, CUDA_VISIBLE_DEVICES="",
                      GRAMTOOLS_TORCH_DEVICE="cpu", OMP_NUM_THREADS="2"))
@@ -3606,10 +3652,11 @@ class LargeBuild:
                     return got
             if self.proc.poll() is not None:
                 self.wait()
-                raise RuntimeError("phase 6's build process ended without "
-                                   "its summary line")
+                raise RuntimeError(f"{self.what}'s build process ended "
+                                   f"without its summary line")
             if time.perf_counter() - waited > 900:
-                raise TimeoutError("phase 6's build: no summary in 900 s")
+                raise TimeoutError(f"{self.what}'s build: no summary in "
+                                   f"900 s")
             time.sleep(0.5)
 
     def wait(self) -> dict:
@@ -3619,8 +3666,8 @@ class LargeBuild:
         self.log.close()
         text = self.log_path.read_text()
         if rc != 0:
-            raise RuntimeError(f"phase 6's build process failed (exit {rc}):"
-                               f"\n{text[-3000:]}")
+            raise RuntimeError(f"{self.what}'s build process failed (exit "
+                               f"{rc}):\n{text[-3000:]}")
         got = json.loads(text.strip().splitlines()[-1])
         got["wall_s"] = time.perf_counter() - self.t0
         return got
@@ -3634,10 +3681,10 @@ class LargeBuild:
 
 class CardChild:
     """``chip_smoke.py MODE PATH`` in a process of its own on the card,
-    its output into ``log``: the output-parity runs (phases 4, 5c and
-    6b's device run), whose host work (index loads, outputs) then
-    overlaps one of phase 6a's runs. Their launches are not counted
-    here."""
+    its output into ``log``: the output-parity runs (phases 4, 5c, 6b,
+    7b and 7d's device runs), whose host work (index loads, outputs)
+    then overlaps one of phase 6a's or 7a's runs. Their launches are not
+    counted here."""
 
     def __init__(self, what: str, mode: str, path: Path, log: Path,
                  **env):
@@ -3754,25 +3801,25 @@ def phase_large(large: LargeBuild, device, work: Path,
     FM index has n >= 2**24 rows and a stub narrow table, so the
     engine's narrow plan runs every step in K2 and K3 never runs.
     (a) ``genotype --engine device`` of its 60,000 reads (three
-    20,000-read buffers), with the dense rank (the default) and with
-    ``GRAMTOOLS_TPU_RANK=packed``: the Timer report's phases, the
-    host-fallback share, the launches (counts set to 0 just before each
-    run and read just after: K2 one a scan program, the buffers' and
-    the retry passes', each of the plan's four phases; K3 none; K7, K8
-    and K9 each above 0; the standalone K1 none), the fallbacks by
-    reason and which of K8's key instances ran; (b) output parity: the
-    device run on the first 4,000 reads writes files byte-equal to the
-    port's host engine's; (c) K2 on each run's warm buffer against its
-    plain version over 20 repeated launches, timed (check_k2_large);
-    (d) the index-sharded scan (K10) of the dense run's first buffer
-    over 4 and 3 shards, on a fresh dense-rank engine of the run's index
-    (check_index_sharded, untraced). Returns what the kernels line
-    takes of it."""
+    20,000-read buffers) with the dense rank (the default), phases 4 and
+    5c beside it, and of its first 40,000 (two buffers) with
+    ``GRAMTOOLS_TPU_RANK=packed``, (b)'s device run beside it
+    (counted_genotype: the Timer report's phases, the host-fallback
+    share and its reasons, the launches, K8's key instance; K2 one a
+    scan program, the buffers' and the retry passes', each of the plan's
+    four phases; K3 none; K6, K7, K8 and K9 each above 0; the standalone
+    K1 none); (b) output parity: the device run (dense rank) on the
+    first 4,000 reads writes files byte-equal to the port's host
+    engine's; (c) between the two runs, with the card to itself, K2 on
+    the dense run's warm buffer against its plain version over 20
+    repeated launches, timed (check_k2_large), with the dense table and
+    with the packed records in its place; (d) the index-sharded scan
+    (K10) of the dense run's first buffer over 4 and 3 shards, on a fresh
+    dense-rank engine of the run's index (check_index_sharded,
+    untraced). Returns what the kernels line takes of it."""
     import torch
 
-    from gramtools_tpu_torch.cli import run as torch_cli
     from gramtools_tpu_torch.mapping.engine import LogBatchedEngine
-    from gramtools_tpu_torch.ops import select, wide_step
 
     lc = LargeConfig()
     built = large.wait_built()
@@ -3781,144 +3828,73 @@ def phase_large(large: LargeBuild, device, work: Path,
         f"its own beside phases 0-5b ({built['wall_s']:.1f} s from its "
         f"start; waited {built['wait_s']:.1f} s for it here): "
         f"{built['summary']}; written in {built['made_s']:.1f} s")
-    os.environ.pop("GRAMTOOLS_TPU_DEVICE_RECORD", None)
-    for knob in STAGE_KNOBS:
-        if knob in os.environ:
-            raise AssertionError(f"{knob} is set before the main path")
-    wide_cuda = wide_step.wide_steps_cuda
-    dispatch = LogBatchedEngine._dispatch_record
-    submit = LogBatchedEngine.scan_submit
-    key_bits = select.key_bits
-    runs, k2, engines, seconds = {}, {}, {}, {}
-    # phases 4 and 5c beside the dense run, (b)'s device run beside the
-    # packed one; each is waited for before that run's K2 timing
-    beside = {"dense": CardChild(
-        "phases 4 and 5c", "--parity-phases", work,
-        work / "parity_phases.log", GRAMTOOLS_TPU_RANK="packed")}
+    runs, k2, seconds = {}, {}, {}
+    beside = [CardChild("phases 4 and 5c", "--parity-phases", work,
+                        work / "parity_phases.log",
+                        GRAMTOOLS_TPU_RANK="packed")]
     try:
-        for rank in ("dense", "packed"):
-            os.environ["GRAMTOOLS_TPU_RANK"] = rank
+        for rank, reads, n in (("dense", "reads.fq", lc.reads),
+                               ("packed", "reads_packed.fq",
+                                lc.packed_reads)):
             if rank == "packed":
-                beside[rank] = CardChild(
+                beside.append(CardChild(
                     "phase 6b's device run", "--genotype-parity", out,
-                    work / "large_parity.log", GRAMTOOLS_TPU_RANK="dense")
-            plans, kept, programs, bits = [], {}, [0], []
-
-            def keep_wide(*args):
-                out_ = wide_cuda(*args)
-                if len(plans) == 1:                 # buffer 1, a warm buffer
-                    kept["args"], kept["out"] = args, out_
-                plans.append(len(args[3]))
-                return out_
-
-            def counted_dispatch(self, *args, **kwargs):
-                programs[0] += 1
-                return dispatch(self, *args, **kwargs)
-
-            def keep_engine(self, buffer, kmer_index, kmer_size, stats,
-                            first_raws=None):
-                if rank not in engines:
-                    engines[rank] = (self, buffer, kmer_index, kmer_size)
-                return submit(self, buffer, kmer_index, kmer_size, stats,
-                              first_raws=first_raws)
-
-            def keep_bits(*args):
-                bits.append(key_bits(*args))
-                return bits[-1]
-
-            for fn in _counted().values():
-                fn.launches = 0
-            timer_lines = TimerLines()
-            logger = logging.getLogger("gramtools_tpu")
-            logger.addHandler(timer_lines)
-            wide_step.wide_steps_cuda = keep_wide
-            LogBatchedEngine._dispatch_record = counted_dispatch
-            LogBatchedEngine.scan_submit = keep_engine
-            select.key_bits = keep_bits
-            t0 = time.perf_counter()
-            try:
-                if torch_cli(genotype_args(out / "gram", out / f"e2e_{rank}",
-                                           out / "reads.fq", "device")) != 0:
-                    raise RuntimeError(f"genotype ({rank} rank) failed")
-            finally:
-                logger.removeHandler(timer_lines)
-                wide_step.wide_steps_cuda = wide_cuda
-                LogBatchedEngine._dispatch_record = dispatch
-                LogBatchedEngine.scan_submit = submit
-                select.key_bits = key_bits
-            wall = time.perf_counter() - t0
-            launches = {name: fn.launches for name, fn in _counted().items()}
-            rep = json.loads((out / f"e2e_{rank}" /
-                              "genotype_report.json").read_text())
-            proc = rep["processes"]["genotype"]
-            eng = proc["engine"]
-            share = eng["host_fallbacks"] / max(
-                eng["device_mapped"] + eng["host_fallbacks"], 1)
-            args, path_out = kept["args"], kept["out"]
+                    work / "large_parity.log", GRAMTOOLS_TPU_RANK="dense"))
+            runs[rank] = r = counted_genotype(
+                out / "gram", out / f"e2e_{rank}", out / reads, rank,
+                "haploid")
+            args, _, path_out = r["kept"]["wide_steps_cuda"]
             di, phases = args[0], args[3]
-            steps = sum(e[0] for e in phases)
-            say(f"[phase 6a] genotype --engine device, {lc.reads} reads, rank "
-                f"{rank}: {wall:.1f} s wall, quasimap "
-                f"{timer_lines.phases['Quasimap']:.2f} s = "
-                f"{lc.reads / timer_lines.phases['Quasimap']:.0f} reads/s; "
-                f"phases (the run's timer report) "
-                f"{json.dumps(timer_lines.phases)}"
-                f"; device_mapped {eng['device_mapped']}, host_fallbacks "
-                f"{eng['host_fallbacks']} ({100 * share:.2f}%; by reason "
-                f"{dict(engines[rank][0].fallback_reasons)}), device_retried "
-                f"{eng['device_retried']}; FM index n = fm.size = {di.size} "
-                f"(2**24 = {STUB_ROWS}), narrow table "
-                f"{tuple(di.narrow_tab.shape)}; the "
-                f"warm buffer's K2 launch: phases {phases}, {steps} steps; "
-                f"{programs[0]} scan programs (buffers and retry passes); K8 "
-                f"key bits {sorted(set(bits))} "
-                f"({'128' if any(select.wide_keys(b) for b in bits) else '64'}"
-                f"-bit instance); launches {launches}")
+            run_line("6a", f"the P. falciparum-scale graph, rank {rank}", n,
+                     r, f"; FM index n = fm.size = {di.size} (2**24 = "
+                     f"{STUB_ROWS}), narrow table "
+                     f"{tuple(di.narrow_tab.shape)}; the warm buffer's K2 "
+                     f"launch: phases {phases}, "
+                     f"{sum(e[0] for e in phases)} steps",
+                     need=("wide_step", "replay", "per_base", "select",
+                           "unpack"))
+            launches = r["launches"]
             if di.size < STUB_ROWS or di.narrow_tab.shape[0] != 1:
                 raise AssertionError(f"index n={di.size}, narrow table "
                                      f"{tuple(di.narrow_tab.shape)}: not the "
                                      f"wide-only regime")
-            if set(plans) != {4} or len(plans) != launches["wide_step"]:
-                raise AssertionError(f"K2 calls of {plans} phases: not one "
-                                     f"call of the plan's 4 a scan program")
-            if launches["wide_step"] != programs[0] or any(
+            if set(r["plans"]) != {4} or len(r["plans"]) != launches[
+                    "wide_step"]:
+                raise AssertionError(f"K2 calls of {r['plans']} phases: not "
+                                     f"one call of the plan's 4 a scan "
+                                     f"program")
+            if launches["wide_step"] != r["programs"] or any(
                     launches[k] for k in ("narrow_step", "locked_step",
                                           "packed_rank", "sharded_index")):
                 raise AssertionError(
-                    f"launches {launches} over {programs[0]} scan programs: "
-                    f"K2 one a program, K3 and the standalone K1 none")
-            for name in ("replay", "per_base", "select", "unpack"):
-                if launches[name] <= 0:
-                    raise AssertionError(f"phase 6 launched no {name} kernel")
-            if eng["device_mapped"] <= 0:
-                raise AssertionError("no row was mapped on the device")
-            runs[rank] = {"wall_s": wall, "phases": timer_lines.phases,
-                          "fallback_share": share, "launches": launches,
-                          "programs": programs[0],
-                          "fallback_reasons": dict(
-                              engines[rank][0].fallback_reasons)}
-            seconds[rank] = beside[rank].wait()   # the card is ours again
-            if rank == "dense":
-                for line in beside[rank].lines("[phase 4]", "[phase 5c]"):
-                    say(line)
-            k2[rank] = check_k2_large(args, path_out, timing_runs)
-            m = k2[rank]
-            say(f"[phase 6c] K2 on the {rank}-rank run's warm buffer "
-                f"(buffer 1): {m['steps']} steps in one launch, "
-                f"R={args[1].shape[1]}, {m['records']} log records, "
-                f"{m['flagged']} rows flagged: kernel == plain version == "
-                f"the path's call over 20 launches (carry, flags, every "
-                f"record); queued events {m['ms']:.4f} ms kernel, "
-                f"{m['plain_ms']:.2f} ms plain version (one call); "
-                f"bound {m['bound_ms']:.4f} ms ({m['bytes']} bytes), kernel "
-                f"at {100 * m['bound_ms'] / m['ms']:.2f}% of it")
+                    f"launches {launches} over {r['programs']} scan "
+                    f"programs: K2 one a program, K3 and the standalone K1 "
+                    f"none")
+            seconds[rank] = beside[-1].wait()    # the card is ours again
+            if rank == "packed":
+                del r["kept"], r["idx"], r["first_submit"], args, path_out
+                continue
+            for line in beside[0].lines("[phase 4]", "[phase 5c]"):
+                say(line)
+            # the packed rank on the same buffer: the same inputs, with the
+            # packed records in place of the dense table
+            for kind, a in (("dense", args), ("packed", args[:7] + (
+                    rank_blocks(r["idx"], device),))):
+                k2[kind] = m = check_k2_large(a, path_out, timing_runs)
+                say(f"[phase 6c] K2 on the dense-rank run's warm buffer "
+                    f"(buffer 1), rank {kind}: {m['steps']} steps in one "
+                    f"launch, R={a[1].shape[1]}, {m['records']} log "
+                    f"records, {m['flagged']} rows flagged: kernel == plain "
+                    f"version == the path's call over 20 launches (carry, "
+                    f"flags, every record); queued events {m['ms']:.4f} ms "
+                    f"kernel, {m['plain_ms']:.2f} ms plain version (one "
+                    f"call); bound {m['bound_ms']:.4f} ms ({m['bytes']} "
+                    f"bytes), kernel at {100 * m['bound_ms'] / m['ms']:.2f}%"
+                    f" of it")
+            del r["kept"], args, path_out, a
     finally:
-        for child in beside.values():
+        for child in beside:
             child.stop()
-    used, batch, kmer_index, k = engines["dense"]
-    idx = used.idx
-    engines.clear()
-    del used
 
     # (b) output parity on the parity reads, dense rank
     host_s = large.wait()["host_s"]
@@ -3934,6 +3910,8 @@ def phase_large(large: LargeBuild, device, work: Path,
 
     # (d) the index-sharded scan of the dense run's first buffer, on a
     # fresh dense-rank engine (its first buffer's plan, as 5b's)
+    batch, kmer_index, k = runs["dense"].pop("first_submit")[:3]
+    idx = runs["dense"].pop("idx")
     os.environ["GRAMTOOLS_TPU_RANK"] = "dense"
     engine = LogBatchedEngine(idx, k, device=device)
     k10 = check_index_sharded("6d", engine, batch, kmer_index, k, device,
@@ -3943,6 +3921,482 @@ def phase_large(large: LargeBuild, device, work: Path,
     torch.cuda.synchronize()
     return {"runs": runs, "k2": k2, "k10": k10,
             "parity_phases_s": seconds["dense"]}
+
+
+def rank_blocks(idx, device):
+    """The packed rank's records of ``idx``'s FM index on ``device``."""
+    from gramtools_tpu_torch.ops import rank
+
+    return rank.blocks_tensor(rank.build_packed_occ(idx.fm), device)
+
+
+@dataclass
+class MixedConfig:
+    """Phase 7's two workloads. The mixed graph: bench.py's ``mixed``
+    profile at its sizes (a 4.4 Mb genome with 100,000 sites, 70% SNPs,
+    10% direct deletions, 10% insertions, 5% four-allele and 5% nested
+    sites; 150 bp reads from 8 haplotypes, k = 10, seed 42). The nested
+    MSA graph: ``build --prgs_bed`` of 40 regions of 1-4 kb on a 2 Mb
+    reference, 24 rows an MSA (common/workload.make_msa_workload),
+    20,000 reads. Both genotyped diploid."""
+    genome_len: int = 4_400_000
+    num_sites: int = 100_000
+    read_len: int = 150
+    kmer_size: int = 10
+    reads: int = 40_000           # two 20,000-read device buffers
+    msa_ref_len: int = 2_000_000
+    msa_regions: int = 40
+    msa_reads: int = 20_000
+    parity_reads: int = 4_000
+    seed: int = 42
+
+
+MIXED_GRAPHS = ("mixed", "msa")
+
+
+def build_mixed(out: Path) -> dict:
+    """The body of ``--build-mixed OUT``: phase 7's two graphs written and
+    built into ``OUT/mixed`` and ``OUT/msa`` with their parity reads, a
+    line with their summaries once both are built, then the port's host
+    engine's diploid genotype run of each graph's parity reads (7b's and
+    7d's oracle), all on the host. Returns those runs' seconds."""
+    from gramtools_tpu_torch.cli import run as torch_cli
+    from gramtools_tpu_torch.common.workload import (make_msa_workload,
+                                                     make_workload,
+                                                     write_fastq)
+
+    mc = MixedConfig()
+    t0 = time.perf_counter()
+    summary = {}
+    for name in MIXED_GRAPHS:
+        (out / name).mkdir()
+    _, _, reads, summary["mixed"] = make_workload(
+        out / "mixed", mc.genome_len, mc.num_sites, mc.reads, mc.read_len,
+        mc.kmer_size, mc.seed, load=False, profile="mixed")
+    write_fastq(out / "mixed" / "reads_parity.fq", reads[:mc.parity_reads])
+    _, _, reads, summary["msa"] = make_msa_workload(
+        out / "msa", mc.msa_ref_len, mc.msa_regions, mc.msa_reads,
+        mc.kmer_size, mc.seed, load=False)
+    write_fastq(out / "msa" / "reads_parity.fq", reads[:mc.parity_reads])
+    print(json.dumps({"summary": summary,
+                      "made_s": time.perf_counter() - t0}), flush=True)
+    host_s = {}
+    for name in MIXED_GRAPHS:
+        t0 = time.perf_counter()
+        if torch_cli(genotype_args(out / name / "gram", out / name /
+                                   "par_host", out / name / "reads_parity.fq",
+                                   "host", "diploid")) != 0:
+            raise RuntimeError(f"genotype --engine host failed ({name})")
+        host_s[name] = time.perf_counter() - t0
+    return {"host_s": host_s}
+
+
+def mixed_parity(out: Path) -> int:
+    """The body of ``--mixed-parity OUT``: the device engine's diploid
+    genotype run of each of phase 7's graphs' parity reads, into
+    ``OUT/<graph>/par_dev``."""
+    from gramtools_tpu_torch.cli import run as torch_cli
+
+    os.environ.pop("GRAMTOOLS_TPU_DEVICE_RECORD", None)
+    t0 = time.perf_counter()
+    for name in MIXED_GRAPHS:
+        if torch_cli(genotype_args(out / name / "gram", out / name /
+                                   "par_dev", out / name / "reads_parity.fq",
+                                   "device", "diploid")) != 0:
+            raise RuntimeError(f"genotype --engine device failed ({name})")
+    print(json.dumps({"seconds": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
+# run reports: what differs between two runs of the same inputs (timings,
+# memory, paths) and the device engine's counters, which the host run lacks
+REPORT_VOLATILE = {"run_time", "seconds", "peak_mem_mb", "total_runtime",
+                   "current_working_directory", "paths", "path_hashes",
+                   "engine"}
+
+
+def _report(path: Path):
+    def strip(obj):
+        if isinstance(obj, dict):
+            return {k: strip(v) for k, v in obj.items()
+                    if k not in REPORT_VOLATILE}
+        if isinstance(obj, list):
+            return [strip(v) for v in obj]
+        return obj
+    return strip(json.loads(path.read_text()))
+
+
+def assert_same_outputs(dev: Path, host: Path, what: str) -> int:
+    """PARITY_FILES and the genotype report (without timings, paths and
+    engine counters) of two runs equal; the number of files compared."""
+    for rel in PARITY_FILES:
+        if _read_output(dev / rel) != _read_output(host / rel):
+            raise AssertionError(f"{rel}: device != host ({what})")
+    if _report(dev / "genotype_report.json") != _report(
+            host / "genotype_report.json"):
+        raise AssertionError(f"genotype_report.json: device != host ({what})")
+    return len(PARITY_FILES) + 1
+
+
+def crossings(gram: Path, run: Path) -> dict:
+    """Mapped reads at the graph's kinds of site, from a run's coverage
+    files: at sites of 3 or more alleles, each read counted once a site
+    (the grouped counts); on direct-deletion alleles (the allele sums)."""
+    import numpy as np
+
+    from gramtools_tpu_torch.common.workload import site_table
+    from gramtools_tpu_torch.prg.linearise import PrgString
+
+    table = site_table(np.asarray(PrgString.from_file(gram / "prg").ints))
+    sums = [[int(c) for c in line.split()] for line in
+            (run / "coverage" / "allele_sum_coverage").read_text()
+            .splitlines()]
+    grouped = json.loads((run / "coverage" /
+                          "grouped_allele_counts_coverage.json").read_text())
+    counts = grouped["grouped_allele_counts"]["site_counts"]
+    multi = np.flatnonzero(table["alleles"] >= 3)
+    return {"multi_allelic": sum(sum(counts[s].values()) for s in multi),
+            "deletion": sum(sums[s][a] for s, a in table["empty"])}
+
+
+def counted_genotype(gram: Path, out: Path, reads: Path, rank: str,
+                     ploidy: str = "diploid", buffer: int = 1) -> dict:
+    """``genotype --engine device --ploidy ploidy`` with ``rank``: the
+    kernels' launches (set to 0 just before, read just after), the scan
+    programs dispatched (buffers and retry passes) and the wide phases
+    of each K2 call, the Timer report's phases, the engine's counters and
+    fallback reasons, K8's key instance, the engine's first
+    ``scan_submit`` arguments, and the kernels' calls of buffer
+    ``buffer`` (1, the second call of each, a warm buffer; 0 for a run
+    of one buffer: K2, K3, K7, K8 and K9), kept for the kernel checks
+    and stage 4's counts."""
+    from gramtools_tpu_torch.cli import run as torch_cli
+    from gramtools_tpu_torch.mapping import record, search_log
+    from gramtools_tpu_torch.mapping.engine import LogBatchedEngine
+    from gramtools_tpu_torch.ops import locked_step, select, wide_step
+
+    os.environ["GRAMTOOLS_TPU_RANK"] = rank
+    os.environ.pop("GRAMTOOLS_TPU_DEVICE_RECORD", None)
+    for knob in STAGE_KNOBS:
+        if knob in os.environ:
+            raise AssertionError(f"{knob} is set before the main path")
+    kept, calls, engines, bits, plans, programs = {}, {}, [], [], [], [0]
+    patched = [(wide_step, "wide_steps_cuda"),
+               (locked_step, "locked_tail_cuda"), (record, "replay"),
+               (search_log, "select_and_record_device"),
+               (record, "_record_per_base_device")]
+    saved = [getattr(mod, name) for mod, name in patched]
+    submit, key_bits = LogBatchedEngine.scan_submit, select.key_bits
+    dispatch = LogBatchedEngine._dispatch_record
+
+    def keep(name, fn):
+        def wrapper(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            out_ = fn(*args, **kwargs)
+            if name == "wide_steps_cuda":
+                plans.append(len(args[3]))
+            if calls[name] == buffer + 1:
+                kept[name] = (args, kwargs, out_)
+            return out_
+        return wrapper
+
+    def keep_engine(self, *args, **kwargs):
+        if not engines:
+            engines.append((self, args))
+        return submit(self, *args, **kwargs)
+
+    def keep_bits(*args):
+        bits.append(key_bits(*args))
+        return bits[-1]
+
+    def counted_dispatch(self, *args, **kwargs):
+        programs[0] += 1
+        return dispatch(self, *args, **kwargs)
+
+    for fn in _counted().values():
+        fn.launches = 0
+    timer_lines = TimerLines()
+    logger = logging.getLogger("gramtools_tpu")
+    logger.addHandler(timer_lines)
+    for (mod, name), fn in zip(patched, saved):
+        setattr(mod, name, keep(name, fn))
+    LogBatchedEngine.scan_submit, select.key_bits = keep_engine, keep_bits
+    LogBatchedEngine._dispatch_record = counted_dispatch
+    t0 = time.perf_counter()
+    try:
+        if torch_cli(genotype_args(gram, out, reads, "device",
+                                   ploidy)) != 0:
+            raise RuntimeError(f"genotype ({rank} rank) failed")
+    finally:
+        logger.removeHandler(timer_lines)
+        for (mod, name), fn in zip(patched, saved):
+            setattr(mod, name, fn)
+        LogBatchedEngine.scan_submit, select.key_bits = submit, key_bits
+        LogBatchedEngine._dispatch_record = dispatch
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in _counted().items()}
+    eng = json.loads((out / "genotype_report.json").read_text())[
+        "processes"]["genotype"]["engine"]
+    share = eng["host_fallbacks"] / max(
+        eng["device_mapped"] + eng["host_fallbacks"], 1)
+    sargs, skw, _ = kept["select_and_record_device"]
+    engine, first_submit = engines[0]
+    return {"wall_s": wall, "ploidy": ploidy, "phases": timer_lines.phases,
+            "engine": eng, "fallback_share": share,
+            "fallback_reasons": dict(engine.fallback_reasons),
+            "launches": launches, "programs": programs[0], "plans": plans,
+            "key_bits": sorted(set(bits)),
+            "stage4": stage4_counts(sargs, skw["trip_cap"]), "kept": kept,
+            "idx": engine.idx, "first_submit": first_submit}
+
+
+PATH_KERNELS = ("wide_step", "narrow_step", "locked_step", "replay",
+                "select", "per_base")
+"""The kernels of the narrow plan's path, each launched by every run of
+an index below 2**24 rows."""
+
+
+def run_line(tag: str, what: str, reads: int, r: dict, extra: str = "",
+             buffer: int = 1, need=PATH_KERNELS):
+    """Prints a counted_genotype run; fails unless each kernel of
+    ``need`` launched and a row was mapped on the device."""
+    import gramtools_tpu_torch.ops.select as select
+
+    wide = any(select.wide_keys(b) for b in r["key_bits"])
+    st = r["stage4"]
+    say(f"[phase {tag}] genotype --engine device --ploidy {r['ploidy']}, "
+        f"{what}, {reads} reads: {r['wall_s']:.1f} s wall, quasimap "
+        f"{r['phases']['Quasimap']:.2f} s = "
+        f"{reads / r['phases']['Quasimap']:.0f} reads/s; phases (the run's "
+        f"timer report) {json.dumps(r['phases'])}; device_mapped "
+        f"{r['engine']['device_mapped']}, host_fallbacks "
+        f"{r['engine']['host_fallbacks']} ({100 * r['fallback_share']:.2f}%;"
+        f" by reason {r['fallback_reasons']}), device_retried "
+        f"{r['engine']['device_retried']}; {r['programs']} scan programs "
+        f"(buffers and retry passes); K8 key bits {r['key_bits']} "
+        f"({'128' if wide else '64'}-bit instance); buffer {buffer}'s "
+        f"stage 4: "
+        f"at most {st['max_states']} live states a row, {st['rows_warp']} "
+        f"rows on the warp path (> {K8_SMALL_ROW} states), {st['rows_more']}"
+        f" rows with more than one; launches {r['launches']}{extra}")
+    for name in need:
+        if r["launches"][name] <= 0:
+            raise AssertionError(f"phase {tag} launched no {name} kernel")
+    if r["engine"]["device_mapped"] <= 0:
+        raise AssertionError(f"phase {tag}: no row was mapped on the device")
+
+
+def repeated(name: str, fn, want, runs: int = 20) -> int:
+    """``fn()`` ``runs`` times, each equal to ``want``; the largest
+    difference (0)."""
+    err = 0
+    for i in range(runs):
+        try:
+            err = max(err, _equal(fn(), want))
+        except AssertionError as e:
+            raise AssertionError(f"{name} kernel != plain version (launch "
+                                 f"{i} of {runs}): {e}") from None
+    return err
+
+
+def check_mixed_kernels(kept: dict, blocks, timing_runs: int) -> dict:
+    """Phase 7c: on buffer 1 of the mixed graph's dense-rank run, each
+    kernel of the path against its plain version, bit for bit: K2 (every
+    wide phase, one launch) and K3 (the hole-allocated and the locked
+    range, one launch) under the dense rank and, with the packed records
+    ``blocks`` in place of the dense table, the packed rank; K8 (its two
+    launches, K9 between them); each over 20 repeated launches; K7 and
+    K9 once. Each timed by queued events, with its bound. Returns
+    {kernel: numbers}."""
+    import torch
+
+    from gramtools_tpu_torch.mapping import record
+    from gramtools_tpu_torch.ops import locked_step, replay, wide_step
+
+    out = {}
+    wargs, _, wout = kept["wide_steps_cuda"]
+    assert wargs[7] is None, "phase 7c's buffer is not the dense run's"
+    for kind, a in (("dense", wargs), ("packed", wargs[:7] + (blocks,))):
+        m = check_k2_large(a, wout, timing_runs)
+        out[f"wide_step_{kind}"] = m
+    largs = kept["locked_tail_cuda"][0]
+    reads, carry, lp, le, lock, narrow = (largs[i] for i in (1, 2, 4, 5, 9,
+                                                          10))
+    assert narrow is not None and lock, "the path's tail has no narrow range"
+
+    def tail(fn, a):
+        lp2, le2 = torch.full_like(lp, -7), torch.full_like(le, -7)
+        return tuple(fn(*a[:4], lp2, le2, *a[6:])) + (lp2, le2)
+
+    for kind, a in (("dense", largs), ("packed", largs[:8] + (blocks,)
+                                       + largs[9:])):
+        want = tail(locked_step.locked_tail_torch, a)
+        err = repeated(f"K3 ({kind} rank)",
+                       lambda: tail(locked_step.locked_tail_cuda, a), want)
+        lp_t, le_t = torch.empty_like(lp), torch.empty_like(le)
+        ms = time_ms(lambda: locked_step.locked_tail_cuda(
+            *a[:4], lp_t, le_t, *a[6:]), timing_runs)
+        nbytes = tail_bytes(a, want[6])
+        out[f"narrow_locked_{kind}"] = {
+            "max_abs_err": err, "ms": ms, "bound_ms": bound_ms(nbytes),
+            "bytes": nbytes, "steps": reads.shape[0],
+            "flagged": int(want[4].sum()) - int(carry[4].sum())}
+    rargs = kept["replay"][0]
+    rargs = rargs[:8]
+    want = replay.replay_torch(*rargs)
+    err = _equal(replay.replay_cuda(*rargs), want)
+    out["replay"] = {"max_abs_err": err,
+                     "ms": time_ms(lambda: replay.replay_cuda(*rargs),
+                                   timing_runs),
+                     "bound_ms": bound_ms(replay_bytes(*rargs)),
+                     # log records whose parent is a record: chains of
+                     # two events or more
+                     "chained_records": int((rargs[2] >= 0).sum())}
+    sargs, skw, _ = kept["select_and_record_device"]
+    trip_cap = skw["trip_cap"]
+
+    def sel(plain):
+        b = list(sargs[:13]) + [torch.zeros_like(sargs[13])]
+        got = (record.select_torch(*b, trip_cap, 99) if plain else
+               record.select_and_record_device(*b, trip_cap=trip_cap,
+                                               stage=99))
+        return tuple(got) + (b[13],)
+
+    err = repeated("K8", lambda: sel(False), sel(True))
+    pargs = kept["_record_per_base_device"][0]
+    out["select"] = {
+        "max_abs_err": err,
+        "ms": time_ms(lambda: sel(False), timing_runs),
+        "bound_ms": bound_ms(select_bytes(sargs, pargs))}
+
+    def walk(fn):
+        b = list(pargs)
+        b[9], b[10] = pargs[9].clone(), torch.zeros_like(pargs[10])
+        return (fn(*b), b[10])
+
+    err = _equal(walk(record._record_per_base_device),
+                 walk(record._record_per_base_torch))
+    out["per_base"] = {
+        "max_abs_err": err,
+        "ms": time_ms(lambda: walk(record._record_per_base_device),
+                      timing_runs),
+        "bound_ms": bound_ms(per_base_bytes(pargs)[0]),
+        "states_allele_2": int((pargs[5][..., 1] >= 2).sum())}
+    return out
+
+
+def phase_mixed(mixed: LargeBuild, timing_runs: int, device) -> dict:
+    """Phase 7: the main path, diploid, on the graphs gramtools is for
+    (MixedConfig), built beside phases 0-6 (``--build-mixed``). (a)
+    ``genotype --engine device --ploidy diploid`` of the mixed graph's
+    40,000 reads with the dense rank and with the packed rank (counted_
+    genotype: launches, phases, fallbacks, K8's key instance, stage 4's
+    live states), and the reads mapped at its four-allele sites and on
+    its direct deletions; (b) its parity reads' device run (in a process
+    of its own beside (a), ``--mixed-parity``) byte-equal to the host
+    engine's; (d) the nested MSA graph's 20,000 reads, likewise, and its
+    parity; (c) with the card to itself, K2, K3, K7, K8 and K9 on the
+    dense run's buffer 1 against their plain versions
+    (check_mixed_kernels). Returns what the kernels line takes of it."""
+    import torch
+
+    mc = MixedConfig()
+    built = mixed.wait_built()
+    out = mixed.out
+    say(f"[phase 7] the mixed graph and the nested MSA graph, built in a "
+        f"process of their own beside phases 0-6 ({built['wall_s']:.1f} s "
+        f"from its start; waited {built['wait_s']:.1f} s for it here; "
+        f"written in {built['made_s']:.1f} s): mixed: "
+        f"{built['summary']['mixed']}; msa: {built['summary']['msa']}")
+    parity = CardChild("phase 7b and 7d's device runs", "--mixed-parity",
+                       out, out / "mixed_parity.log",
+                       GRAMTOOLS_TPU_RANK="dense")
+    runs = {}
+    try:
+        for rank in ("dense", "packed"):
+            r = counted_genotype(out / "mixed" / "gram",
+                                 out / "mixed" / f"e2e_{rank}",
+                                 out / "mixed" / "reads.fq", rank)
+            r["crossings"] = crossings(out / "mixed" / "gram",
+                                       out / "mixed" / f"e2e_{rank}")
+            run_line("7a", f"the mixed graph, rank {rank}", mc.reads, r,
+                     f"; mapped reads at sites of 3 or more alleles "
+                     f"{r['crossings']['multi_allelic']} (a read once a "
+                     f"site), on direct-deletion alleles "
+                     f"{r['crossings']['deletion']}")
+            if min(r["crossings"].values()) <= 0:
+                raise AssertionError(f"no mapped read crosses a kind of site:"
+                                     f" {r['crossings']}")
+            runs[rank] = r
+            del r["first_submit"]
+            if rank == "packed":
+                del r["kept"], r["idx"]
+        runs["msa"] = r = counted_genotype(out / "msa" / "gram",
+                                           out / "msa" / "e2e",
+                                           out / "msa" / "reads.fq", "dense",
+                                           buffer=0)
+        del r["kept"], r["idx"], r["first_submit"]
+        run_line("7d", "the nested MSA graph, rank dense", mc.msa_reads, r,
+                 buffer=0)
+        dev_s = parity.wait()
+    finally:
+        parity.stop()
+    host_s = mixed.wait()["host_s"]
+    for tag, name in (("7b", "mixed"), ("7d", "msa")):
+        n = assert_same_outputs(out / name / "par_dev", out / name /
+                                "par_host", f"the {name} graph")
+        say(f"[phase {tag}] {n} output files byte-equal on "
+            f"{mc.parity_reads} reads of the {name} graph, diploid: the "
+            f"port's device engine (dense rank; both graphs' runs "
+            f"{dev_s:.1f} s, in a process of their own beside 7a) vs its "
+            f"host engine ({host_s[name]:.1f} s run, in the build's "
+            f"process)")
+    torch.cuda.synchronize()
+    dense = runs["dense"]
+    k = check_mixed_kernels(dense.pop("kept"),
+                            rank_blocks(dense.pop("idx"), device),
+                            timing_runs)
+    st = dense["stage4"]
+    for name, m in k.items():
+        repeats = (" over 20 launches" if name.startswith(
+            ("wide", "narrow", "select")) else "")
+        rest = {a: b for a, b in m.items()
+                if a not in ("ms", "bound_ms", "max_abs_err")}
+        say(f"[phase 7c] {name} on the mixed graph's buffer 1 (dense run): "
+            f"kernel == plain version{repeats}; queued events "
+            f"{m['ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
+            f"({100 * m['bound_ms'] / m['ms']:.2f}%); {json.dumps(rest)}")
+    if st["max_states"] <= K8_SMALL_ROW:
+        say(f"[phase 7c] no row of buffer 1 has more than {K8_SMALL_ROW} "
+            f"live states (at most {st['max_states']}): stage 4's warp "
+            f"path did not run there")
+    return {"runs": runs, "kernels": k}
+
+
+def add_mixed(entries, mixed: dict):
+    """Phase 7 into the kernels line: every kernel's launches in its
+    runs, K8's warp-path rows, and the times of phase 7c."""
+    runs, k = mixed["runs"], mixed["kernels"]
+    prefix = {"wide_step": "wide_step_", "narrow_step": "narrow_locked_",
+              "locked_step": "narrow_locked_", "replay": "replay",
+              "select": "select", "per_base": "per_base"}
+    for entry in entries:
+        name = entry["name"]
+        entry["launches_mixed"] = {rank: runs[rank]["launches"][name]
+                                   for rank in ("dense", "packed")}
+        entry["launches_msa"] = runs["msa"]["launches"][name]
+        if name == "select":
+            entry["warp_rows_mixed"] = {
+                rank: runs[rank]["stage4"]["rows_warp"]
+                for rank in ("dense", "packed")}
+            entry["warp_rows_msa"] = runs["msa"]["stage4"]["rows_warp"]
+        if name in prefix:
+            entry["mixed"] = {kind: {a: m[a] for a in ("ms", "bound_ms",
+                                                        "max_abs_err")}
+                              for kind, m in k.items()
+                              if kind.startswith(prefix[name])}
+            entry["max_abs_err"] = max([entry["max_abs_err"]] + [
+                v["max_abs_err"] for v in entry["mixed"].values()])
 
 
 def add_large(entries, big: dict):
@@ -3977,8 +4431,10 @@ def run(cfg: SmokeConfig, device, scan_only: bool = False,
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         work = Path(tmp)
-        # phase 6's host-side build starts first: it is the longest chain
+        # phases 6's and 7's host-side builds start first: they are the
+        # longest chains
         large = None if scan_only or turns else LargeBuild(work)
+        mixed = None if scan_only or turns else LargeBuild(work, "mixed")
         try:
             probe = start_probe_build()
             _build.build_all(LIBS)
@@ -3997,6 +4453,8 @@ def run(cfg: SmokeConfig, device, scan_only: bool = False,
             big = phase_large(large, device, work, cfg.timing_runs)
             add_large(entries, big)
             lap("6")
+            add_mixed(entries, phase_mixed(mixed, cfg.timing_runs, device))
+            lap("7")
             say("[timing] host seconds by phase (phase 6's build ran "
                 "beside phases 0-5b, phases 4 and 5c in a process of their "
                 "own beside phase 6a's dense run, "
@@ -4004,8 +4462,9 @@ def run(cfg: SmokeConfig, device, scan_only: bool = False,
                     f"{name} {t - t_prev:.1f}" for (_, t_prev), (name, t)
                     in zip(LAPS, LAPS[1:])))
         finally:
-            if large is not None:
-                large.stop()
+            for child in (large, mixed):
+                if child is not None:
+                    child.stop()
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "gramtools_tpu"))
     if loaded:
@@ -4082,6 +4541,10 @@ def main() -> int:
         # phase 6's host-side build, in a process the card is hidden from
         print(json.dumps(build_large(Path(sys.argv[2]))), flush=True)
         return 0
+    if sys.argv[1:2] == ["--build-mixed"] and len(sys.argv) == 3:
+        # phase 7's, likewise
+        print(json.dumps(build_mixed(Path(sys.argv[2]))), flush=True)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -4102,6 +4565,8 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--genotype-parity"] and len(sys.argv) == 3:
         return genotype_parity(Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--mixed-parity"] and len(sys.argv) == 3:
+        return mixed_parity(Path(sys.argv[2]))
     if sys.argv[1:2] == ["--parity-phases"] and len(sys.argv) == 3:
         return parity_phases(Path(sys.argv[2]))
     if sys.argv[1:2] == ["--trace-k10"] and len(sys.argv) == 3:

@@ -185,6 +185,110 @@ def test_engine_on_cuda_matches_host_oracle(cuda, rank_kind, monkeypatch):
         assert [(key(s), n) for s, n in results[i]] == expected
 
 
+def _mixed_idx(seed=11, genome_len=20_000, num_sites=300):
+    """The mixed graph of common/workload.py (SNPs, direct deletions,
+    insertions, four-allele and nested sites) and 150 bp reads from 4
+    sampled haplotypes: (idx, reads)."""
+    from gramtools_tpu_torch.common.workload import (build_mixed_graph,
+                                                     sample_haplotypes,
+                                                     sample_reads)
+
+    rng = np.random.RandomState(seed)
+    prg_ints = build_mixed_graph(rng, genome_len, num_sites)
+    prg = PrgString(prg_ints)
+    paths = sample_haplotypes(prg_ints, dict(prg.end_positions), rng, 4)
+    return build_prg_index(prg), list(sample_reads(rng, paths, 300, 150))
+
+
+@pytest.mark.parametrize("rank_kind", ["dense", "packed"])
+def test_engine_on_cuda_matches_host_oracle_mixed_graph(cuda, rank_kind,
+                                                        monkeypatch):
+    """test_engine_on_cuda_matches_host_oracle on the mixed graph: the
+    scan kernels take its deletion jumps, adjacent markers and nested
+    sites, and every read's states equal the host oracle's."""
+    monkeypatch.setenv("GRAMTOOLS_TPU_RANK", rank_kind)
+    idx, reads = _mixed_idx()
+    k = 7
+    kmer_index = build_kmer_index(idx, k)
+    engine = LogBatchedEngine(idx, k, LogConfig(pool=4096, hits=16),
+                              device=cuda)
+    engine.retry_min = 1
+    before = (wide_step.wide_steps.launches,
+              locked_step.locked_tail.launches)
+    results = engine.search_buffer(reads, kmer_index, k, QuasimapStats())
+    assert engine.device_mapped > 0
+    assert all(a > b for a, b in zip((wide_step.wide_steps.launches,
+                                      locked_step.locked_tail.launches),
+                                     before))
+    key = lambda st: sorted((s.lo, s.hi, s.traversed, s.traversing)
+                            for s in st)
+    for i, read in enumerate(reads):
+        expected = []
+        for o in (read, revcomp(read)):
+            if not all_read_kmers_in_index(k, o, kmer_index):
+                continue
+            seeds = kmer_index.get(o[o.size - k:].astype(np.uint8).tobytes(),
+                                   [])
+            expected.append((key(search_read_backwards(o, seeds, k, idx)
+                                 if seeds else []), int(o.size)))
+        assert [(key(s), n) for s, n in results[i]] == expected, i
+
+
+def _mixed_per_base_inputs():
+    """The per-base recorder's (K9's) arguments of one fused buffer of
+    the mixed graph, taken on the CPU: (di, rt, the arguments)."""
+    idx, reads = _mixed_idx(seed=12)
+    k = 7
+    captured = []
+    per_base = record._record_per_base_device
+
+    def capture(*args):
+        captured.append(tuple(a.clone() if isinstance(a, torch.Tensor)
+                              else a for a in args))
+        return per_base(*args)
+
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setenv("GRAMTOOLS_TPU_RANK", "dense")
+        mp.setattr(record, "_record_per_base_device", capture)
+        engine = LogBatchedEngine(idx, k, LogConfig(pool=4096, hits=64),
+                                  device="cpu")
+        first = first_raw_draws(np.asarray(RandomInclusiveInt(3).raw_block(
+            len(reads)), dtype=np.uint32))
+        token = engine.scan_submit(reads, build_kmer_index_vectorised(idx, k),
+                                   k, QuasimapStats(), first_raws=first)
+        token[2][1].get()
+    finally:
+        mp.undo()
+    di, rt, *args = captured[0]
+    return di, rt, args
+
+
+def test_per_base_kernels_on_mixed_graph_repeated(cuda):
+    """K9 on a buffer of the mixed graph (four-allele sites, whose walk
+    follows nt_edges, and direct deletions, whose empty nodes it
+    crosses) against its plain version, over 20 repeated launches:
+    fallback bits and cov_diff bit for bit each time."""
+    di, rt, args = _mixed_per_base_inputs()
+    ps_trav, ps_ntrav, sel = args[3], args[4], args[5]
+    used = torch.arange(ps_trav.shape[1])[None, :] < ps_ntrav[:, None]
+    assert ((ps_trav[..., 1] >= 2) & used & sel[:, None]).any()
+    want_cov = args[8].clone()
+    want_fb = record._record_per_base_device(di, rt, *args[:8], want_cov,
+                                             *args[9:])
+    assert not torch.equal(want_cov, args[8])        # coverage was added
+    di_c = SimpleNamespace(sa=di.sa.to(cuda), size=di.size)
+    rt_c = _to_device(rt, cuda)
+    on = [a.to(cuda) for a in args[:8]]
+    before = walk.per_base_cuda.launches
+    for i in range(20):
+        cov = args[8].to(cuda)
+        fb = record._record_per_base_device(di_c, rt_c, *on, cov, *args[9:])
+        assert torch.equal(fb.cpu(), want_fb), i
+        assert torch.equal(cov.cpu(), want_cov), i
+    assert walk.per_base_cuda.launches == before + 20
+
+
 def test_cuda_device_from_environment(cuda, monkeypatch):
     from gramtools_tpu_torch.common.device import get_device
 

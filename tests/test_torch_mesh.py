@@ -240,9 +240,8 @@ def test_tables_copy_whole_to_another_device(monkeypatch):
 def test_mesh_engine_shard_invariance_mixed_graph():
     """1,000 150 bp reads on a mixed indel/nested graph: identical
     coverage and selections on 1 and 8 shards, carried by the device."""
-    from bench import build_mixed_graph
-
-    from gramtools_tpu_torch.common.workload import (sample_haplotypes,
+    from gramtools_tpu_torch.common.workload import (build_mixed_graph,
+                                                     sample_haplotypes,
                                                      sample_reads)
 
     rng = np.random.RandomState(3)
