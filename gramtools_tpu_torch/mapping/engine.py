@@ -66,6 +66,13 @@ to turn a key into a device time, so on CUDA:
     included (on the fused path also the fallback-reason tally);
   * ``complete_fold`` and ``complete_hostmap`` are host work: folding
     the loci triples, and the exact re-maps of the fallback rows.
+
+Each stage is also a span in ``common/timers.SPANS`` (``self.spans``),
+under the driver's span of the buffer it works on; the fused path's
+``complete_retry`` and ``complete_hostmap`` spans carry the rows they
+counted by reason, whose running sum is ``fallback_reasons``. The
+tables' first builds and ``flush_device_coverage`` are spans of their
+own, outside ``timers``.
 """
 from __future__ import annotations
 
@@ -84,6 +91,7 @@ from .jump_table import build_jump_table
 from .search import PrgIndex, SearchState
 
 from ..common.device import get_device
+from ..common.timers import OFF, recorder
 from ..ops.rank import blocks_tensor, build_packed_occ
 from .device_index import DeviceIndex, _round_up
 from .record import RecordTables, SeedTables
@@ -228,14 +236,17 @@ class LogBatchedEngine:
         # opt-in per-stage host seconds (GRAMTOOLS_TPU_TIMERS=1; the
         # module doc says what each key measures on a GPU)
         self.timers = collections.defaultdict(float)
-        self._timing = os.environ.get("GRAMTOOLS_TPU_TIMERS") == "1"
+        self.spans = recorder()
+        self._timing = self.spans is not OFF
 
-    def _tick(self, key, t0):
-        """Adds the seconds since ``t0`` to ``timers[key]`` when timing
-        is on; returns the new start."""
+    def _tick(self, key, t0, counts=None):
+        """Adds the seconds since ``t0`` to ``timers[key]``, and records
+        them as a span with ``counts``, when timing is on; returns the
+        new start."""
         if self._timing:
             t1 = time.perf_counter()
             self.timers[key] += t1 - t0
+            self.spans.add(key, t0, t1, counts)
             return t1
         return t0
 
@@ -481,7 +492,8 @@ class LogBatchedEngine:
 
     def _ensure_record_tables(self):
         if self.rt is None:
-            self.rt = RecordTables.build(self.idx, self.device)
+            with self.spans.span("ensure_record_tables"):
+                self.rt = RecordTables.build(self.idx, self.device)
         if self.cov_diff is None:
             self.cov_diff = [torch.zeros(self.rt.cov_size + 1,
                                          dtype=torch.int32, device=dev)
@@ -491,7 +503,8 @@ class LogBatchedEngine:
         """Upload the kmer index's seed-state payloads ONCE
         (record.SeedTables); per buffer only placed indices ship."""
         if self.st is None or self._st_for is not kmer_index:
-            self.st = SeedTables.build(kmer_index, self.device)
+            with self.spans.span("ensure_seed_tables"):
+                self.st = SeedTables.build(kmer_index, self.device)
             self._st_for = kmer_index
 
     def _dispatch_record(self, rows, reads_p, slot_sidx, slot_row, host_rows,
@@ -777,13 +790,14 @@ class LogBatchedEngine:
         it. The shards' rows are summed first."""
         if self.cov_diff is None:
             return
-        counts = finalise_cov_diff(
-            sum(row.cpu().numpy() for row in self.cov_diff))
-        g = self.idx.graph
-        if g.coverage.size:
-            merged = g.coverage.astype(np.int64) + counts
-            np.minimum(merged, np.iinfo(np.uint16).max, out=merged)
-            g.coverage[:] = merged.astype(np.uint16)
+        with self.spans.span("flush_device_coverage"):
+            counts = finalise_cov_diff(
+                sum(row.cpu().numpy() for row in self.cov_diff))
+            g = self.idx.graph
+            if g.coverage.size:
+                merged = g.coverage.astype(np.int64) + counts
+                np.minimum(merged, np.iinfo(np.uint16).max, out=merged)
+                g.coverage[:] = merged.astype(np.uint16)
         self.cov_diff = None
 
     def _record_complete_device(self, token, selection_seeds, first_raws,
@@ -810,10 +824,10 @@ class LogBatchedEngine:
         nrows = len(rows)
         fold_loci_rows(coverage, loci_rows)
         t0 = self._tick("complete_fold", t0)
-        for bit, name in FB_NAMES.items():
-            n_bit = int(((fallback[:nrows] & bit) != 0).sum())
-            if n_bit:
-                self.fallback_reasons[f"record:{name}"] += n_bit
+        flagged = {f"record:{name}": int(((fallback[:nrows] & bit) != 0).sum())
+                   for bit, name in FB_NAMES.items()}
+        flagged = {key: n for key, n in flagged.items() if n}
+        self.fallback_reasons.update(flagged)
 
         # full-budget retry pass for rows the phased budgets overflowed.
         # Rows already bound for the exact host path must NOT be retried:
@@ -844,20 +858,24 @@ class LogBatchedEngine:
                 fallback[ovf_rows] = fb2[:ovf_rows.size]
                 mapped[ovf_rows] = mapped2[:ovf_rows.size]
                 self.device_retried += int(ovf_rows.size)
-        t0 = self._tick("complete_retry", t0)
+        t0 = self._tick("complete_retry", t0, flagged)
 
         # exact host path for unseeded / still-overflowed / flagged rows;
         # device rows are tallied vectorised
         host_mask = np.zeros(nrows, dtype=bool)
         for r in host_rows:
             host_mask[r] = True
+        overflowed = ovf[:nrows] & ~host_mask
+        reasons = {"unseeded": int(host_mask.sum()),
+                   "overflow": int(overflowed.sum()),
+                   "record_flagged": int(((fallback[:nrows] != 0)
+                                          & ~host_mask & ~overflowed).sum())}
+        reasons = {key: n for key, n in reasons.items() if n}
+        self.fallback_reasons.update(reasons)
         need_host = host_mask | ovf[:nrows] | (fallback[:nrows] != 0)
+        self.host_fallbacks += int(need_host.sum())
         for row in np.flatnonzero(need_host):
             i, read = rows[row]
-            self.fallback_reasons[
-                "unseeded" if host_mask[row] else
-                "overflow" if ovf[row] else "record_flagged"] += 1
-            self.host_fallbacks += 1
             seed = read[read.size - k:].astype(np.uint8).tobytes()
             seed_states = kmer_index.get(seed, [])
             states = (search_read_backwards(read, seed_states, k, self.idx)
@@ -875,7 +893,7 @@ class LogBatchedEngine:
         self.device_mapped += n_dev
         stats.exact_mapped_reads_count += n_mapped
         stats.no_extension_reads_count += n_dev - n_mapped
-        self._tick("complete_hostmap", t0)
+        self._tick("complete_hostmap", t0, reasons)
 
     def record_complete(self, token, selection_seeds, first_raws, stats,
                         coverage, kmer_index=None, kmer_size=None):

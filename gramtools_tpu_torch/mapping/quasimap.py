@@ -16,12 +16,24 @@ threads, so the pool then spawns fresh workers and ships them the
 non-pipelined path, as in the JAX package: ``engine.search_buffer``
 (scan + host replay) per buffer, then selection and recording in the
 workers.
+
+Under ``GRAMTOOLS_TPU_TIMERS=1`` a call records spans in
+``common/timers.SPANS``: ``quasimap_reads`` around the call, holding
+``coverage_empty``; with an engine, one ``iteration`` a buffer under the
+buffer's id, holding its ``read_parse`` (the next buffer from
+``iter_read_buffers``), ``rng_draws`` (the selection seeds and their
+first draws) and the engine's ``scan_submit`` and ``record_complete``
+(the latter under the id of the buffer it completes, the one submitted
+before); at each file's end a ``read_parse`` with no buffer; after the
+loop the last ``record_complete`` and ``coverage_finalise``. Without an
+engine the buffers' ``read_parse`` and ``rng_draws`` sit in the call.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, Optional
 
+import contextlib
 import os
 
 import numpy as np
@@ -29,6 +41,7 @@ import torch
 
 from ..common.rng import RandomInclusiveInt, first_raw_draws
 from ..common.seq import iter_fastx, encode_dna, revcomp
+from ..common.timers import recorder
 from ..index.kmer_index import KmerIndex
 from .coverage import Coverage, record_search_states
 from .search import PrgIndex, SearchState, search_read_backwards
@@ -194,11 +207,26 @@ def quasimap_reads(reads_fpaths: List[str], kmer_index: KmerIndex,
     selection RNG shard-invariant. ``buffer_size`` overrides the
     5,000-read reference buffer (throughput mode for device engines;
     changes the selection-RNG stream order, stays self-consistent)."""
+    rec = recorder()
+    with rec.span("quasimap_reads"):
+        stats, coverage = _map_buffers(
+            reads_fpaths, kmer_index, idx, kmer_size, seed, engine,
+            max_threads, buffer_size, rec)
+        with rec.span("coverage_finalise"):
+            coverage.finalise()
+    return stats, coverage
+
+
+def _map_buffers(reads_fpaths, kmer_index, idx, kmer_size, seed, engine,
+                 max_threads, buffer_size, rec):
+    """quasimap_reads' loop over the buffers, spans in ``rec``; the
+    coverage comes back unfinalised."""
     import logging
     log = logging.getLogger("gramtools_tpu")
 
     stats = QuasimapStats()
-    coverage = Coverage.empty(idx)
+    with rec.span("coverage_empty"):
+        coverage = Coverage.empty(idx)
     master_seed_generator = RandomInclusiveInt(seed)
     last_reported = 0
     size = READS_BUFFER_SIZE if buffer_size is None else buffer_size
@@ -209,44 +237,63 @@ def quasimap_reads(reads_fpaths: List[str], kmer_index: KmerIndex,
     pipelined = (engine is not None and pool is None
                  and hasattr(engine, "scan_submit")
                  and hasattr(engine, "record_complete"))
-    in_flight = None  # (token, selection_seeds, first_raws)
+    in_flight = None  # (token, selection_seeds, first_raws, buffer id)
     try:
         for reads_fpath in reads_fpaths:
-            for buffer in iter_read_buffers(reads_fpath, size):
-                # progress every >=10k processed reads (quasimap.cpp:92-101)
-                if stats.all_reads_count - last_reported >= 10000:
-                    log.info("processed %d reads", stats.all_reads_count)
-                    last_reported = stats.all_reads_count
-                # one seed drawn per buffer slot, even for unfilled slots
-                # (quasimap.cpp:136-137): preserves RNG stream parity
-                selection_seeds = master_seed_generator.raw_block(size)
-                first_raws = first_raw_draws(np.asarray(selection_seeds,
-                                                        dtype=np.uint32))
-                if pipelined:
-                    token = engine.scan_submit(buffer, kmer_index, kmer_size,
-                                               stats, first_raws=first_raws)
-                    if in_flight is not None:
-                        engine.record_complete(*in_flight, stats, coverage)
-                    in_flight = (token, selection_seeds, first_raws)
-                elif engine is not None:
-                    _map_buffer_batched(buffer, selection_seeds, first_raws,
-                                        coverage, kmer_index, idx, kmer_size,
-                                        stats, engine, pool)
-                elif pool is not None:
-                    _map_buffer_pool(buffer, selection_seeds, first_raws,
-                                     coverage, idx, stats, pool)
-                else:
-                    for i, read in enumerate(buffer):
-                        stats.all_reads_count += 2
-                        if read.size == 0:
-                            stats.skipped_reads_count += 2
-                            continue
-                        quasimap_forward_reverse(read, coverage, kmer_index,
-                                                 idx, kmer_size, stats,
-                                                 selection_seeds[i],
-                                                 int(first_raws[i]))
+            buffers = iter_read_buffers(reads_fpath, size)
+            while True:
+                t0 = rec.now()
+                buffer = next(buffers, None)
+                if buffer is None:
+                    rec.add("read_parse", t0)     # the end of the file
+                    break
+                buf = rec.new_buffer()
+                with (rec.span("iteration", buf, start=t0)
+                      if engine is not None else contextlib.nullcontext()):
+                    rec.add("read_parse", t0, buffer=buf)
+                    # progress every >=10k processed reads
+                    # (quasimap.cpp:92-101)
+                    if stats.all_reads_count - last_reported >= 10000:
+                        log.info("processed %d reads", stats.all_reads_count)
+                        last_reported = stats.all_reads_count
+                    # one seed drawn per buffer slot, even for unfilled
+                    # slots (quasimap.cpp:136-137): preserves RNG stream
+                    # parity
+                    with rec.span("rng_draws", buf):
+                        selection_seeds = master_seed_generator.raw_block(
+                            size)
+                        first_raws = first_raw_draws(
+                            np.asarray(selection_seeds, dtype=np.uint32))
+                    if pipelined:
+                        with rec.span("scan_submit"):
+                            token = engine.scan_submit(
+                                buffer, kmer_index, kmer_size, stats,
+                                first_raws=first_raws)
+                        if in_flight is not None:
+                            with rec.span("record_complete", in_flight[3]):
+                                engine.record_complete(*in_flight[:3], stats,
+                                                       coverage)
+                        in_flight = (token, selection_seeds, first_raws, buf)
+                    elif engine is not None:
+                        _map_buffer_batched(buffer, selection_seeds,
+                                            first_raws, coverage, kmer_index,
+                                            idx, kmer_size, stats, engine,
+                                            pool)
+                    elif pool is not None:
+                        _map_buffer_pool(buffer, selection_seeds, first_raws,
+                                         coverage, idx, stats, pool)
+                    else:
+                        for i, read in enumerate(buffer):
+                            stats.all_reads_count += 2
+                            if read.size == 0:
+                                stats.skipped_reads_count += 2
+                                continue
+                            quasimap_forward_reverse(
+                                read, coverage, kmer_index, idx, kmer_size,
+                                stats, selection_seeds[i], int(first_raws[i]))
         if in_flight is not None:
-            engine.record_complete(*in_flight, stats, coverage)
+            with rec.span("record_complete", in_flight[3]):
+                engine.record_complete(*in_flight[:3], stats, coverage)
             in_flight = None
         if engine is not None and hasattr(engine, "flush_device_coverage"):
             # per-base coverage accumulated on device -> one transfer/run
@@ -254,7 +301,6 @@ def quasimap_reads(reads_fpaths: List[str], kmer_index: KmerIndex,
     finally:
         if pool is not None:
             pool.terminate()
-    coverage.finalise()
     return stats, coverage
 
 

@@ -96,16 +96,20 @@ def build_all(names) -> None:
 def load(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if needed and return the loaded
     library. The build seconds are kept in ``build_seconds[name]``
-    (0.0 when a built library was already there)."""
+    (0.0 when a built library was already there); the first load is a
+    span ``kernel_load:<name>`` under ``GRAMTOOLS_TPU_TIMERS=1``."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    t0 = time.perf_counter()
-    job = _start(name)
-    if job is not None:
-        _finish(name, job)
-    build_seconds.setdefault(name, time.perf_counter() - t0)
-    lib = ctypes.CDLL(str(library_path(name)))
+    from ..common.timers import recorder
+
+    with recorder().span(f"kernel_load:{name}"):
+        t0 = time.perf_counter()
+        job = _start(name)
+        if job is not None:
+            _finish(name, job)
+        build_seconds.setdefault(name, time.perf_counter() - t0)
+        lib = ctypes.CDLL(str(library_path(name)))
     _LIBS[name] = lib
     return lib
 
